@@ -1,0 +1,41 @@
+"""Model factory: cfg -> torch module (port of
+s4g_tpu/models/build_model.py).  Only PN2_CLS, the deployed curvature
+model, is ported; losses and metrics come with training (ROADMAP.md §1
+item 9)."""
+
+from __future__ import annotations
+
+import torch
+
+from ..configs.config import Config
+from .pointnet2 import PointNet2CLS
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(cfg: Config) -> torch.dtype:
+    return _DTYPES[cfg.MODEL.COMPUTE_DTYPE]
+
+
+def build_model(cfg: Config) -> PointNet2CLS:
+    """Returns the eval-mode network for cfg.MODEL.TYPE (PN2_CLS only)."""
+    if cfg.MODEL.TYPE != "PN2_CLS":
+        raise NotImplementedError(
+            f"model type {cfg.MODEL.TYPE!r} is not ported yet "
+            "(ROADMAP.md §1 item 8); the port runs PN2_CLS")
+    pn2 = cfg.MODEL.PN2
+    net = PointNet2CLS(
+        score_classes=cfg.DATA.SCORE_CLASSES,
+        seg_channels=pn2.SEG_CHANNELS,
+        num_removal_directions=cfg.DATA.NUM_REMOVAL_DIRECTIONS,
+        dtype=compute_dtype(cfg),
+        num_centroids=pn2.NUM_CENTROIDS,
+        radius=pn2.RADIUS,
+        num_neighbours=pn2.NUM_NEIGHBOURS,
+        sa_channels=pn2.SA_CHANNELS,
+        fp_channels=pn2.FP_CHANNELS,
+        num_fp_neighbours=pn2.NUM_FP_NEIGHBOURS,
+        sort_points=pn2.SORT_POINTS,
+        fps_shards=pn2.FPS_SHARDS,
+    )
+    return net.eval()
