@@ -15,18 +15,28 @@ run, but the run then exits non-zero without printing a result:
    seeded synthetic scene, held against its plain PyTorch twin on the card
    (indices and counts exact, distances within 1e-6), and timed with CUDA
    events (CUDA-graph replays of back-to-back launches, so host launch cost
-   is excluded), beside its plain twin's time and its bound;
+   is excluded), beside its plain twin's time and its bound; then K3 (the
+   fused SA1 stage of detect_batch) at b = 2 on a tabletop and a clutter
+   scene, held against its twin (zero rows exact, the rest within 1e-2 of
+   the output's max: f32 sums in another order flip an odd bf16 rounding
+   of a hidden activation), timed beside its twin, its bound and the
+   unfused SA1 route at the same b = 2;
 3. reference: the detect stages at a narrow width that still takes every
    kernel route, on the GPU and on the CPU (plain twins), each stage fed
-   the same inputs on both devices (see `_reference_phase`);
+   the same inputs on both devices (see `_reference_phase`); then the
+   detect_batch stages at b = 2 the same way, at a narrow width whose SA1
+   the fused stage takes (`_batch_reference_phase`);
 4. main path: `GraspDetector(model="curvature_model").detect` at full width
    with seeded random weights on a synthetic camera-frame tabletop (a plane
    plus boxes), a few times, then a clutter scene; per-stage and total ms,
    the number of valid grasps, the rotations' orthonormality, whether the
-   SA1 slab window overflowed, and every kernel's launch count (each must
-   be > 0);
-5. profile: one detect under torch.profiler — device time by kernel and
-   the device's idle share.
+   SA1 slab window overflowed, and the launch count of each of its kernels
+   (each must be > 0); then `detect_batch` at b = 1, 2 and 4 on tabletops
+   (timed; SA1 is K3 at b >= 2) and at b = 2 and 4 on tabletops mixed with
+   clutter scenes, whose SA1 windows overflow (the full-scan fallback), with
+   the launches of its kernels counted the same way (K3's must be > 0);
+5. profile: one detect, and one detect_batch at b = 2, under torch.profiler
+   — device time by kernel and the device's idle share.
 
 Then one JSON line with every kernel's numbers and, last, the contract line
 `{"ok": true, "device": {...}}`.  Without a CUDA device, or without the
@@ -48,9 +58,16 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # Published H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the
 # tensor cores and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 NUM_DETECT = 3
+NUM_BATCH = 3
+
+# Kernels each main path must launch.
+DETECT_KERNELS = ("fps_lane", "ball_query_slab", "three_nn",
+                  "collision_counts")
+BATCH_KERNELS = ("fps_lane", "sa1_fused", "three_nn", "collision_counts")
 
 
 def _bound_ms(ops: float, nbytes: float):
@@ -295,6 +312,112 @@ def _kernel_phase(inp, torch):
     return report
 
 
+def _batch_sa1_inputs(det, torch, np):
+    """K3's inputs on the detect_batch path at b = 2, from a seeded tabletop
+    and a seeded clutter scene: model input, each scene's widest-axis sort,
+    the SA1 FPS, then the fused stage's windows (and the slab ball query's,
+    for the unfused route)."""
+    from s4g_tpu_torch.models.pn2_modules import gather_cl
+    from s4g_tpu_torch.ops.neighbors import _axis_keys, slab_windows
+    from s4g_tpu_torch.ops.sa_fused import sa1_slab_setup
+    from s4g_tpu_torch.ops.sampling import farthest_point_sample
+    from s4g_tpu_torch.pipeline.detector import prep_batch
+
+    cfg = det.cfg.MODEL.PN2
+    padded, valid = zip(*(det._pad_cloud(c) for c in (
+        tabletop_cloud(np.random.RandomState(7)),
+        clutter_cloud(np.random.RandomState(8)))))
+    gen = torch.Generator(device=det.device).manual_seed(7)
+    r, n = cfg.RADIUS[0], det.num_input
+    with torch.no_grad():
+        xyz = prep_batch(torch.stack(padded), torch.stack(valid), n,
+                         generator=gen)
+        axis = torch.argmax(torch.amax(xyz, dim=1) - torch.amin(xyz, dim=1),
+                            dim=1)
+        keys = torch.gather(xyz, 2, axis[:, None, None].expand(-1, n, 1))
+        xyz = gather_cl(xyz, torch.argsort(keys[..., 0], dim=1, stable=True))
+        pts = xyz.transpose(1, 2).contiguous()
+        idx = farthest_point_sample(pts, cfg.NUM_CENTROIDS[0], num_shards=128,
+                                    sort_local=True)
+        cents = gather_cl(xyz, idx).transpose(1, 2).contiguous()
+        pkeys, ckeys = _axis_keys(pts, axis), _axis_keys(cents, axis)
+        lo_tile, overflow = sa1_slab_setup(pkeys, ckeys, r, n)
+        lo_k2, _ = slab_windows(pkeys, ckeys, r * r, n)
+    return {"pts": pts, "cents": cents, "lo_tile": lo_tile,
+            "overflow": bool(overflow), "lo_k2": lo_k2, "radius": r,
+            "k": cfg.NUM_NEIGHBOURS[0], "mlp": det.net.sa_modules[0].mlp}
+
+
+def _k3_phase(inp, torch):
+    """K3 against its plain twin on the card, then timed beside the twin, its
+    bound and (for information) the unfused SA1 route at the same b: K2 +
+    gather + the three PointConv layers + max."""
+    from s4g_tpu_torch.ops import neighbors as nb
+    from s4g_tpu_torch.ops import sa_fused as sf
+
+    pts, cents, lo, r, k = (inp["pts"], inp["cents"], inp["lo_tile"],
+                            inp["radius"], inp["k"])
+    b, _, n = pts.shape
+    m = cents.shape[2]
+    mlp = inp["mlp"]
+    with torch.no_grad():
+        (w1, b1), (w2, b2), (w3, b3) = mlp.folded_params()
+        args = (pts, cents, lo, r, k, w1, b1, (w2, w3), (b2, b3))
+        got = sf.sa1_fused_slab(*args)
+        torch.cuda.synchronize()
+        want = sf._sa1_fused_plain(*args)
+        cnt = nb._ball_query_slab_plain(pts, cents, lo, r * r, k, True)[1]
+    empty = cnt == 0
+    if torch.any(got[empty] != 0) or torch.any(want[empty] != 0):
+        raise AssertionError("sa1_fused: a centroid with no key in range "
+                             "has a non-zero row")
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if not err <= 1e-2 * scale:
+        raise AssertionError(f"sa1_fused: max |kernel - plain| = {err} > "
+                             f"1e-2 x max |plain| = {1e-2 * scale}")
+    differ = float((got != want).double().mean())
+
+    def unfused():
+        idx, cnt2 = nb.ball_query_fused_slab(pts, cents, inp["lo_k2"], r, k,
+                                             True)
+        keys = nb.flat_gather_rows(pts.transpose(1, 2),
+                                   idx.reshape(b, m * k)).reshape(b, m, k, 3)
+        rel = keys - cents.transpose(1, 2)[:, :, None, :]
+        rel = torch.where(cnt2[..., None, None] > 0, rel, 0.0)
+        return mlp(rel, max_pool_k=k)
+
+    with torch.no_grad():
+        ms = _graph_ms(lambda: sf.sa1_fused_slab(*args))
+        plain = _event_ms(lambda: sf._sa1_fused_plain(*args), reps=5)
+        unfused_ms = _graph_ms(unfused)
+    # Work this run's data needs: each centroid's `count` distinct slots
+    # through the chain (a repeated slot never changes the max); 9 f32
+    # operations per (centroid, key) of its window and 6 per layer-1 unit.
+    c1, c2, c3 = w1.shape[1], w2.shape[1], w3.shape[1]
+    rows = float(cnt.sum())
+    t_ops = (2.0 * rows * (c1 * c2 + c2 * c3) / PEAK_BF16_FLOPS
+             + (9.0 * b * m * nb.BQ_WINDOW + 6.0 * rows * c1)
+             / PEAK_F32_FLOPS)
+    nbytes = (12 * b * (n + m) + 4 * lo.numel()
+              + 4 * (3 * c1 + c1 + c1 * c2 + c2 + c2 * c3 + c3)
+              + 4 * b * m * c3)
+    t_bytes = nbytes / PEAK_BYTES
+    bound = 1e3 * max(t_ops, t_bytes)
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"kernel sa1_fused inputs: b={b}, N={n}, M={m}, K={k}, widths "
+          f"{c1}/{c2}/{c3}, windows overflow={inp['overflow']}, selected "
+          f"rows {int(rows)} of {b * m * k}, empty centroids "
+          f"{int(empty.sum())}", flush=True)
+    print(f"kernel sa1_fused: max|kernel-plain|={err:.3g} (max|plain| "
+          f"{scale:.3g}), entries that differ {differ:.3e}; unfused SA1 "
+          f"route (K2 + gather + 3 PointConv + max) at b={b}: "
+          f"{unfused_ms:.4f} ms", flush=True)
+    return ("sa1_fused", "s4g_tpu_torch/csrc/sa1_fused.cu",
+            "s4g_tpu/ops/pallas/sa_fused_kernels.py:84", err, ms, plain, bound,
+            by)
+
+
 NARROW = {
     "MODEL": {"TYPE": "PN2_CLS", "COMPUTE_DTYPE": "float32", "PN2": {
         "NUM_INPUT": 8192, "NUM_CENTROIDS": (1024, 256, 128),
@@ -390,7 +513,16 @@ def _reference_phase(torch, np, devices=("cpu", "cuda")):
                          torch.from_numpy(valid).to(dev), uniforms.to(dev),
                          0.0, -1e9, n_cand)
         res[dev] = {k: p.cpu().numpy() for k, p in r.items()}
-    cpu, gpu = res[devices[0]], res[devices[1]]
+    stats = _compare_grasps(res[devices[0]], res[devices[1]], n_cand, torch,
+                            np)
+    return {"keep_mismatch": keep_diff, "max_pred_err": pred_err, **stats}
+
+
+def _compare_grasps(cpu, gpu, n_cand, torch, np):
+    """Post-processing outputs of one scene on the two devices, fed the same
+    predictions: the score-sorted scores within 1e-6 relative, and 99 % of
+    the candidates with a twin pose within 1e-5 (the candidate of the
+    nearest translation) that agrees on validity."""
     if int(gpu["num_valid"]) == 0:
         raise AssertionError("no valid grasp to compare")
     score_err = float(np.abs(gpu["scores"] - cpu["scores"]).max()
@@ -408,14 +540,99 @@ def _reference_phase(torch, np, devices=("cpu", "cuda")):
             f"grasps differ: {int(twins.sum())}/{n_cand} have a twin, "
             f"{int(agree.sum())} agree on validity; valid "
             f"{int(gpu['num_valid'])} (GPU) vs {int(cpu['num_valid'])} (CPU)")
-    return {"keep_mismatch": keep_diff, "max_pred_err": pred_err,
-            "max_score_rel_err": score_err,
+    return {"max_score_rel_err": score_err,
             "grasps_with_twin": int(twins.sum()),
             "grasps_agreeing": int(agree.sum()), "candidates": n_cand,
             "num_valid_gpu": int(gpu["num_valid"]),
             "num_valid_cpu": int(cpu["num_valid"]),
             "same_selection": bool(np.array_equal(gpu["selected"],
                                                   cpu["selected"]))}
+
+
+# NARROW with an SA1 that the fused stage (K3) takes at batch >= 2.
+NARROW_K3 = {**NARROW, "MODEL": {**NARROW["MODEL"], "PN2": {
+    **NARROW["MODEL"]["PN2"],
+    "SA_CHANNELS": ((128, 128, 256), (64, 64, 64), (64, 64, 128))}}}
+
+
+def _batch_reference_phase(torch, np, devices=("cpu", "cuda")):
+    """detect_batch's stages at b = 2 (two clutter scenes) at a narrow width
+    whose SA1 is K3, on the GPU and on the CPU (plain
+    twins), each stage fed the same inputs on both devices:
+
+    * prep on the same draws: the model inputs must match exactly;
+    * model at b = 2: predictions within the bf16 tolerances of the JAX
+      package's own tests (max 5e-2, mean 5e-3), because K3 rounds hidden
+      activations to bf16 after f32 sums taken in another order than its
+      twin's;
+    * post-processing per scene, fed the GPU's predictions on both devices,
+      as `_reference_phase` holds it."""
+    from s4g_tpu_torch import _build
+    from s4g_tpu_torch.configs import processing_config as proc
+    from s4g_tpu_torch.configs.config import load_cfg_from_dict
+    from s4g_tpu_torch.models import build_model
+    from s4g_tpu_torch.pipeline.detector import post_batch, prep_batch
+    from s4g_tpu_torch.pipeline.postprocessing import REAL2TRAIN
+    from s4g_tpu_torch.pipeline.preprocessing import preprocess_cloud
+
+    rng = np.random.RandomState(4)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(4)
+        net = build_model(load_cfg_from_dict(NARROW_K3))
+    cap, n_in = 16384, 8192
+    clouds = [clutter_cloud(rng), clutter_cloud(rng, num_objects=8)]
+    padded = np.full((2, cap, 3), 1e6, np.float32)
+    for i, c in enumerate(clouds):
+        padded[i, :len(c)] = c
+    valid = np.arange(cap)[None] < np.array([[len(c)] for c in clouds])
+    uniforms = torch.from_numpy(rng.rand(2, 5).astype(np.float32))
+    sample_idx = []
+    rot = torch.tensor(REAL2TRAIN[:3, :3]).t()
+    for i in range(2):   # draw from the CPU's keep mask
+        keep = preprocess_cloud(
+            torch.from_numpy(padded[i]) @ rot, num_points=n_in, capacity=cap,
+            voxel_size=proc.VOXEL_SIZE, outlier_radius=proc.RADIUS_THRESHOLD,
+            outlier_min_neighbors=proc.NUM_POINTS_THRESHOLD,
+            sample_idx=torch.zeros(n_in, dtype=torch.long)).raw_valid
+        kept = np.nonzero(keep.numpy())[0]
+        sample_idx.append(rng.choice(kept, n_in, replace=len(kept) < n_in))
+    sample_idx = torch.from_numpy(np.stack(sample_idx))
+    out = {}
+    for dev in devices:
+        net = net.to(dev)
+        c = torch.from_numpy(padded).to(dev)
+        v = torch.from_numpy(valid).to(dev)
+        before = _build.LAUNCHES["sa1_fused"]
+        with torch.no_grad():
+            points = prep_batch(c, v, n_in, sample_idx=sample_idx.to(dev))
+            preds = net({"scene_points": points.transpose(1, 2).contiguous()})
+        if dev != "cpu" and _build.LAUNCHES["sa1_fused"] != before + 1:
+            raise AssertionError("the b = 2 forward did not launch K3")
+        out[dev] = {"points": points.cpu(),
+                    "preds": {k: p.cpu() for k, p in preds.items()}}
+    cpu, gpu = out[devices[0]], out[devices[1]]
+    if not torch.equal(cpu["points"], gpu["points"]):
+        raise AssertionError("model inputs differ between GPU and CPU")
+    diffs = [(cpu["preds"][k] - gpu["preds"][k]).abs() for k in gpu["preds"]]
+    pred_err = max(float(d.max()) for d in diffs)
+    pred_mean = max(float(d.mean()) for d in diffs)
+    if not (pred_err <= 5e-2 and pred_mean <= 5e-3):
+        raise AssertionError(f"predictions differ by {pred_err} (max), "
+                             f"{pred_mean} (mean)")
+    res = {}
+    for dev in devices:
+        with torch.no_grad():
+            r = post_batch(gpu["points"].to(dev),
+                           {k: p.to(dev) for k, p in gpu["preds"].items()},
+                           torch.from_numpy(padded).to(dev),
+                           torch.from_numpy(valid).to(dev), uniforms.to(dev),
+                           0.0, -1e9, n_in)
+        res[dev] = {k: p.cpu().numpy() for k, p in r.items()}
+    scenes = [_compare_grasps({k: v[i] for k, v in res[devices[0]].items()},
+                              {k: v[i] for k, v in res[devices[1]].items()},
+                              n_in, torch, np) for i in range(2)]
+    return {"max_pred_err": pred_err, "max_mean_pred_err": pred_mean,
+            "scenes": scenes}
 
 
 def _detect_phase(det, torch, np):
@@ -463,23 +680,127 @@ def _detect_phase(det, torch, np):
     print(f"detect: SA1 slab-window overflow fallbacks by scene {fallbacks} "
           f"(tabletop x{NUM_DETECT}, clutter x1), launches {launches}",
           flush=True)
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k in DETECT_KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"main path never launched: {missing}")
     return launches
 
 
-def _profile_phase(det, torch, np, top: int = 12):
-    """One tabletop detect under torch.profiler: device time by kernel
-    name (the `top` largest), the device's busy time against the detect's
-    wall time, and so its idle share (the profiler's own overhead is in
-    the wall time, so the idle share is an upper bound)."""
+# detect_batch's runs: tabletop batches (timed, K3 at b >= 2) and batches
+# that mix in clutter scenes, whose dense columns overflow the SA1 windows.
+BATCHES = {1: ("tabletop0",), 2: ("tabletop0", "tabletop2"),
+           4: ("tabletop0", "tabletop2", "tabletop4", "tabletop6")}
+MIXED = {2: ("tabletop0", "clutter1"),
+         4: ("tabletop0", "clutter1", "tabletop2", "clutter3")}
+
+
+def _scenes(np):
+    return {**{f"tabletop{s}": tabletop_cloud(np.random.RandomState(s))
+               for s in (0, 2, 4, 6)},
+            **{f"clutter{s}": clutter_cloud(np.random.RandomState(s))
+               for s in (1, 3)}}
+
+
+def _detect_batch_phase(det, torch, np):
+    """The batched main path: a warm-up per batch size, then the counted
+    runs — the tabletop batches in turns (b = 1, 2, 4, 1, 2, 4, ...),
+    NUM_BATCH times each (timed), then each mixed batch once.  Returns each
+    kernel's launches in the counted runs and the median stage times per
+    batch size."""
+    from s4g_tpu_torch import _build
+    from s4g_tpu_torch.ops import neighbors as nb
+    from s4g_tpu_torch.ops import sa_fused as sf
+
+    scenes = _scenes(np)
+
+    def run(names):
+        return det.detect_batch([scenes[x] for x in names],
+                                score_threshold=0.0,
+                                verticalness_threshold=-1e9)
+
+    for names in BATCHES.values():
+        run(names)
+    _build.reset_launches()
+    sf.SA1_FALLBACKS["overflow"] = 0
+    nb.SLAB_FALLBACKS["overflow"] = 0
+    timings, found = {}, {}
+    plan = ([(names, True) for _ in range(NUM_BATCH)
+             for names in BATCHES.values()]
+            + [(names, False) for names in MIXED.values()])
+    for names, timed in plan:
+        k3, fb = _build.LAUNCHES["sa1_fused"], sf.SA1_FALLBACKS["overflow"]
+        results = run(names)
+        label = "+".join(names)
+        if timed:
+            timings.setdefault(len(names), []).append(dict(det.timings))
+        found[label] = (results, list(det.last_num_valid),
+                        _build.LAUNCHES["sa1_fused"] - k3,
+                        sf.SA1_FALLBACKS["overflow"] - fb, dict(det.timings))
+    launches = dict(_build.LAUNCHES)
+    medians = {}
+    for b, runs in timings.items():
+        print(f"detect_batch b={b} runs: " + "; ".join(
+            ", ".join(f"{st} {v:.2f}" for st, v in r.items()) for r in runs),
+            flush=True)
+        medians[b] = {st: statistics.median(r[st] for r in runs)
+                      for st in runs[0]}
+        total = medians[b]["total_ms"]
+        print(f"detect_batch b={b} (tabletops, median of {len(runs)}): "
+              + ", ".join(f"{st} {v:.2f}" for st, v in medians[b].items())
+              + f"; {total / b:.2f} ms per scene, {1e3 * b / total:.2f} "
+              f"scenes/s", flush=True)
+    for label, (results, num_valid, k3, fb, last) in found.items():
+        ortho = 0.0
+        for poses, scores in results:
+            if not (np.isfinite(poses).all() and np.isfinite(scores).all()
+                    and poses.shape[1:] == (4, 4)
+                    and len(poses) == len(scores)):
+                raise AssertionError(f"{label}: malformed grasps")
+            rot = poses[:, :3, :3].astype(np.float64)
+            if len(rot):
+                ortho = max(ortho, float(np.abs(np.einsum(
+                    "nij,nkj->nik", rot, rot) - np.eye(3)).max()))
+        if ortho > 1e-4:
+            raise AssertionError(f"{label}: rotations not orthonormal: "
+                                 f"{ortho}")
+        print(f"detect_batch {label}: num_valid {num_valid}, grasps "
+              f"returned {[len(p) for p, _ in results]}, max orthonormality "
+              f"error {ortho:.2e}, sa1_fused launches {k3}, SA1 overflow "
+              f"fallbacks {fb}; last run model_ms {last['model_ms']:.2f}, "
+              f"total_ms {last['total_ms']:.2f}", flush=True)
+        if len(num_valid) >= 2 and "clutter" not in label and k3 == 0:
+            raise AssertionError(f"{label}: SA1 did not take K3")
+    for label in ("+".join(n) for n in MIXED.values()):
+        results = found[label][0]
+        if not all(len(p) for (p, _), name in zip(results, label.split("+"))
+                   if name.startswith("clutter")):
+            raise AssertionError(f"{label}: no valid grasp on a clutter "
+                                 "scene")
+    print(f"detect_batch: SA1 overflow fallbacks {sf.SA1_FALLBACKS}, "
+          f"launches {launches}", flush=True)
+    missing = [k for k in BATCH_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"batched path never launched: {missing}")
+    return launches, medians
+
+
+def _profile_phase(det, torch, np, top: int = 12, batch=None):
+    """One tabletop detect (or, with `batch` scene names, one detect_batch)
+    under torch.profiler: device time by kernel name (the `top` largest),
+    the device's busy time against the call's wall time, and so its idle
+    share (the profiler's own overhead is in the wall time, so the idle
+    share is an upper bound)."""
     from torch.profiler import ProfilerActivity, profile
 
-    cloud = tabletop_cloud(np.random.RandomState(0))
+    scenes = _scenes(np)
+    kw = {"score_threshold": 0.0, "verticalness_threshold": -1e9}
+    label = "detect" if batch is None else f"detect_batch b={len(batch)}"
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        det.detect(cloud, score_threshold=0.0, verticalness_threshold=-1e9)
+        if batch is None:
+            det.detect(scenes["tabletop0"], **kw)
+        else:
+            det.detect_batch([scenes[x] for x in batch], **kw)
     wall_ms = det.timings["total_ms"]
 
     def dev_us(e):
@@ -493,12 +814,12 @@ def _profile_phase(det, torch, np, top: int = 12):
                    and dev_us(e) > 0), key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in rows) / 1e3
     if not rows:
-        print("profile: the profiler recorded no device time (device "
-              "busy and idle share not measured)", flush=True)
+        print(f"profile {label}: the profiler recorded no device time "
+              "(device busy and idle share not measured)", flush=True)
         return
-    print(f"profile: detect wall {wall_ms:.2f} ms under the profiler, device "
-          f"busy {busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}",
-          flush=True)
+    print(f"profile {label}: wall {wall_ms:.2f} ms under the profiler, "
+          f"device busy {busy_ms:.2f} ms, idle share "
+          f"{1 - busy_ms / wall_ms:.3f}", flush=True)
     for e in rows[:top]:
         print(f"profile:   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
               f"{e.key[:90]}", flush=True)
@@ -545,6 +866,7 @@ def main() -> int:
               f"{inp['overflow']}, poses={inp['g2l'].shape[0]}, cloud rows="
               f"{inp['cloud_valid'].shape[0]}", flush=True)
         rep = _kernel_phase(inp, torch)
+        rep.append(_k3_phase(_batch_sa1_inputs(det, torch, np), torch))
         for name, _, _, err, ms, plain, bound, by in rep:
             print(f"kernel {name}: max|kernel-plain|={err:.3g} kernel "
                   f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.5f} ms "
@@ -554,16 +876,25 @@ def main() -> int:
     report = phase("kernels", kernels)
     ref = phase("reference", lambda: _reference_phase(torch, np))
     print(f"reference: {ref}", flush=True)
+    ref_b = phase("batch reference",
+                  lambda: _batch_reference_phase(torch, np))
+    print(f"batch reference: {ref_b}", flush=True)
     launches = phase("detect", lambda: _detect_phase(det, torch, np))
+    batch = phase("detect_batch", lambda: _detect_batch_phase(det, torch, np))
     phase("profile", lambda: _profile_phase(det, torch, np))
+    phase("profile batch", lambda: _profile_phase(det, torch, np,
+                                                  batch=BATCHES[2]))
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1
 
+    # launches: over both main paths (detect's runs and detect_batch's).
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
-         "launches": launches[name], "max_abs_err": err, "ms": ms,
-         "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+         "launches": launches[name] + batch[0][name],
+         "launches_detect": launches[name],
+         "launches_detect_batch": batch[0][name], "max_abs_err": err,
+         "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
          "library_ms": None, "status": "ok"}
         for name, src, tpu, err, ms, plain, bound, by in report]}))
     print(json.dumps({"ok": True, "device": {

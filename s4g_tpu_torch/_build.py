@@ -49,6 +49,11 @@ _SIGNATURES = {
     # mats (G,16), cloud_valid (N,4), g, n, 6 box bounds, back (G,), fing (G,)
     "s4g_collision_counts": (_P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _P, _P,
                              _P),
+    # pts (B,3,N), cents (B,3,M), lo_tile (B,T), w1 (3,C1), b1, w2 (C1,C2),
+    # b2, w3 (C2,C3), b3, b, n, m, ntile, r2, k, c3, stratified,
+    # out (B,M,C3)
+    "s4g_sa1_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                      _I, _I, _I, _P, _P),
 }
 
 # Launch counts per kernel (plain integers; chip_smoke.py zeroes them before

@@ -19,21 +19,21 @@
 // pass 1 turns each 32-key chunk into one ballot word (256 words, kept in
 // shared memory, so distances are computed once); a warp scan gives the
 // words' prefix counts; each lane then finds its slots' target ranks by
-// binary search over the prefixes and a bit walk inside one word.
+// binary search over the prefixes and a bit walk inside one word.  The
+// window scan and the rank walk live in slab_select.cuh, shared with K3.
 
-#include "common.cuh"
+#include "slab_select.cuh"
 
 namespace {
 
-constexpr int kCentroidTile = 512;    // BQ_C_TILE
-constexpr int kKeyTile = 2048;        // BQ_K_TILE
-constexpr int kWindow = 4 * kKeyTile; // BQ_SLAB_TILES * BQ_K_TILE keys
-constexpr int kWords = kWindow / 32;
+using s4g_slab::kCentroidTile;
+using s4g_slab::kKeyTile;
+using s4g_slab::kWindow;
+using s4g_slab::kWords;
 constexpr int kWarps = 8;
 constexpr int kCentroidsPerBlock = 32;
 static_assert(kCentroidTile % kCentroidsPerBlock == 0,
               "a block must not straddle two centroid tiles");
-static_assert(kWords == 32 * 8, "the word scan gives each lane 8 words");
 
 constexpr size_t kSmemBytes =
     3 * sizeof(float) * kWindow + 2 * sizeof(unsigned) * kWarps * kWords;
@@ -54,14 +54,8 @@ ball_query_slab_kernel(const float* __restrict__ pts,
   const int b = blockIdx.y;
   const int c0 = blockIdx.x * kCentroidsPerBlock;
   const int base = lo_tile[b * ntile + c0 / kCentroidTile] * kKeyTile;
-  const float* P = pts + static_cast<size_t>(b) * 3 * n;
-  for (int j = threadIdx.x; j < kWindow; j += blockDim.x) {
-    const int g = base + j;
-    const bool real = g < n;  // keys past N are padding, never in range
-    kx[j] = real ? P[g] : 1e9f;
-    ky[j] = real ? P[n + g] : 1e9f;
-    kz[j] = real ? P[2 * n + g] : 1e9f;
-  }
+  s4g_slab::load_window(pts + static_cast<size_t>(b) * 3 * n, n, base, kx,
+                        ky, kz);
   __syncthreads();
 
   const int warp = threadIdx.x / 32;
@@ -72,35 +66,10 @@ ball_query_slab_kernel(const float* __restrict__ pts,
   const int c_end = min(c0 + kCentroidsPerBlock, m);
 
   for (int c = c0 + warp; c < c_end; c += kWarps) {
-    const float cx = C[c], cy = C[m + c], cz = C[2 * m + c];
-
-    // Pass 1: one in-range ballot word per 32-key chunk.
-    for (int w = 0; w < kWords; ++w) {
-      const int j = w * 32 + lane;
-      const float d = s4g_sqdist(kx[j], ky[j], kz[j], cx, cy, cz);
-      const unsigned bits = __ballot_sync(S4G_FULL_MASK, d < r2);
-      if (lane == 0) words[w] = bits;
-    }
-    __syncwarp();
-
-    // Inclusive prefix counts of the words: 8 words per lane + warp scan.
-    int local[8];
-    int run = 0;
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      run += __popc(words[lane * 8 + q]);
-      local[q] = run;
-    }
-    int incl = run;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int t = __shfl_up_sync(S4G_FULL_MASK, incl, o);
-      if (lane >= o) incl += t;
-    }
-    const int excl = incl - run;
-#pragma unroll
-    for (int q = 0; q < 8; ++q) prefix[lane * 8 + q] = excl + local[q];
-    const int total = __shfl_sync(S4G_FULL_MASK, incl, 31);
-    __syncwarp();
+    // Pass 1: ballot words and their prefix counts.
+    const int total = s4g_slab::scan_window(kx, ky, kz, C[c], C[m + c],
+                                            C[2 * m + c], r2, words, prefix,
+                                            lane);
 
     // Pass 2: slot -> target rank -> (word, bit) -> key index.
     const int count = min(total, k);
@@ -110,18 +79,9 @@ ball_query_slab_kernel(const float* __restrict__ pts,
       const int slot = s0 + lane;
       int v = 0;
       if (slot < count) {
-        const int target = (stratified && total > k)
-                               ? (slot * total) / k + 1
-                               : slot + 1;
-        int lo = 0, hi = kWords - 1;  // first word whose prefix >= target
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (prefix[mid] >= target) hi = mid; else lo = mid + 1;
-        }
-        int rank = target - (lo > 0 ? prefix[lo - 1] : 0);
-        unsigned word = words[lo];
-        while (--rank > 0) word &= word - 1;  // drop the lower set bits
-        v = base + lo * 32 + (__ffs(word) - 1);
+        v = base + s4g_slab::rank_to_local(
+                       words, prefix,
+                       s4g_slab::slot_target(slot, total, k, stratified));
       }
       if (s0 == 0) first = __shfl_sync(S4G_FULL_MASK, v, 0);
       if (slot < k) out[slot] = slot < count ? v : first;

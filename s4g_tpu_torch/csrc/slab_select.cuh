@@ -1,0 +1,94 @@
+// Sorted-slab neighbour selection shared by K2 (ball_query_slab.cu) and K3
+// (sa1_fused.cu), so that both select the same keys bit for bit.
+//
+// A 512-centroid tile scans the 8,192-key window that starts at key
+// lo_tile * 2048; keys past N are padding (1e9) and never in range.  A key
+// is in range when its f32 difference-form squared distance is < r2
+// (strict).  Slot s takes the in-range key of scan rank s+1, or, with
+// `stratified` and an overfull ball (total > K), of rank floor(s*total/K)+1.
+#pragma once
+
+#include "common.cuh"
+
+namespace s4g_slab {
+
+constexpr int kCentroidTile = 512;    // BQ_C_TILE / SA_C_TILE
+constexpr int kKeyTile = 2048;        // BQ_K_TILE / SA_K_TILE
+constexpr int kWindow = 4 * kKeyTile; // (BQ|SA)_SLAB_TILES * key tile keys
+constexpr int kWords = kWindow / 32;  // one ballot word per 32 keys
+static_assert(kWords == 32 * 8, "the word scan gives each lane 8 words");
+
+// Stage scene P's key window [base, base + kWindow) in shared memory (all
+// threads of the block take part; the caller synchronises after).
+__device__ __forceinline__ void load_window(const float* __restrict__ P,
+                                            int n, int base, float* kx,
+                                            float* ky, float* kz) {
+  for (int j = threadIdx.x; j < kWindow; j += blockDim.x) {
+    const int g = base + j;
+    const bool real = g < n;  // keys past N are padding, never in range
+    kx[j] = real ? P[g] : 1e9f;
+    ky[j] = real ? P[n + g] : 1e9f;
+    kz[j] = real ? P[2 * n + g] : 1e9f;
+  }
+}
+
+// One warp: the window's in-range ballot words of centroid (cx, cy, cz) and
+// their inclusive prefix counts.  Returns the number of in-range keys.
+__device__ __forceinline__ int scan_window(const float* kx, const float* ky,
+                                           const float* kz, float cx,
+                                           float cy, float cz, float r2,
+                                           unsigned* words, int* prefix,
+                                           int lane) {
+  // One in-range ballot word per 32-key chunk.
+  for (int w = 0; w < kWords; ++w) {
+    const int j = w * 32 + lane;
+    const float d = s4g_sqdist(kx[j], ky[j], kz[j], cx, cy, cz);
+    const unsigned bits = __ballot_sync(S4G_FULL_MASK, d < r2);
+    if (lane == 0) words[w] = bits;
+  }
+  __syncwarp();
+
+  // Inclusive prefix counts of the words: 8 words per lane + warp scan.
+  int local[8];
+  int run = 0;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    run += __popc(words[lane * 8 + q]);
+    local[q] = run;
+  }
+  int incl = run;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(S4G_FULL_MASK, incl, o);
+    if (lane >= o) incl += t;
+  }
+  const int excl = incl - run;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) prefix[lane * 8 + q] = excl + local[q];
+  const int total = __shfl_sync(S4G_FULL_MASK, incl, 31);
+  __syncwarp();
+  return total;
+}
+
+// The scan rank (1-based) that slot `slot` takes.
+__device__ __forceinline__ int slot_target(int slot, int total, int k,
+                                           int stratified) {
+  return (stratified && total > k) ? (slot * total) / k + 1 : slot + 1;
+}
+
+// Window-local index of the in-range key of scan rank `target`
+// (1 <= target <= total): binary search for the first word whose prefix
+// reaches the target, then a bit walk inside that word.
+__device__ __forceinline__ int rank_to_local(const unsigned* words,
+                                             const int* prefix, int target) {
+  int lo = 0, hi = kWords - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (prefix[mid] >= target) hi = mid; else lo = mid + 1;
+  }
+  int rank = target - (lo > 0 ? prefix[lo - 1] : 0);
+  unsigned word = words[lo];
+  while (--rank > 0) word &= word - 1;  // drop the lower set bits
+  return lo * 32 + (__ffs(word) - 1);
+}
+
+}  // namespace s4g_slab

@@ -11,6 +11,11 @@ the input and kernel are cast to the compute dtype and the product comes
 out in it; BatchNorm runs in f32 from the running statistics as
 (x - mean) * (scale * rsqrt(var + 1e-5)) + bias, then ReLU; activations stay
 f32 between layers.
+
+`SharedMLP.sa1_fused_eval` is the other route of an xyz-only SA stage: the
+whole stage as one kernel (K3, `ops/sa_fused.py`) with BatchNorm folded
+into each layer and bf16 rounding between layers, as the JAX package runs
+SA1 at batch >= 2.
 """
 
 from __future__ import annotations
@@ -19,6 +24,9 @@ from typing import Optional, Sequence
 
 import torch
 from torch import nn
+
+from ..ops import sa_fused
+from ..ops.neighbors import ball_query_grouped
 
 BN_EPS = 1e-5
 
@@ -70,3 +78,57 @@ class SharedMLP(nn.ModuleList):
                 raise ValueError(f"pool axis {x.shape[-2]} != {max_pool_k}")
             x = torch.amax(x, dim=-2)
         return x
+
+    def folded_params(self) -> list:
+        """Per-layer f32 (w (C_in, C_out), b (C_out,)) with BatchNorm folded
+        in (port of `_folded_params`): w * (scale * rsqrt(var + 1e-5)) and
+        bias - mean * that factor."""
+        params = []
+        for layer in self:
+            w = layer.conv.weight.reshape(layer.conv.out_channels, -1).t()
+            bn = layer.bn
+            inv = bn.weight.float() * torch.rsqrt(bn.running_var.float()
+                                                  + BN_EPS)
+            params.append(((w.float() * inv[None, :]).contiguous(),
+                           (bn.bias.float() - bn.running_mean.float() * inv)
+                           .contiguous()))
+        return params
+
+    def sa1_fused_eval(self, points: torch.Tensor, centroids: torch.Tensor,
+                       pkeys: torch.Tensor, ckeys: torch.Tensor,
+                       radius: float, k: int,
+                       stratified: bool = True) -> torch.Tensor:
+        """A whole xyz-only SA stage as one kernel (port of
+        `_sa1_fused_eval`): slab ball query, grouping, this 3-layer chain
+        and the max over the K neighbours (K3).
+
+        The window overflow flag is read on the host once for the whole
+        batch, as JAX's `lax.cond` decides once: on overflow the stage takes
+        a full-scan ball query and runs the chain with the same folded
+        weights and bf16 rounding (counted in `sa_fused.SA1_FALLBACKS`).
+
+        Args: points (B, 3, N) sorted along each scene's axis; centroids
+            (B, 3, M) sorted the same way; pkeys / ckeys (B, N) / (B, M)
+            their keys along that axis.
+        Returns: (B, M, C3) pooled features in the compute dtype."""
+        (w1, b1), (w2, b2), (w3, b3) = self.folded_params()
+        lo_tile, overflow = sa_fused.sa1_slab_setup(pkeys, ckeys, radius,
+                                                    points.shape[2])
+        if bool(overflow):
+            sa_fused.SA1_FALLBACKS["overflow"] += 1
+            _, cnt, rel = ball_query_grouped(points, centroids, radius, k,
+                                             stratified=stratified)
+            h = rel.to(torch.bfloat16)
+            for w, b in ((w1, b1), (w2, b2), (w3, b3)):
+                # bf16 x bf16 products are exact in f32: an f32 matmul of
+                # the rounded operands is the f32-accumulating bf16 matmul.
+                w16 = w.to(torch.bfloat16).float()
+                h = torch.relu(torch.matmul(h.float(), w16) + b) \
+                    .to(torch.bfloat16)
+            pooled = torch.amax(h.float(), dim=2)
+            out = torch.where(cnt[..., None] > 0, pooled, 0.0)
+        else:
+            out = sa_fused.sa1_fused_slab(
+                points.contiguous(), centroids.contiguous(), lo_tile, radius,
+                k, w1, b1, (w2, w3), (b2, b3), stratified=stratified)
+        return out.to(self[0].dtype)

@@ -60,6 +60,16 @@ class PointNetSAModule(nn.Module):
         self.mlp = SharedMLP(in_features + 3, mlp_channels, ndim=2,
                              dtype=dtype)
 
+    def _fuses(self, batch: int, sorted_axis) -> bool:
+        """The JAX package's `auto` rule for whole-stage fusion of an
+        xyz-only stage (`pn2_modules.py:175-188`): batch >= 2, a sorted
+        cloud, eval mode, max pool (the only pool ported), 3 layers whose
+        widths are multiples of 128, and K a multiple of 8."""
+        widths = [layer.conv.out_channels for layer in self.mlp]
+        return (batch >= 2 and sorted_axis is not None and not self.training
+                and len(widths) == 3 and all(c % 128 == 0 for c in widths)
+                and self.num_neighbours % 8 == 0)
+
     def forward(self, xyz: torch.Tensor, feature: Optional[torch.Tensor],
                 sorted_axis: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -93,10 +103,17 @@ class PointNetSAModule(nn.Module):
             both = group_cl(torch.cat([xyz, feature], dim=-1), nbr_index)
             group_xyz = both[..., :3] - new_xyz[:, :, None, :]
             group_feature = torch.cat([group_xyz, both[..., 3:]], dim=-1)
+        elif self._fuses(xyz.shape[0], sorted_axis):
+            # xyz-only stage at batch >= 2: the whole stage is one kernel
+            # (K3), as in the JAX package.
+            pts_cf, cent_cf = _cf(xyz).contiguous(), _cf(new_xyz).contiguous()
+            new_feature = self.mlp.sa1_fused_eval(
+                pts_cf, cent_cf, _axis_keys(pts_cf, sorted_axis),
+                _axis_keys(cent_cf, sorted_axis), self.radius,
+                self.num_neighbours)
+            return new_xyz, new_feature
         else:
-            # xyz-only stage (SA1).  The JAX package fuses this whole stage
-            # into one kernel at batch >= 2 (K3, not ported yet); at batch 1
-            # it takes this unfused route.
+            # xyz-only stage, unfused (batch 1, or a stage K3 does not take).
             _, _, group_feature = ops.ball_query_grouped(
                 _cf(xyz), _cf(new_xyz), self.radius, self.num_neighbours,
                 sorted_axis=sorted_axis, centroids_sorted=csorted,

@@ -212,15 +212,27 @@ def ball_query_fused_slab(points: torch.Tensor, centroids: torch.Tensor,
 
 def slab_windows(pkeys: torch.Tensor, ckeys_s: torch.Tensor, radius2: float,
                  n: int):
-    """Key windows of the sorted-slab route (`neighbors.py:346-363`).
+    """Key windows of the sorted-slab route (`neighbors.py:346-363`): the
+    tile spans widen by sqrt(f32(radius2)), as the JAX route does.
 
     Args: pkeys (B, N) ascending point keys; ckeys_s (B, M) ascending
         centroid keys.
     Returns: lo_tile (B, ntile) int32 and a device bool that is True when
         some tile's in-radius keys do not fit its window."""
-    b, m = ckeys_s.shape
     radius = torch.sqrt(torch.tensor(radius2, dtype=torch.float32,
                                      device=pkeys.device))
+    return tile_windows(pkeys, ckeys_s, radius, n)
+
+
+def tile_windows(pkeys: torch.Tensor, ckeys_s: torch.Tensor,
+                 radius: torch.Tensor, n: int):
+    """Windows of 512-centroid tiles over the sorted keys: searchsorted for
+    each tile's [first - radius, last + radius] span, the window start
+    clamped to a 2048-key boundary, and the overflow flag.  `radius` is an
+    f32 tensor: callers differ in how they round it (`slab_windows`,
+    `sa_fused.sa1_slab_setup`), and at a boundary key that decides the
+    window."""
+    b, m = ckeys_s.shape
     padt = (-m) % BQ_C_TILE
     ck_t = torch.cat([ckeys_s, ckeys_s[:, -1:].expand(b, padt)], dim=1)
     tiles = ck_t.reshape(b, -1, BQ_C_TILE)

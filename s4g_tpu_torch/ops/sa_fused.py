@@ -1,0 +1,139 @@
+"""Fused set-abstraction stage 1 (port of
+s4g_tpu/ops/pallas/sa_fused_kernels.py).
+
+One kernel per stage: the sorted-slab ball query, the rel-xyz grouping, the
+stage's 3-layer SharedMLP with BatchNorm folded into each layer, and the
+max over the K neighbours.  The JAX package runs SA1 this way at batch >= 2
+(`pn2_modules.py:175-202`); the port follows that rule
+(`models/pn2_modules.py`).  The numbers are the TPU kernel's:
+
+* selection is K2's (`ops/neighbors.py`) on the tile's key window;
+* rel = key - centroid in exact f32, then rounded to bf16;
+* layer 1 is ((rx*w0 + ry*w1) + rz*w2) + b1 in f32 with bf16-rounded
+  weights, then ReLU and bf16;
+* layers 2 and 3 multiply bf16 by bf16 with f32 sums, add the f32 bias and
+  apply ReLU; layer 2's output is rounded to bf16, layer 3's stays f32;
+* the output is the max over the K slots, (B, M, C3) f32, and a zero row
+  where no key is in range.
+
+`sa1_fused_slab` launches the CUDA kernel `csrc/sa1_fused.cu` (K3) on CUDA
+tensors; CPU tensors take its plain twin `_sa1_fused_plain`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+from .neighbors import (BQ_C_TILE, BQ_K_TILE, BQ_SLAB_TILES,
+                        _ball_query_slab_plain, _f32, flat_gather_rows,
+                        tile_windows)
+
+# Tile geometry of the TPU kernel; the same as the slab ball query's, so
+# the two scan the same key windows.
+SA_C_TILE = 512
+SA_K_TILE = 2048
+SA_SLAB_TILES = 4
+assert (SA_C_TILE, SA_K_TILE, SA_SLAB_TILES) == (BQ_C_TILE, BQ_K_TILE,
+                                                 BQ_SLAB_TILES)
+
+# Times the fused stage took the full scan because a tile's in-radius keys
+# overflowed its window; read by chip_smoke.py.
+SA1_FALLBACKS = {"overflow": 0}
+
+# What the CUDA kernel holds (its fragments live in registers): C1 = C2 =
+# 128, C3 a multiple of 64 up to 256, K <= 128.
+_KERNEL_C12 = 128
+_KERNEL_MAX_C3 = 256
+_KERNEL_MAX_K = 128
+
+
+def sa1_slab_setup(pkeys: torch.Tensor, ckeys: torch.Tensor, radius: float,
+                   n: int):
+    """Key windows of the fused stage (`sa_fused_kernels.py:290-323`).
+
+    The tile spans widen by `radius` rounded to f32 (the JAX code subtracts
+    the weakly typed Python float), not by sqrt(f32(radius^2)) as the slab
+    ball query does: at a boundary key the two give different windows.
+
+    Args: pkeys (B, N) ascending point keys; ckeys (B, M) ascending
+        centroid keys.
+    Returns: lo_tile (B, ceil(M/512)) int32 and a device bool, True when
+        some tile's in-radius keys do not fit its window."""
+    rad = torch.tensor(radius, dtype=torch.float32, device=pkeys.device)
+    return tile_windows(pkeys, ckeys, rad, n)
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """Round f32 to bf16 values, kept in f32."""
+    return x.to(torch.bfloat16).float()
+
+
+def _sa1_fused_plain(points, centroids, lo_tile, radius: float,
+                     num_neighbours: int, w1, b1, w23, b23,
+                     stratified: bool = True) -> torch.Tensor:
+    """Plain twin of K3 (see the module docstring): K2's plain selection on
+    the same windows, then the chain as f32 products of bf16-rounded
+    operands, which are exact, with f32 sums."""
+    b, _, _ = points.shape
+    m = centroids.shape[2]
+    k = num_neighbours
+    idx, cnt = _ball_query_slab_plain(points, centroids, lo_tile,
+                                      radius * radius, k, stratified)
+    keys = flat_gather_rows(points.transpose(1, 2), idx.reshape(b, m * k))
+    rel = _bf16(keys.reshape(b, m, k, 3)
+                - centroids.transpose(1, 2)[:, :, None, :])
+    w1r = _bf16(w1)
+    h = (rel[..., 0:1] * w1r[0] + rel[..., 1:2] * w1r[1]) \
+        + rel[..., 2:3] * w1r[2]
+    h = _bf16(torch.relu(h + b1))
+    (w2, w3), (b2, b3) = w23, b23
+    h = _bf16(torch.relu(torch.matmul(h, _bf16(w2)) + b2))
+    h = torch.relu(torch.matmul(h, _bf16(w3)) + b3)
+    return torch.where(cnt[..., None] > 0, torch.amax(h, dim=2), 0.0)
+
+
+def sa1_fused_slab(points: torch.Tensor, centroids: torch.Tensor,
+                   lo_tile: torch.Tensor, radius: float, num_neighbours: int,
+                   w1: torch.Tensor, b1: torch.Tensor, w23: tuple,
+                   b23: tuple, stratified: bool = True) -> torch.Tensor:
+    """Fused SA stage 1 over per-tile key windows (K3).
+
+    Same caller contract as the slab ball query: each scene's points and
+    centroids are sorted ascending along one axis, and every in-range point
+    of centroid tile t of scene b lies in keys [lo_tile[b, t] * 2048,
+    +8192) (`sa1_slab_setup`).
+
+    Args: points (B, 3, N) f32; centroids (B, 3, M) f32; lo_tile
+        (B, ceil(M/512)) int32; w1 (3, C1), b1 (C1,), w23 ((C1, C2),
+        (C2, C3)), b23 ((C2,), (C3,)): the folded f32 affines.
+    Returns: (B, M, C3) f32 max-pooled stage output."""
+    b, _, n = points.shape
+    m = centroids.shape[2]
+    (w2, w3), (b2, b3) = w23, b23
+    c1, c2, c3 = w1.shape[1], w2.shape[1], w3.shape[1]
+    if num_neighbours % 8 or any(c % 128 for c in (c1, c2, c3)):
+        raise ValueError(f"the fused stage needs K % 8 == 0 and widths that "
+                         f"are multiples of 128 (K={num_neighbours}, "
+                         f"widths {c1}/{c2}/{c3})")
+    operands = (points, centroids, lo_tile, w1, b1, w2, b2, w3, b3)
+    if not _build.on_cuda(*operands):
+        return _sa1_fused_plain(points, centroids, lo_tile, radius,
+                                num_neighbours, w1, b1, w23, b23, stratified)
+    if (c1, c2) != (_KERNEL_C12, _KERNEL_C12) or c3 > _KERNEL_MAX_C3 \
+            or num_neighbours > _KERNEL_MAX_K:
+        raise ValueError(f"the K3 kernel holds widths 128/128/C3 <= 256 and "
+                         f"K <= 128 (got {c1}/{c2}/{c3}, K={num_neighbours})")
+    ntile = -(-m // SA_C_TILE)
+    for t, name, shape in ((points, "points", (b, 3, n)),
+                           (centroids, "centroids", (b, 3, m)),
+                           (w1, "w1", (3, c1)), (b1, "b1", (c1,)),
+                           (w2, "w2", (c1, c2)), (b2, "b2", (c2,)),
+                           (w3, "w3", (c2, c3)), (b3, "b3", (c3,))):
+        _build.check(t, name, torch.float32, shape)
+    _build.check(lo_tile, "lo_tile", torch.int32, (b, ntile))
+    out = torch.empty((b, m, c3), dtype=torch.float32, device=points.device)
+    _build.launch("sa1_fused", points, centroids, lo_tile, w1, b1, w2, b2,
+                  w3, b3, b, n, m, ntile, _f32(radius * radius),
+                  num_neighbours, c3, int(stratified), out)
+    return out

@@ -1,16 +1,19 @@
 """GraspDetector — the end-to-end grasp-proposal API on the GPU (port of
-s4g_tpu/pipeline/detector.py, `detect` at batch 1).
+s4g_tpu/pipeline/detector.py: `detect` and `detect_batch`).
 
 One call: camera frame -> train frame, preprocessing (voxel / outlier /
 fixed-size sample), the PN2_CLS forward, post-processing, the collision
 check against the camera-frame cloud and importance sampling.  The raw
 cloud is padded to `cloud_capacity`; candidates are a fixed top-K with a
-validity mask.  The stage functions `prep_one` and `post_one` take their
-random draws as inputs; `detect` draws them from the detector's seeded
-`torch.Generator` on the device.
+validity mask.  The stage functions `prep_one` / `post_one` (one scene) and
+`prep_batch` / `post_batch` (B scenes) take their random draws as inputs;
+`detect` and `detect_batch` draw them from the detector's seeded
+`torch.Generator` on the device.  `detect_batch` runs the model once on
+(B, 3, N), so at B >= 2 its SA1 stage is the fused kernel (K3) and its
+numbers differ from `detect`'s at bf16 level, as in the JAX package.
 
-Not in this slice: `detect_batch` (needs the fused SA1 kernel), streaming,
-`eval`, mesh serving, training and checkpoint loading (ROADMAP.md).
+Not in this slice: streaming, `eval`, mesh serving, training and
+checkpoint loading (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from __future__ import annotations
 import logging
 import os
 import time
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -98,6 +101,51 @@ def post_one(points: torch.Tensor, preds: dict, cloud: torch.Tensor,
             "selected": sel, "num_valid": valid.sum()}
 
 
+def prep_batch(clouds: torch.Tensor, cloud_valids: torch.Tensor,
+               num_input: int, sample_idx: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None,
+               enable_voxel: bool = True,
+               enable_outlier: bool = True) -> torch.Tensor:
+    """(B, capacity, 3) padded clouds -> (B, num_input, 3) model inputs:
+    `prep_one` per scene (the JAX program vmaps the same function).
+    `sample_idx`: (B, num_input) injected draws, else drawn from
+    `generator` scene by scene."""
+    return torch.stack([
+        prep_one(clouds[i], cloud_valids[i], num_input,
+                 sample_idx=None if sample_idx is None else sample_idx[i],
+                 generator=generator, enable_voxel=enable_voxel,
+                 enable_outlier=enable_outlier)
+        for i in range(clouds.shape[0])])
+
+
+def post_batch(points: torch.Tensor, preds: dict, clouds: torch.Tensor,
+               cloud_valids: torch.Tensor, uniforms: torch.Tensor,
+               score_threshold: float, vertical_threshold: float,
+               num_candidates: int, collision_check: bool = True) -> dict:
+    """`post_one` per scene, outputs stacked on a leading batch axis.
+
+    Args: points (B, N, 3); preds: batched PN2_CLS predictions; clouds /
+        cloud_valids (B, capacity, ...); uniforms (B, num_selected)."""
+    outs = [post_one(points[i], {k: v[i] for k, v in preds.items()},
+                     clouds[i], cloud_valids[i], uniforms[i],
+                     score_threshold, vertical_threshold, num_candidates,
+                     collision_check)
+            for i in range(points.shape[0])]
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
+def _grasps(out: dict, num_selected: int) -> Tuple[np.ndarray, np.ndarray]:
+    """One scene's host outputs -> (poses, scores): the importance draws,
+    duplicates kept (reference grasp_detector.py:240-250), or every valid
+    candidate when there are no more than `num_selected`."""
+    num_valid = int(out["num_valid"])
+    if num_valid == 0:
+        return np.zeros((0, 4, 4), np.float32), np.zeros((0,), np.float32)
+    idx = (out["selected"] if num_valid > num_selected
+           else np.nonzero(out["valid"])[0])
+    return out["poses"][idx], out["scores"][idx]
+
+
 class GraspDetector:
     """Detect grasp poses in the camera frame from a raw point cloud."""
 
@@ -169,10 +217,11 @@ class GraspDetector:
                score_threshold: float = 0.7,
                verticalness_threshold: float = 0.2,
                collision_check: bool = True) -> Tuple[np.ndarray, np.ndarray]:
-        """Full pipeline: returns (poses (n, 4, 4) camera frame, scores (n,)).
+        """Full pipeline for one camera-frame cloud, (n, 3) or (3, n):
+        returns (poses (k, 4, 4) camera frame, scores (k,)).  It is
+        `detect_batch` of one scene, so SA1 takes the unfused route.
         Per-stage wall times (ms, synchronized) land in `self.timings`, the
         number of valid candidates in `self.last_num_valid`."""
-        t0 = time.perf_counter()
         cloud_array = np.asarray(cloud_array, np.float32)
         if cloud_array.ndim != 2:
             raise ValueError("input must be (n, 3) or (3, n)")
@@ -180,37 +229,59 @@ class GraspDetector:
             cloud_array = cloud_array.T
         if isinstance(cloud_mask, np.ndarray):
             cloud_array = cloud_array[cloud_mask]
-        cloud, valid = self._pad_cloud(cloud_array)
+        (result,) = self.detect_batch([cloud_array], num_selected,
+                                      score_threshold, verticalness_threshold,
+                                      collision_check)
+        self.last_num_valid = self.last_num_valid[0]
+        return result
+
+    def detect_batch(self, clouds, num_selected: int = 5,
+                     score_threshold: float = 0.7,
+                     verticalness_threshold: float = 0.2,
+                     collision_check: bool = True
+                     ) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """Batched multi-scene inference: the scenes are padded and
+        preprocessed one by one, the model runs once on (B, 3, N), then
+        post-processing runs per scene.
+
+        Args: clouds: a (B, n, 3) array or a sequence of B (n_i, 3)
+            camera-frame clouds.
+        Returns: per scene (poses (k_i, 4, 4), scores (k_i,)).  Per-stage
+        wall times (ms, synchronized) land in `self.timings`, each scene's
+        number of valid candidates in `self.last_num_valid` (a list)."""
+        t0 = time.perf_counter()
+        arrays = [np.asarray(c, np.float32) for c in clouds]
+        if not arrays or any(a.ndim != 2 or a.shape[1] != 3 for a in arrays):
+            raise ValueError("clouds must be B >= 1 arrays of shape (n, 3)")
+        padded, valids = zip(*(self._pad_cloud(a) for a in arrays))
+        padded, valids = torch.stack(padded), torch.stack(valids)
         self._sync()
         t1 = time.perf_counter()
         with torch.no_grad():
-            points = prep_one(cloud, valid, self.num_input,
-                              generator=self.generator,
-                              enable_voxel=self._enable_voxel,
-                              enable_outlier=self._enable_outlier)
+            points = prep_batch(padded, valids, self.num_input,
+                                generator=self.generator,
+                                enable_voxel=self._enable_voxel,
+                                enable_outlier=self._enable_outlier)
             self._sync()
             t2 = time.perf_counter()
-            preds = self.net({"scene_points": points.t()[None].contiguous()})
+            preds = self.net({"scene_points":
+                              points.transpose(1, 2).contiguous()})
             self._sync()
             t3 = time.perf_counter()
-            uniforms = torch.rand(num_selected, generator=self.generator,
+            uniforms = torch.rand((len(arrays), num_selected),
+                                  generator=self.generator,
                                   device=self.device)
-            out = post_one(points, {k: v[0] for k, v in preds.items()}, cloud,
-                           valid, uniforms, float(score_threshold),
-                           float(verticalness_threshold), self.num_candidates,
-                           collision_check)
+            out = post_batch(points, preds, padded, valids, uniforms,
+                             float(score_threshold),
+                             float(verticalness_threshold),
+                             self.num_candidates, collision_check)
             out = {k: v.cpu().numpy() for k, v in out.items()}
         t4 = time.perf_counter()
         self.timings = {"pad_ms": 1e3 * (t1 - t0), "prep_ms": 1e3 * (t2 - t1),
                         "model_ms": 1e3 * (t3 - t2),
                         "post_ms": 1e3 * (t4 - t3),
                         "total_ms": 1e3 * (t4 - t0)}
-        logger.info("detect: %s", self.timings)
-        num_valid = self.last_num_valid = int(out["num_valid"])
-        if num_valid == 0:
-            return (np.zeros((0, 4, 4), np.float32),
-                    np.zeros((0,), np.float32))
-        # Duplicate draws kept (reference grasp_detector.py:240-250).
-        idx = (out["selected"] if num_valid > num_selected
-               else np.nonzero(out["valid"])[0])
-        return out["poses"][idx], out["scores"][idx]
+        logger.info("detect (B=%d): %s", len(arrays), self.timings)
+        self.last_num_valid = [int(v) for v in out["num_valid"]]
+        return [_grasps({k: v[i] for k, v in out.items()}, num_selected)
+                for i in range(len(arrays))]

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch twins on the card, at
 edge shapes the main path does not reach: ragged tiles, windows that run
-past the last point, exact ties, invalid rows.  chip_smoke.py holds the
-kernels at the main path's shapes.
+past the last point, exact ties, invalid rows, empty balls.  chip_smoke.py
+holds the kernels at the main path's shapes.
 
 Needs a CUDA device (a CUDA kernel has no CPU mode), so every test carries
 the `cuda` marker and skips without one.  On a machine with a GPU and no
@@ -17,6 +17,7 @@ import torch
 
 from s4g_tpu_torch import _build
 from s4g_tpu_torch.ops import neighbors as nb
+from s4g_tpu_torch.ops import sa_fused as sf
 from s4g_tpu_torch.ops import sampling as sp
 from s4g_tpu_torch.pipeline import collision as col
 
@@ -104,6 +105,83 @@ def test_collision_kernel_matches_plain(cuda, g, n):
     for gg, w in zip(got, want):
         assert torch.equal(gg.cpu(), w)
     assert float(want[0].sum()) > 0 and float(want[1].sum()) > 0
+
+
+def _k3_operands(rng, b, n, m, radius, shift=0.0, c3=256):
+    """Sorted scenes, sorted centroids among their points (moved by
+    `shift`), the fused stage's windows and folded affines."""
+    pts = _sorted_cloud(rng, b, n)
+    sel = np.sort(rng.choice(n, m, replace=False))
+    cents = (pts[:, :, sel] + shift).contiguous()
+    lo_tile, _ = sf.sa1_slab_setup(pts[:, 0].contiguous(),
+                                   cents[:, 0].contiguous(), radius, n)
+    shapes = ((3, 128), (128,), (128, 128), (128,), (128, c3), (c3,))
+    w1, b1, w2, b2, w3, b3 = (
+        torch.from_numpy((rng.randn(*sh) * sc).astype(np.float32))
+        for sh, sc in zip(shapes, (0.5, 0.1, 0.1, 0.1, 0.1, 0.1)))
+    return pts, cents, lo_tile, (w1, b1, (w2, w3), (b2, b3))
+
+
+@pytest.mark.parametrize("b,n,m,radius,k,shift,c3", [
+    (2, 9000, 1000, 0.03, 64, 0.0, 256),   # ragged last centroid tile
+    (2, 3000, 600, 0.05, 32, 0.0, 256),    # N below one window: keys past N
+    (3, 9000, 700, 0.2, 16, 0.0, 128),     # b = 3, overfull balls, C3 = 128
+    (2, 9000, 700, 0.001, 8, 0.0, 256),    # mostly empty balls, K pads to 16
+    (2, 9000, 1024, 0.03, 24, 10.0, 256),  # every tile empty: zero rows
+])
+def test_sa1_fused_kernel_matches_plain(cuda, b, n, m, radius, k, shift, c3):
+    rng = np.random.RandomState(n + m + k)
+    pts, cents, lo_tile, w = _k3_operands(rng, b, n, m, radius, shift, c3)
+    want = sf._sa1_fused_plain(pts, cents, lo_tile, radius, k, *w)
+    _, cnt = nb._ball_query_slab_plain(pts, cents, lo_tile, radius * radius,
+                                       k, True)
+    dev = [x.to(cuda) if isinstance(x, torch.Tensor)
+           else tuple(y.to(cuda) for y in x) for x in w]
+    got = sf.sa1_fused_slab(pts.to(cuda), cents.to(cuda), lo_tile.to(cuda),
+                            radius, k, *dev)
+    torch.cuda.synchronize()
+    got = got.cpu()
+    assert got.shape == want.shape == (b, m, c3)
+    empty = cnt == 0
+    assert torch.all(got[empty] == 0) and torch.all(want[empty] == 0)
+    if shift:
+        assert bool(empty.all())
+    else:
+        assert int(empty.sum()) < b * m
+        # f32 sums in another order flip an odd bf16 rounding of a hidden
+        # activation.
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-2 * scale
+
+
+def test_sa1_fused_wrapper_checks_its_operands(cuda):
+    rng = np.random.RandomState(0)
+    pts, cents, lo_tile, (w1, b1, (w2, w3), (b2, b3)) = _k3_operands(
+        rng, 2, 3000, 600, 0.05)
+    p, c, lo = pts.to(cuda), cents.to(cuda), lo_tile.to(cuda)
+    w1, b1, w2, b2, w3, b3 = (x.to(cuda) for x in (w1, b1, w2, b2, w3, b3))
+    with pytest.raises(TypeError):
+        sf.sa1_fused_slab(p.double(), c, lo, 0.05, 16, w1, b1, (w2, w3),
+                          (b2, b3))
+    with pytest.raises(ValueError, match="contiguous"):
+        sf.sa1_fused_slab(p, c.transpose(1, 2).contiguous().transpose(1, 2),
+                          lo, 0.05, 16, w1, b1, (w2, w3), (b2, b3))
+    with pytest.raises(ValueError, match="shape"):
+        sf.sa1_fused_slab(p, c, lo[:, :1].contiguous(), 0.05, 16, w1, b1,
+                          (w2, w3), (b2, b3))
+    with pytest.raises(ValueError, match="K % 8"):
+        sf.sa1_fused_slab(p, c, lo, 0.05, 12, w1, b1, (w2, w3), (b2, b3))
+    wide = torch.zeros(128, 256, device=cuda)     # C2 = 256: not held
+    with pytest.raises(ValueError, match="holds"):
+        sf.sa1_fused_slab(p, c, lo, 0.05, 16, w1, b1,
+                          (wide, torch.zeros(256, 256, device=cuda)),
+                          (torch.zeros(256, device=cuda), b3))
+    with pytest.raises(ValueError, match="mixed devices"):
+        sf.sa1_fused_slab(p, c.cpu(), lo, 0.05, 16, w1, b1, (w2, w3),
+                          (b2, b3))
+    before = _build.LAUNCHES["sa1_fused"]
+    sf.sa1_fused_slab(p, c, lo, 0.05, 16, w1, b1, (w2, w3), (b2, b3))
+    assert _build.LAUNCHES["sa1_fused"] == before + 1
 
 
 def test_wrappers_check_their_operands(cuda):

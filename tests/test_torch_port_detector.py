@@ -1,8 +1,9 @@
 """The port's detector pipeline (s4g_tpu_torch.pipeline) against the JAX
-package: preprocessing and post-processing stages, and `detect`'s stages end
-to end on the tiny-model recipe of tests/test_pipeline.py with the same
-weights and the same random draws (the JAX detector's sample indices and
-importance uniforms, fed to the port's stage functions)."""
+package: preprocessing and post-processing stages, and `detect`'s and
+`detect_batch`'s stages end to end on the tiny-model recipe of
+tests/test_pipeline.py with the same weights and the same random draws (the
+JAX detector's sample indices and importance uniforms, fed to the port's
+stage functions)."""
 
 import shutil
 import subprocess
@@ -17,11 +18,13 @@ import yaml
 import jax
 import jax.numpy as jnp
 
+from s4g_tpu.models import nn_layers as jnn
 from s4g_tpu.pipeline import postprocessing as jpost
 from s4g_tpu.pipeline import preprocessing as jpre
 from s4g_tpu.pipeline.detector import GraspDetector as JaxDetector
 from s4g_tpu.utils import math_utils as jmath
 
+from s4g_tpu_torch.ops import sa_fused as sf
 from s4g_tpu_torch.pipeline import detector as tdet
 from s4g_tpu_torch.pipeline import postprocessing as tpost
 from s4g_tpu_torch.pipeline import preprocessing as tpre
@@ -44,6 +47,11 @@ TINY = {
 }
 CAPACITY = 8192
 CANDIDATES = 512      # 512 x 8192 = 2^22 pairs: the collision kernel route
+# detect_batch's config: TINY with a sorted cloud and an SA1 that the fused
+# stage (K3) takes at batch >= 2 (widths multiples of 128, K % 8 == 0).
+TINY_FUSED = {**TINY, "MODEL": {**TINY["MODEL"], "PN2": {
+    **TINY["MODEL"]["PN2"], "SA_CHANNELS": "((128, 128, 256), (32, 64))",
+    "SORT_POINTS": True, "FPS_SHARDS": 128}}}
 
 
 def _t(x):
@@ -192,6 +200,104 @@ def test_detect_stages_match_jax_detector(tmp_path):
     np.testing.assert_array_equal(got["valid"], want["valid"][perm])
     np.testing.assert_array_equal(got["selected"], want["selected"])
     assert 0 < int(got["num_valid"]) < CANDIDATES     # collisions happen
+
+
+def test_detect_batch_stages_match_jax_detector(tmp_path, monkeypatch):
+    """detect_batch at b = 2 on the fused SA1 route (the JAX side pinned to
+    it in interpret mode), stage by stage: prep on the JAX program's draws
+    (exact), the model on the same points (K3 rounds hidden activations to
+    bf16 after f32 sums taken in another order, so a rare rounding flips:
+    bf16 tolerances), and post-processing on the JAX model's predictions
+    against the JAX program's outputs, as `detect`'s test holds them."""
+    monkeypatch.setattr(jnn, "ENV_SA1_FUSE", "interpret")
+    cfg_file = tmp_path / "tiny_fused.yaml"
+    cfg_file.write_text(yaml.safe_dump(TINY_FUSED))
+    jdet = JaxDetector(model=str(cfg_file), output_dir=str(tmp_path),
+                       cloud_capacity=CAPACITY, num_candidates=CANDIDATES)
+    clouds = [clutter_cloud(np.random.RandomState(s)) for s in (2, 3)]
+    padded, valid = (jnp.stack(a) for a in
+                     zip(*(jdet._pad_cloud(c) for c in clouds)))
+    variables = jax.tree.map(np.asarray, jdet.variables)
+    keys = jax.random.split(jax.random.key(321), 2)
+    num_selected, st, vt = 5, 0.0, -1e9
+    want = jax.tree.map(np.asarray, jdet._detect_batch_fn(
+        variables, padded, valid, keys, st, vt, num_selected, True))
+
+    # The JAX program's own draws, replayed from its per-scene keys.
+    ks = jax.vmap(jax.random.split)(keys)
+    sample_idx, uniforms, want_points = [], [], []
+    for i in range(2):
+        train = jnp.matmul(padded[i], jnp.asarray(jpost.REAL2TRAIN[:3, :3]).T)
+        pre = jpre.preprocess_cloud(train, ks[i, 0], num_points=512,
+                                    capacity=CAPACITY)
+        sample_idx.append(jpre.random_sample_fixed(ks[i, 0], pre.raw_valid,
+                                                   512))
+        uniforms.append(jax.random.uniform(ks[i, 1], (num_selected,)))
+        want_points.append(np.asarray(pre.points))
+
+    tdetector = tdet.GraspDetector(
+        model=str(cfg_file), device="cpu", cloud_capacity=CAPACITY,
+        num_candidates=CANDIDATES,
+        state_dict=state_dict_from_flax(variables))
+    cloud_t, valid_t = _t(padded), _t(valid)
+    points = tdet.prep_batch(cloud_t, valid_t, 512,
+                             sample_idx=_t(np.stack(sample_idx)))
+    np.testing.assert_array_equal(points.numpy(), np.stack(want_points))
+
+    jpreds = jax.tree.map(np.asarray, jdet.net.apply(
+        variables,
+        {"scene_points": jnp.asarray(points.numpy()).swapaxes(1, 2)},
+        train=False))
+    fused = sf.sa1_fused_slab
+    calls = []
+    monkeypatch.setattr(sf, "sa1_fused_slab",
+                        lambda *a, **kw: calls.append(1) or fused(*a, **kw))
+    tpreds = tdetector.net({"scene_points": points.transpose(1, 2)
+                            .contiguous()})
+    assert calls == [1]
+    for key, w in jpreds.items():
+        g = tpreds[key].numpy()
+        np.testing.assert_allclose(g, w, atol=5e-2, err_msg=key)
+        assert float(np.abs(g - w).mean()) < 5e-3, key
+
+    got = tdet.post_batch(points, {k: _t(v) for k, v in jpreds.items()},
+                          cloud_t, valid_t, _t(np.stack(uniforms)), st, vt,
+                          CANDIDATES)
+    got = {k: v.numpy() for k, v in got.items()}
+    for i in range(2):
+        g = {k: v[i] for k, v in got.items()}
+        w = {k: v[i] for k, v in want.items()}
+        perm = _pair_candidates(g, w)
+        # One ulp from exp, as in `detect`'s test, plus the last bits in
+        # which the program's fused predictions and `net.apply`'s differ.
+        np.testing.assert_array_max_ulp(g["scores"], w["scores"], maxulp=4)
+        np.testing.assert_allclose(g["poses"], w["poses"][perm], atol=1e-4)
+        np.testing.assert_array_equal(g["valid"], w["valid"][perm])
+        np.testing.assert_array_equal(g["selected"], w["selected"])
+        assert 0 < int(g["num_valid"]) < CANDIDATES
+
+
+def test_detect_batch_runs_on_cpu_when_asked(tmp_path):
+    cfg_file = tmp_path / "tiny_fused.yaml"
+    cfg_file.write_text(yaml.safe_dump(TINY_FUSED))
+    det = tdet.GraspDetector(model=str(cfg_file), device="cpu",
+                             cloud_capacity=CAPACITY, num_candidates=64)
+    clouds = [clutter_cloud(np.random.RandomState(4)),
+              clutter_cloud(np.random.RandomState(6), num_objects=4)]
+    results = det.detect_batch(clouds, score_threshold=0.0,
+                               verticalness_threshold=-1e9)
+    assert len(results) == 2 and len(det.last_num_valid) == 2
+    for (poses, scores), num_valid in zip(results, det.last_num_valid):
+        assert poses.shape[1:] == (4, 4) and len(poses) == len(scores)
+        assert len(poses) == min(num_valid, 5) > 0
+        r = poses[:, :3, :3]
+        np.testing.assert_allclose(np.einsum("nij,nkj->nik", r, r),
+                                   np.broadcast_to(np.eye(3), r.shape),
+                                   atol=1e-5)
+    assert set(det.timings) == {"pad_ms", "prep_ms", "model_ms", "post_ms",
+                                "total_ms"}
+    with pytest.raises(ValueError, match="shape"):
+        det.detect_batch([np.zeros((10, 4), np.float32)])
 
 
 def test_detect_runs_on_cpu_when_asked(tmp_path):
