@@ -7,9 +7,9 @@ It prints the card's name and power limit as nvidia-smi gives them, then
 runs these phases; a failing phase is reported and the later ones still
 run, but the run then exits non-zero without printing a result:
 
-1. build: every kernel of the main path compiled from `s4g_tpu_torch/csrc`
-   with nvcc (one process per source, in parallel, then one link), loaded
-   with ctypes;
+1. build: every kernel of the main paths compiled from
+   `s4g_tpu_torch/csrc` with nvcc (one process per source, in parallel,
+   then one link), loaded with ctypes;
 2. kernels: each of K1 (FPS), K2 (slab ball query), K4 (3-NN) and K5
    (collision counts) run at the main path's shapes on inputs taken from a
    seeded synthetic scene, held against its plain PyTorch twin on the card
@@ -20,13 +20,19 @@ run, but the run then exits non-zero without printing a result:
    scene, held against its twin (zero rows exact, the rest within 1e-2 of
    the output's max: f32 sums in another order flip an odd bf16 rounding
    of a hidden activation), timed beside its twin, its bound and the
-   unfused SA1 route at the same b = 2;
+   unfused SA1 route at the same b = 2; then K6 (exact FPS) and K2f
+   (full-scan ball query) at the reference-parity configuration's shapes
+   (`curvature_model.yaml` with SORT_POINTS false and FPS_SHARDS 1) at
+   b = 1 and 2, bit for bit (K6 also with 8 shards), timed beside their
+   twins;
 3. reference: the detect stages at a narrow width that still takes every
    kernel route, on the GPU and on the CPU (plain twins), each stage fed
    the same inputs on both devices (see `_reference_phase`); then the
    detect_batch stages at b = 2 the same way, at a narrow width whose SA1
-   the fused stage takes (`_batch_reference_phase`);
-4. main path: `GraspDetector(model="curvature_model").detect` at full width
+   the fused stage takes (`_batch_reference_phase`); then the detect
+   stages at the narrow width of the parity configuration under the
+   ball-query override (K6 and K2f, `_parity_reference_phase`);
+4. main paths: `GraspDetector(model="curvature_model").detect` at full width
    with seeded random weights on a synthetic camera-frame tabletop (a plane
    plus boxes), a few times, then a clutter scene; per-stage and total ms,
    the number of valid grasps, the rotations' orthonormality, whether the
@@ -35,8 +41,14 @@ run, but the run then exits non-zero without printing a result:
    (timed; SA1 is K3 at b >= 2) and at b = 2 and 4 on tabletops mixed with
    clutter scenes, whose SA1 windows overflow (the full-scan fallback), with
    the launches of its kernels counted the same way (K3's must be > 0);
-5. profile: one detect, and one detect_batch at b = 2, under torch.profiler
-   — device time by kernel and the device's idle share.
+   then the parity configuration at full width (`_parity_phase`): detect
+   x3 and detect_batch at b = 2 (K6 three times per forward, no K1, no
+   K2), detect x3 under the ball-query override (K2f three times per
+   forward) and one eval; then one detect_batch at b = 2 on the sort-only
+   ablation (SORT_POINTS, FPS_SHARDS 1: K6 feeding K3);
+5. profile: one detect, one detect_batch at b = 2 and one parity detect
+   under torch.profiler — device time by kernel and the device's idle
+   share.
 
 Then one JSON line with every kernel's numbers and, last, the contract line
 `{"ok": true, "device": {...}}`.  Without a CUDA device, or without the
@@ -163,6 +175,25 @@ def clutter_cloud(rng, num_objects: int = 10, n_per_object: int = 450):
     return np.concatenate(parts).astype(np.float32)
 
 
+def _check_grasps(label, results) -> float:
+    """One call's grasps, [(poses, scores)] per scene: finite, (k, 4, 4)
+    poses beside k scores, orthonormal rotations.  Returns the largest
+    orthonormality error."""
+    import numpy as np
+    ortho = 0.0
+    for poses, scores in results:
+        if not (np.isfinite(poses).all() and np.isfinite(scores).all()
+                and poses.shape[1:] == (4, 4) and len(poses) == len(scores)):
+            raise AssertionError(f"{label}: malformed grasps")
+        rot = poses[:, :3, :3].astype(np.float64)
+        if len(rot):
+            ortho = max(ortho, float(np.abs(np.einsum(
+                "nij,nkj->nik", rot, rot) - np.eye(3)).max()))
+    if ortho > 1e-4:
+        raise AssertionError(f"{label}: rotations not orthonormal: {ortho}")
+    return ortho
+
+
 def _nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -215,6 +246,22 @@ def _path_inputs(det, torch, np):
             "g2l": g2l, "cloud_valid": cloud_valid.contiguous()}
 
 
+def _compare(name, got, want, exact):
+    """Kernel outputs against the plain twin's: equal where `exact`, else
+    within 1e-6.  Returns the max absolute difference."""
+    import torch
+    for g, w in zip(got, want):
+        if exact and not torch.equal(g, w):
+            bad = int((g != w).sum())
+            raise AssertionError(f"{name}: {bad} entries differ from "
+                                 "the plain version")
+    err = max(float((g.double() - w.double()).abs().max())
+              for g, w in zip(got, want))
+    if err > 1e-6:
+        raise AssertionError(f"{name}: max |kernel - plain| = {err}")
+    return err
+
+
 def _kernel_phase(inp, torch):
     """Each kernel against its plain twin on the card, then timed."""
     from s4g_tpu_torch.ops import neighbors as nb
@@ -223,25 +270,12 @@ def _kernel_phase(inp, torch):
 
     st = inp["stages"]
     n_pts = [s.shape[2] for s in st]
-
-    def compare(name, got, want, exact):
-        for g, w in zip(got, want):
-            if exact and not torch.equal(g, w):
-                bad = int((g != w).sum())
-                raise AssertionError(f"{name}: {bad} entries differ from "
-                                     "the plain version")
-        err = max(float((g.double() - w.double()).abs().max())
-                  for g, w in zip(got, want))
-        if err > 1e-6:
-            raise AssertionError(f"{name}: max |kernel - plain| = {err}")
-        return err
-
     report = []
 
     # K1: the three FPS stages of the path.
     fps_calls = [(st[i], n_pts[i + 1]) for i in range(3)]
-    err = max(compare("fps_lane", [sp.fps_lane_sharded(p, m)],
-                      [sp._fps_sharded_plain(p, m)], True)
+    err = max(_compare("fps_lane", [sp.fps_lane_sharded(p, m)],
+                       [sp._fps_sharded_plain(p, m)], True)
               for p, m in fps_calls)
     ms = sum(_graph_ms(lambda p=p, m=m: sp.fps_lane_sharded(p, m))
              for p, m in fps_calls)
@@ -259,10 +293,10 @@ def _kernel_phase(inp, torch):
     # K2: the SA1 slab ball query.
     pts, cents, lo = st[0], st[1], inp["lo_tile"]
     r, k = inp["radius"], inp["k"]
-    err = compare("ball_query_slab",
-                  nb.ball_query_fused_slab(pts, cents, lo, r, k, True),
-                  nb._ball_query_slab_plain(pts, cents, lo, r * r, k, True),
-                  True)
+    err = _compare("ball_query_slab",
+                   nb.ball_query_fused_slab(pts, cents, lo, r, k, True),
+                   nb._ball_query_slab_plain(pts, cents, lo, r * r, k, True),
+                   True)
     ms = _graph_ms(lambda: nb.ball_query_fused_slab(pts, cents, lo, r, k,
                                                     True))
     plain = _event_ms(lambda: nb._ball_query_slab_plain(pts, cents, lo,
@@ -279,12 +313,12 @@ def _kernel_phase(inp, torch):
 
     # K4: the two FP stages above the 2^22-pair threshold.
     nn_calls = [(st[1], st[2]), (st[0], st[1])]
-    err = max(compare("three_nn", nb.three_nn_fused(q, kk),
-                      nb._three_nn_plain(q, kk), False)
+    err = max(_compare("three_nn", nb.three_nn_fused(q, kk),
+                       nb._three_nn_plain(q, kk), False)
               for q, kk in nn_calls)
     for q, kk in nn_calls:   # indices exact
-        compare("three_nn", nb.three_nn_fused(q, kk)[:1],
-                nb._three_nn_plain(q, kk)[:1], True)
+        _compare("three_nn", nb.three_nn_fused(q, kk)[:1],
+                 nb._three_nn_plain(q, kk)[:1], True)
     ms = sum(_graph_ms(lambda q=q, kk=kk: nb.three_nn_fused(q, kk))
              for q, kk in nn_calls)
     plain = sum(_event_ms(lambda q=q, kk=kk: nb._three_nn_plain(q, kk),
@@ -299,8 +333,8 @@ def _kernel_phase(inp, torch):
 
     # K5: collision counts of the candidate poses against the padded cloud.
     g2l, cv = inp["g2l"], inp["cloud_valid"]
-    err = compare("collision_counts", col.collision_counts(g2l, cv),
-                  col._collision_counts_plain(g2l, cv), True)
+    err = _compare("collision_counts", col.collision_counts(g2l, cv),
+                   col._collision_counts_plain(g2l, cv), True)
     ms = _graph_ms(lambda: col.collision_counts(g2l, cv))
     plain = _event_ms(lambda: col._collision_counts_plain(g2l, cv), reps=5)
     # Per (pose, point): 9 mul + 9 add for the transform, ~12 compares.
@@ -430,11 +464,11 @@ NARROW = {
 }
 
 
-def _reference_phase(torch, np, devices=("cpu", "cuda")):
+def _reference_phase(torch, np, devices=("cpu", "cuda"), config=NARROW):
     """Detect stages at a narrow width that still takes every kernel route
-    (slab SA1 at N = 8192, 3-NN 8192 <- 1024, collision 8192 x 16384), on a
-    clutter scene, on the GPU (kernels) and on the CPU (plain twins), each
-    stage fed the same inputs on both devices:
+    (by default: slab SA1 at N = 8192, 3-NN 8192 <- 1024, collision 8192 x
+    16384), on a clutter scene, on the GPU (kernels) and on the CPU (plain
+    twins), each stage fed the same inputs on both devices:
 
     * preprocessing: the voxel means must match exactly; the radius outlier
       mask (matmul-form distances, summed differently by cuBLAS and the CPU
@@ -464,7 +498,7 @@ def _reference_phase(torch, np, devices=("cpu", "cuda")):
     rng = np.random.RandomState(3)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(3)
-        net = build_model(load_cfg_from_dict(NARROW))
+        net = build_model(load_cfg_from_dict(config))
     cap, n_in = 16384, 8192
     n_cand = n_in
     cloud = clutter_cloud(rng)
@@ -635,6 +669,264 @@ def _batch_reference_phase(torch, np, devices=("cpu", "cuda")):
             "scenes": scenes}
 
 
+# NARROW as the reference-parity configuration: exact FPS (K6), full-scan
+# ball queries.
+NARROW_PARITY = {**NARROW, "MODEL": {**NARROW["MODEL"], "PN2": {
+    **NARROW["MODEL"]["PN2"], "SORT_POINTS": False, "FPS_SHARDS": 1}}}
+
+
+def _parity_reference_phase(torch, np, devices=("cpu", "cuda")):
+    """`_reference_phase` at NARROW_PARITY under the ball-query override: on
+    the GPU every FPS is K6 and every ball query K2f (each must launch), on
+    the CPU their plain twins; checked as `_reference_phase` checks."""
+    from s4g_tpu_torch import _build
+    from s4g_tpu_torch.ops import neighbors as nb
+
+    before = dict(_build.LAUNCHES)
+    nb.set_default_bq_impl("kernel")
+    try:
+        out = _reference_phase(torch, np, devices, config=NARROW_PARITY)
+    finally:
+        nb.set_default_bq_impl(None)
+    idle = [k for k in ("fps_exact", "ball_query_full")
+            if _build.LAUNCHES[k] == before[k]]
+    if devices[1] != "cpu" and idle:
+        raise AssertionError(f"the parity forward did not launch {idle}")
+    return out
+
+
+def _config_file(name: str, model=None, **pn2) -> str:
+    """A variant of the port's curvature_model.yaml: MODEL keys `model` and
+    PN2 keys `pn2` replaced, written as `name`.yaml into the (gitignored)
+    build directory.  Returns its path."""
+    import yaml
+    from s4g_tpu_torch import _build
+    from s4g_tpu_torch.pipeline.detector import _CONFIG_DIR
+    with open(os.path.join(_CONFIG_DIR, "curvature_model.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["MODEL"].update(model or {})
+    cfg["MODEL"]["PN2"].update(pn2)
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    path = os.path.join(_build.BUILD_DIR, f"{name}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def _parity_inputs(det, torch, np):
+    """The parity path's FPS and ball-query operands at full size, from two
+    seeded tabletops (b = 1 takes the first): the model inputs and the
+    three exact-FPS stages of a parity forward."""
+    from s4g_tpu_torch.models.pn2_modules import gather_cl
+    from s4g_tpu_torch.ops.sampling import fps_exact
+    from s4g_tpu_torch.pipeline.detector import prep_batch
+
+    cfg = det.cfg.MODEL.PN2
+    padded, valid = zip(*(det._pad_cloud(tabletop_cloud(
+        np.random.RandomState(s))) for s in (7, 9)))
+    gen = torch.Generator(device=det.device).manual_seed(7)
+    with torch.no_grad():
+        xyz = prep_batch(torch.stack(padded), torch.stack(valid),
+                         det.num_input, generator=gen)
+        stages = [xyz.transpose(1, 2).contiguous()]
+        for m in cfg.NUM_CENTROIDS:
+            idx = fps_exact(stages[-1], m)
+            stages.append(gather_cl(stages[-1].transpose(1, 2), idx)
+                          .transpose(1, 2).contiguous())
+    return {"stages": stages, "radius": cfg.RADIUS,
+            "k": cfg.NUM_NEIGHBOURS}
+
+
+def _k6_phase(inp, torch):
+    """K6 against its plain twin, bit for bit: the parity path's three FPS
+    stages at b = 1 and b = 2, and the 8-shard case at SA1's shape; then
+    timed (CUDA-graph replays) beside the plain loop, timed once per stage:
+    it is thousands of steps of a few launches each."""
+    from s4g_tpu_torch.ops import sampling as sp
+
+    st = inp["stages"]
+    calls = {b: [(st[i][:b].contiguous(), st[i + 1].shape[2])
+                 for i in range(3)] for b in (1, 2)}
+    err = 0.0
+    for b, cs in calls.items():
+        for p, m in cs:
+            err = max(err, _compare(f"fps_exact b={b} N={p.shape[2]}",
+                                    [sp.fps_exact(p, m)],
+                                    [sp._fps_plain(p, m)], True))
+    p8, m8 = calls[1][0]
+    err = max(err, _compare("fps_exact 8 shards",
+                            [sp.fps_sharded(p8, m8, 8)],
+                            [sp._fps_sharded_plain(p8, m8, 8)], True))
+    stage_ms = [_graph_ms(lambda p=p, m=m: sp.fps_exact(p, m), reps=5,
+                          per_graph=3) for p, m in calls[1]]
+    ms = sum(stage_ms)
+    ms_b2 = sum(_graph_ms(lambda p=p, m=m: sp.fps_exact(p, m), reps=5,
+                          per_graph=3) for p, m in calls[2])
+    ms_g8 = _graph_ms(lambda: sp.fps_sharded(p8, m8, 8), reps=5)
+    plain = sum(_event_ms(lambda p=p, m=m: sp._fps_plain(p, m), reps=1,
+                          warmup=0) for p, m in calls[1])
+    # 9 f32 operations (3 sub, 3 mul, 2 add, min) per point per step; each
+    # point read once, each index written once.
+    ns = [p.shape[2] for p, _ in calls[1]] + [calls[1][-1][1]]
+    ops = sum(9.0 * ns[i] * (ns[i + 1] - 1) for i in range(3))
+    nbytes = sum(12 * ns[i] + 4 * ns[i + 1] for i in range(3))
+    print(f"kernel fps_exact: per stage at b=1 "
+          f"{', '.join(f'{t:.4f}' for t in stage_ms)} ms; per forward "
+          f"b=1 {ms:.4f} ms, b=2 {ms_b2:.4f} ms; 8 shards at SA1 "
+          f"{ms_g8:.4f} ms", flush=True)
+    return ("fps_exact", "s4g_tpu_torch/csrc/fps_exact.cu",
+            "s4g_tpu/ops/sampling.py:81", err, ms, plain,
+            *_bound_ms(ops, nbytes))
+
+
+def _k2f_phase(inp, torch):
+    """K2f against the plain full scan (`_ball_query_full`), indices and
+    counts exact, stratified off and on, at the parity path's SA1, SA2 and
+    SA3 shapes at b = 1 and b = 2; then timed per forward at b = 1 beside
+    the plain full scan, the "auto" route."""
+    from s4g_tpu_torch.ops import neighbors as nb
+
+    st, radii, ks = inp["stages"], inp["radius"], inp["k"]
+    err = 0.0
+    for b in (1, 2):
+        for i in range(3):
+            p, c = st[i][:b].contiguous(), st[i + 1][:b].contiguous()
+            for strat in (False, True):
+                err = max(err, _compare(
+                    f"ball_query_full b={b} SA{i + 1} stratified={strat}",
+                    nb.ball_query_full_scan(p, c, radii[i], ks[i], strat),
+                    nb._ball_query_full(p, c, radii[i] ** 2, ks[i],
+                                        stratified=strat), True))
+    calls = [(st[i][:1].contiguous(), st[i + 1][:1].contiguous(), radii[i],
+              ks[i]) for i in range(3)]
+    stage_ms = [_graph_ms(lambda a=a: nb.ball_query_full_scan(*a))
+                for a in calls]
+    ms = sum(stage_ms)
+    plain = sum(_event_ms(lambda p=p, c=c, r=r, k=k: nb._ball_query_full(
+        p, c, r * r, k), reps=5) for p, c, r, k in calls)
+    # 9 f32 operations (3 sub, 3 mul, 2 add, compare) per (centroid, key).
+    ops = sum(9.0 * c.shape[2] * p.shape[2] for p, c, _, _ in calls)
+    nbytes = sum(12 * (p.shape[2] + c.shape[2]) + 4 * c.shape[2] * (k + 1)
+                 for p, c, _, k in calls)
+    print(f"kernel ball_query_full: per stage at b=1 "
+          f"{', '.join(f'{t:.4f}' for t in stage_ms)} ms", flush=True)
+    return ("ball_query_full", "s4g_tpu_torch/csrc/ball_query_full.cu",
+            "s4g_tpu/ops/pallas/neighbor_kernels.py:343", err, ms, plain,
+            *_bound_ms(ops, nbytes))
+
+
+def _expect(label, launches, forwards, per_forward, nonzero=()):
+    """Fail unless each kernel of `per_forward` launched that many times per
+    forward and each of `nonzero` at least once."""
+    bad = {k: launches[k] for k, per in per_forward.items()
+           if launches[k] != per * forwards}
+    bad.update({k: 0 for k in nonzero if launches[k] <= 0})
+    print(f"{label}: {forwards} forwards, launches {launches}", flush=True)
+    if bad:
+        raise AssertionError(f"{label}: launches {bad}; expected per forward "
+                             f"{per_forward} and > 0 for {list(nonzero)}")
+
+
+def _stage_medians(label, runs):
+    med = {st: statistics.median(r[st] for r in runs) for st in runs[0]}
+    print(f"{label} (median of {len(runs)}): "
+          + ", ".join(f"{st} {v:.2f}" for st, v in med.items()), flush=True)
+    return med
+
+
+# The parity path: K6 three times per forward, never the sorted-slab route.
+PARITY_LAUNCHES = {"fps_exact": 3, "fps_lane": 0, "ball_query_slab": 0,
+                   "sa1_fused": 0}
+
+
+def _parity_phase(det, torch, np):
+    """The reference-parity configuration at full width, through the API:
+    detect x3 on a tabletop and detect_batch at b = 2 (ball queries on the
+    "auto" route, the plain full scan), then detect x3 under the
+    ball-query override (K2f three times per forward), then one eval.  Each
+    run is warmed up, then driven with the launch counts zeroed before it
+    and read after it.  Returns each run's launches and stage medians."""
+    from s4g_tpu_torch import _build
+    from s4g_tpu_torch.ops import neighbors as nb
+
+    scenes = _scenes(np)
+    kw = {"score_threshold": 0.0, "verticalness_threshold": -1e9}
+    pair = [scenes["tabletop0"], scenes["tabletop2"]]
+    det.detect(scenes["tabletop0"], **kw)
+    det.detect_batch(pair, **kw)
+    paths, medians = {}, {}
+
+    _build.reset_launches()
+    runs = []
+    for _ in range(NUM_DETECT):
+        _check_grasps("parity detect", [det.detect(scenes["tabletop0"],
+                                                   **kw)])
+        runs.append(dict(det.timings))
+    results = det.detect_batch(pair, **kw)
+    _check_grasps("parity detect_batch", results)
+    paths["parity"] = dict(_build.LAUNCHES)
+    _expect("parity detect x3 + detect_batch b=2", paths["parity"],
+            NUM_DETECT + 1, dict(PARITY_LAUNCHES, ball_query_full=0),
+            ("three_nn", "collision_counts"))
+    medians["detect"] = _stage_medians("parity detect tabletop", runs)
+    medians["detect_batch b=2"] = _stage_medians("parity detect_batch b=2",
+                                                 [det.timings])
+
+    nb.set_default_bq_impl("kernel")
+    try:
+        det.detect(scenes["tabletop0"], **kw)
+        _build.reset_launches()
+        runs = []
+        for _ in range(NUM_DETECT):
+            _check_grasps("parity detect, kernel ball query",
+                          [det.detect(scenes["tabletop0"], **kw)])
+            runs.append(dict(det.timings))
+        paths["parity_kernel_bq"] = dict(_build.LAUNCHES)
+    finally:
+        nb.set_default_bq_impl(None)
+    _expect("parity detect x3, kernel ball query",
+            paths["parity_kernel_bq"], NUM_DETECT,
+            dict(PARITY_LAUNCHES, ball_query_full=3),
+            ("three_nn", "collision_counts"))
+    medians["detect, kernel ball query"] = _stage_medians(
+        "parity detect tabletop, kernel ball query", runs)
+
+    _build.reset_launches()
+    preds = det.eval(scenes["tabletop0"])
+    paths["parity_eval"] = dict(_build.LAUNCHES)
+    _expect("parity eval", paths["parity_eval"], 1,
+            dict(PARITY_LAUNCHES, ball_query_full=0), ("three_nn",))
+    n = det.num_input
+    for key, c in (("score", 3), ("frame_R", 9), ("frame_t", 4),
+                   ("movable_logits", 5)):
+        if preds[key].shape != (1, c, n) or not bool(
+                torch.isfinite(preds[key]).all()):
+            raise AssertionError(f"eval {key}: shape "
+                                 f"{tuple(preds[key].shape)} or non-finite")
+    return paths, medians
+
+
+def _sort_only_phase(det, torch, np):
+    """The sort-only ablation (SORT_POINTS with FPS_SHARDS 1): one
+    detect_batch at b = 2 on tabletops, where K6 feeds K3 through the
+    re-sort of the exact picks."""
+    from s4g_tpu_torch import _build
+
+    scenes = _scenes(np)
+    kw = {"score_threshold": 0.0, "verticalness_threshold": -1e9}
+    pair = [scenes["tabletop0"], scenes["tabletop2"]]
+    det.detect_batch(pair, **kw)
+    _build.reset_launches()
+    _check_grasps("sort-only detect_batch", det.detect_batch(pair, **kw))
+    launches = dict(_build.LAUNCHES)
+    _expect("sort-only detect_batch b=2", launches, 1,
+            {"fps_exact": 3, "fps_lane": 0, "sa1_fused": 1,
+             "ball_query_slab": 0, "ball_query_full": 0},
+            ("three_nn", "collision_counts"))
+    return launches, _stage_medians("sort-only detect_batch b=2",
+                                    [det.timings])
+
+
 def _detect_phase(det, torch, np):
     """The main path: one warm-up, then the counted runs — the tabletop
     NUM_DETECT times (timed), then a clutter scene whose random-weight
@@ -665,14 +957,7 @@ def _detect_phase(det, torch, np):
         print(f"detect tabletop {stage}: "
               + ", ".join(f"{r[stage]:.2f}" for r in runs), flush=True)
     for name, (poses, scores, num_valid) in found.items():
-        if not (np.isfinite(poses).all() and np.isfinite(scores).all()
-                and poses.shape[1:] == (4, 4) and len(poses) == len(scores)):
-            raise AssertionError(f"{name}: malformed grasps")
-        rot = poses[:, :3, :3].astype(np.float64)
-        ortho = float(np.abs(np.einsum("nij,nkj->nik", rot, rot)
-                             - np.eye(3)).max()) if len(rot) else 0.0
-        if ortho > 1e-4:
-            raise AssertionError(f"{name}: rotations not orthonormal: {ortho}")
+        ortho = _check_grasps(name, [(poses, scores)])
         print(f"detect {name}: num_valid {num_valid}, {len(poses)} grasps "
               f"returned, max orthonormality error {ortho:.2e}", flush=True)
     if not len(found["clutter"][0]):
@@ -750,19 +1035,7 @@ def _detect_batch_phase(det, torch, np):
               + f"; {total / b:.2f} ms per scene, {1e3 * b / total:.2f} "
               f"scenes/s", flush=True)
     for label, (results, num_valid, k3, fb, last) in found.items():
-        ortho = 0.0
-        for poses, scores in results:
-            if not (np.isfinite(poses).all() and np.isfinite(scores).all()
-                    and poses.shape[1:] == (4, 4)
-                    and len(poses) == len(scores)):
-                raise AssertionError(f"{label}: malformed grasps")
-            rot = poses[:, :3, :3].astype(np.float64)
-            if len(rot):
-                ortho = max(ortho, float(np.abs(np.einsum(
-                    "nij,nkj->nik", rot, rot) - np.eye(3)).max()))
-        if ortho > 1e-4:
-            raise AssertionError(f"{label}: rotations not orthonormal: "
-                                 f"{ortho}")
+        ortho = _check_grasps(label, results)
         print(f"detect_batch {label}: num_valid {num_valid}, grasps "
               f"returned {[len(p) for p, _ in results]}, max orthonormality "
               f"error {ortho:.2e}, sa1_fused launches {k3}, SA1 overflow "
@@ -848,6 +1121,11 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s, {lib}", flush=True)
 
     det = GraspDetector(model="curvature_model", seed=0)
+    pdet = GraspDetector(model=_config_file(
+        "parity_model", SORT_POINTS=False, FPS_SHARDS=1), seed=0)
+    sdet = GraspDetector(model=_config_file(
+        "sort_only_model", model={"COMPUTE_DTYPE": "float32"},
+        SORT_POINTS=True, FPS_SHARDS=1), seed=0)
     failed = []
 
     def phase(name, fn):
@@ -867,6 +1145,9 @@ def main() -> int:
               f"{inp['cloud_valid'].shape[0]}", flush=True)
         rep = _kernel_phase(inp, torch)
         rep.append(_k3_phase(_batch_sa1_inputs(det, torch, np), torch))
+        pinp = _parity_inputs(pdet, torch, np)
+        rep.append(_k6_phase(pinp, torch))
+        rep.append(_k2f_phase(pinp, torch))
         for name, _, _, err, ms, plain, bound, by in rep:
             print(f"kernel {name}: max|kernel-plain|={err:.3g} kernel "
                   f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.5f} ms "
@@ -879,23 +1160,32 @@ def main() -> int:
     ref_b = phase("batch reference",
                   lambda: _batch_reference_phase(torch, np))
     print(f"batch reference: {ref_b}", flush=True)
+    ref_p = phase("parity reference",
+                  lambda: _parity_reference_phase(torch, np))
+    print(f"parity reference: {ref_p}", flush=True)
     launches = phase("detect", lambda: _detect_phase(det, torch, np))
     batch = phase("detect_batch", lambda: _detect_batch_phase(det, torch, np))
+    parity = phase("parity", lambda: _parity_phase(pdet, torch, np))
+    sort_only = phase("sort-only", lambda: _sort_only_phase(sdet, torch, np))
     phase("profile", lambda: _profile_phase(det, torch, np))
     phase("profile batch", lambda: _profile_phase(det, torch, np,
                                                   batch=BATCHES[2]))
+    phase("profile parity", lambda: _profile_phase(pdet, torch, np))
+    print(f"chip_smoke: {time.perf_counter() - t0:.1f} s, build included",
+          flush=True)
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1
 
-    # launches: over both main paths (detect's runs and detect_batch's).
+    # launches: over every main path's counted runs, and by path.
+    paths = {"detect": launches, "detect_batch": batch[0], **parity[0],
+             "sort_only_batch": sort_only[0]}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
-         "launches": launches[name] + batch[0][name],
-         "launches_detect": launches[name],
-         "launches_detect_batch": batch[0][name], "max_abs_err": err,
-         "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-         "library_ms": None, "status": "ok"}
+         "launches": sum(p[name] for p in paths.values()),
+         "launches_by_path": {k: p[name] for k, p in paths.items()},
+         "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
+         "bound_by": by, "library_ms": None, "status": "ok"}
         for name, src, tpu, err, ms, plain, bound, by in report]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

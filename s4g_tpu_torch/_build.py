@@ -40,6 +40,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # pts (B,3,N), b, n, m, out (B,M)
     "s4g_fps_lane": (_P, _I, _I, _I, _P, _P),
+    # pts (B,3,N), b, n, shards, m_g, out (B, shards*m_g)
+    "s4g_fps_exact": (_P, _I, _I, _I, _I, _P, _P),
+    # pts (B,3,N), cents (B,3,M), b, n, m, r2, k, stratified, idx (B,M,K),
+    # cnt (B,M)
+    "s4g_ball_query_full": (_P, _P, _I, _I, _I, _F, _I, _I, _P, _P, _P),
     # pts (B,3,N), cents (B,3,M), lo_tile (B,T), b, n, m, ntile, r2, k,
     # stratified, idx (B,M,K), cnt (B,M)
     "s4g_ball_query_slab": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P,

@@ -1,11 +1,13 @@
-// Sorted-slab neighbour selection shared by K2 (ball_query_slab.cu) and K3
-// (sa1_fused.cu), so that both select the same keys bit for bit.
+// Neighbour selection shared by K2 (ball_query_slab.cu), K3 (sa1_fused.cu)
+// and K2f (ball_query_full.cu), so that all three select the same keys bit
+// for bit.
 //
-// A 512-centroid tile scans the 8,192-key window that starts at key
-// lo_tile * 2048; keys past N are padding (1e9) and never in range.  A key
-// is in range when its f32 difference-form squared distance is < r2
-// (strict).  Slot s takes the in-range key of scan rank s+1, or, with
-// `stratified` and an overfull ball (total > K), of rank floor(s*total/K)+1.
+// A key is in range when its f32 difference-form squared distance is < r2
+// (strict); each 32-key chunk becomes one ballot word.  Slot s takes the
+// in-range key of scan rank s+1, or, with `stratified` and an overfull ball
+// (total > K), of rank floor(s*total/K)+1.  The slab kernels scan the
+// 8,192-key window that starts at key lo_tile * 2048 (keys past N are
+// padding, 1e9, never in range); K2f scans all N keys.
 #pragma once
 
 #include "common.cuh"
@@ -32,6 +34,31 @@ __device__ __forceinline__ void load_window(const float* __restrict__ P,
   }
 }
 
+// One warp: inclusive prefix counts of `nwords` ballot words (each lane
+// counts a run of consecutive words, then a warp scan).  Returns the total.
+__device__ __forceinline__ int prefix_counts(const unsigned* words,
+                                             int* prefix, int nwords,
+                                             int lane) {
+  const int per = (nwords + 31) / 32;
+  const int lo = min(lane * per, nwords);
+  const int hi = min(lo + per, nwords);
+  int run = 0;
+  for (int w = lo; w < hi; ++w) run += __popc(words[w]);
+  int incl = run;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(S4G_FULL_MASK, incl, o);
+    if (lane >= o) incl += t;
+  }
+  int acc = incl - run;
+  for (int w = lo; w < hi; ++w) {
+    acc += __popc(words[w]);
+    prefix[w] = acc;
+  }
+  const int total = __shfl_sync(S4G_FULL_MASK, incl, 31);
+  __syncwarp();
+  return total;
+}
+
 // One warp: the window's in-range ballot words of centroid (cx, cy, cz) and
 // their inclusive prefix counts.  Returns the number of in-range keys.
 __device__ __forceinline__ int scan_window(const float* kx, const float* ky,
@@ -47,26 +74,7 @@ __device__ __forceinline__ int scan_window(const float* kx, const float* ky,
     if (lane == 0) words[w] = bits;
   }
   __syncwarp();
-
-  // Inclusive prefix counts of the words: 8 words per lane + warp scan.
-  int local[8];
-  int run = 0;
-#pragma unroll
-  for (int q = 0; q < 8; ++q) {
-    run += __popc(words[lane * 8 + q]);
-    local[q] = run;
-  }
-  int incl = run;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int t = __shfl_up_sync(S4G_FULL_MASK, incl, o);
-    if (lane >= o) incl += t;
-  }
-  const int excl = incl - run;
-#pragma unroll
-  for (int q = 0; q < 8; ++q) prefix[lane * 8 + q] = excl + local[q];
-  const int total = __shfl_sync(S4G_FULL_MASK, incl, 31);
-  __syncwarp();
-  return total;
+  return prefix_counts(words, prefix, kWords, lane);
 }
 
 // The scan rank (1-based) that slot `slot` takes.
@@ -75,12 +83,13 @@ __device__ __forceinline__ int slot_target(int slot, int total, int k,
   return (stratified && total > k) ? (slot * total) / k + 1 : slot + 1;
 }
 
-// Window-local index of the in-range key of scan rank `target`
-// (1 <= target <= total): binary search for the first word whose prefix
-// reaches the target, then a bit walk inside that word.
+// Index, among the `nwords` words' keys, of the in-range key of scan rank
+// `target` (1 <= target <= total): binary search for the first word whose
+// prefix reaches the target, then a bit walk inside that word.
 __device__ __forceinline__ int rank_to_local(const unsigned* words,
-                                             const int* prefix, int target) {
-  int lo = 0, hi = kWords - 1;
+                                             const int* prefix, int target,
+                                             int nwords = kWords) {
+  int lo = 0, hi = nwords - 1;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
     if (prefix[mid] >= target) hi = mid; else lo = mid + 1;

@@ -10,13 +10,20 @@ Port of s4g_tpu/ops/neighbors.py, with the same semantics:
 * three_nn returns the 3 smallest squared distances, ascending, ties to the
   lower index, with the distances recomputed in exact difference form.
 
-Routes, as in the JAX package (`neighbors.py:482-490, 684-693`):
+Routes, as in the JAX package (`neighbors.py:54-75, 482-496, 684-693`):
 
-* a sorted cloud with N > slab capacity (SA1 at deployment) takes the
-  sorted-slab ball query — the CUDA kernel `csrc/ball_query_slab.cu` (K2)
-  on CUDA tensors, its plain twin on CPU tensors — with a full-scan
-  fallback when a tile's key window overflows (part of the semantics);
-  every other ball query is the plain full scan;
+* the ball query's `impl` ("auto", "torch" or "kernel"; "auto" resolves
+  to the module default, `set_default_bq_impl`, else "torch");
+* "torch": a sorted cloud with N > slab capacity (SA1 at deployment)
+  takes the sorted-slab ball query — the CUDA kernel
+  `csrc/ball_query_slab.cu` (K2) on CUDA tensors, its plain twin on CPU
+  tensors — with a full-scan fallback when a tile's key window overflows
+  (part of the semantics); every other ball query is the full scan in
+  plain PyTorch (`_ball_query_full`);
+* "kernel": every ball query is the full-scan kernel
+  `csrc/ball_query_full.cu` (K2f), sorted cloud or not, as JAX's
+  `impl="pallas"` skips the slab route; CPU tensors take its plain twin
+  `_ball_query_full`;
 * 3-NN with N1 * N2 >= 2^22 selects with the CUDA kernel
   `csrc/three_nn.cu` (K4) (plain twin on CPU); smaller stages select with
   matmul-form distances, the twin of `_three_nn_select_xla`.
@@ -44,6 +51,33 @@ KERNEL_MIN_PAIRS = 1 << 22
 # Times the sorted-slab route fell back to the full scan (a tile's
 # in-radius keys overflowed its window); read by chip_smoke.py.
 SLAB_FALLBACKS = {"overflow": 0}
+
+# K2f keeps the ballot words of a block's 32 centroids over all N keys in
+# shared memory (`csrc/ball_query_full.cu`): 160 bytes per 32 keys beside
+# a 24 KB key tile, within the 227 KB a block may take.
+FULL_SCAN_MAX_KEYS = 32 * ((232448 - 24576) // 160)
+
+# Route that ball_query's impl="auto" resolves to (None: "torch", the
+# full scan in plain PyTorch, as JAX's "auto" resolves to "xla").
+_DEFAULT_BQ_IMPL = None
+_BQ_IMPLS = ("torch", "kernel")
+
+
+def set_default_bq_impl(impl: Optional[str]) -> None:
+    """Override the route ball_query's impl="auto" takes: "kernel" (K2f),
+    "torch", or None (the default, "torch")."""
+    global _DEFAULT_BQ_IMPL
+    if impl is not None and impl not in _BQ_IMPLS:
+        raise ValueError(f"unknown ball-query impl {impl!r}")
+    _DEFAULT_BQ_IMPL = impl
+
+
+def _resolve_bq_impl(impl: str) -> str:
+    if impl == "auto":
+        return _DEFAULT_BQ_IMPL or "torch"
+    if impl not in _BQ_IMPLS:
+        raise ValueError(f"unknown ball-query impl {impl!r}")
+    return impl
 
 
 def _f32(x: float) -> float:
@@ -149,6 +183,37 @@ def _ball_query_full(points, centroids, radius2: float, k: int,
         idx_out.append(torch.cat(idx_b))
         cnt_out.append(torch.cat(cnt_b))
     return torch.stack(idx_out), torch.stack(cnt_out)
+
+
+def ball_query_full_scan(points: torch.Tensor, centroids: torch.Tensor,
+                         radius: float, num_neighbours: int,
+                         stratified: bool = False):
+    """Full-scan ball query (K2f): every centroid tests every point.
+
+    Args: points (B, 3, N) f32, N <= FULL_SCAN_MAX_KEYS on the card;
+        centroids (B, 3, M) f32.
+    Returns: index (B, M, K) int32, count (B, M) int32.  CUDA tensors
+    launch `csrc/ball_query_full.cu`; CPU tensors take `_ball_query_full`."""
+    b, _, n = points.shape
+    m = centroids.shape[2]
+    radius2 = radius * radius
+    if n < 1 or m < 1 or num_neighbours < 1:
+        raise ValueError(f"ball query needs N, M, K >= 1 (N={n}, M={m}, "
+                         f"K={num_neighbours})")
+    if not _build.on_cuda(points, centroids):
+        return _ball_query_full(points, centroids, radius2, num_neighbours,
+                                stratified=stratified)
+    if n > FULL_SCAN_MAX_KEYS:
+        raise ValueError(f"the K2f kernel scans at most {FULL_SCAN_MAX_KEYS} "
+                         f"points per scene (got {n})")
+    _build.check(points, "points", torch.float32, (b, 3, n))
+    _build.check(centroids, "centroids", torch.float32, (b, 3, m))
+    idx = torch.empty((b, m, num_neighbours), dtype=torch.int32,
+                      device=points.device)
+    cnt = torch.empty((b, m), dtype=torch.int32, device=points.device)
+    _build.launch("ball_query_full", points, centroids, b, n, m,
+                  _f32(radius2), num_neighbours, int(stratified), idx, cnt)
+    return idx, cnt
 
 
 def _ball_query_slab_plain(points, centroids, lo_tile, radius2: float,
@@ -293,7 +358,7 @@ def ball_query(points: torch.Tensor, centroids: torch.Tensor, radius: float,
                num_neighbours: int, chunk: int = 512,
                sorted_axis: Optional[torch.Tensor] = None,
                slab_capacity: int = 6144, centroids_sorted: bool = False,
-               stratified: bool = False):
+               stratified: bool = False, impl: str = "auto"):
     """Ball query with reference-CUDA semantics (see module docstring).
 
     Args:
@@ -301,14 +366,20 @@ def ball_query(points: torch.Tensor, centroids: torch.Tensor, radius: float,
         radius: strict < on squared distance.
         sorted_axis: optional (B,) integer tensor; the caller guarantees the
             points are sorted ascending along that coordinate.  With
-            N > slab_capacity the sorted-slab route runs (K2).
+            N > slab_capacity the sorted-slab route runs (K2), unless the
+            route is "kernel".
         centroids_sorted: promise that the centroids are sorted the same way.
         stratified: overfull balls take rank-stratified in-range points.
+        impl: "auto" (the module default), "torch" or "kernel" (K2f).
 
     Returns: index (B, M, K) int32, count (B, M) int32.
     """
     n = points.shape[2]
     radius2 = radius * radius
+    if _resolve_bq_impl(impl) == "kernel":
+        return ball_query_full_scan(points.contiguous(),
+                                    centroids.contiguous(), radius,
+                                    num_neighbours, stratified)
     if sorted_axis is not None and n > slab_capacity:
         return _ball_query_sorted_pruned(points, centroids, radius2,
                                          num_neighbours, chunk, sorted_axis,
@@ -323,13 +394,13 @@ def ball_query_grouped(points: torch.Tensor, centroids: torch.Tensor,
                        sorted_axis: Optional[torch.Tensor] = None,
                        slab_capacity: int = 6144,
                        centroids_sorted: bool = False,
-                       stratified: bool = False):
+                       stratified: bool = False, impl: str = "auto"):
     """ball_query plus the grouped relative coordinates
     rel = points[index] - centroid, (B, M, K, 3) f32 (0 where count == 0)."""
     b, _, m = centroids.shape
     idx, count = ball_query(points, centroids, radius, num_neighbours, chunk,
                             sorted_axis, slab_capacity, centroids_sorted,
-                            stratified)
+                            stratified, impl)
     g = flat_gather_rows(points.transpose(1, 2).float(),
                          idx.reshape(b, m * num_neighbours))
     rel = (g.reshape(b, m, num_neighbours, 3)

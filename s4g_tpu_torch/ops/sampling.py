@@ -5,14 +5,14 @@ Port of s4g_tpu/ops/sampling.py.  Semantics:
 * exact FPS starts at point 0, relaxes the per-point min-distance to the
   selected set in f32 difference form and picks the argmax, ties to the
   lowest index;
-* sharded FPS (deployment, FPS_SHARDS=128 with SORT_POINTS) runs exact FPS
-  inside each contiguous N/128 slab for M/128 centroids and returns
-  shard-major global indices; `sort_local` then sorts each shard's picks.
+* sharded FPS (FPS_SHARDS = G > 1 with SORT_POINTS) runs exact FPS inside
+  each contiguous N/G slice for M/G centroids and returns shard-major
+  global indices; `sort_local` then sorts each shard's picks.
 
-Routes: the 128-shard case is the CUDA kernel `csrc/fps_lane.cu` (K1) on a
-CUDA tensor and its plain twin `_fps_sharded_plain` on a CPU tensor.  Exact
-FPS (the non-sharded case) is plain PyTorch on every device, as it is plain
-XLA in the JAX package off the TPU.
+Routes: on a CUDA tensor every FPS is a kernel — the 128-shard case
+`csrc/fps_lane.cu` (K1), exact FPS and every other shard count
+`csrc/fps_exact.cu` (K6).  On a CPU tensor they take the plain twins
+`_fps_sharded_plain` and `_fps_plain`.
 """
 
 from __future__ import annotations
@@ -22,6 +22,10 @@ import torch
 from .. import _build
 
 _LANES = 128
+
+# K6 keeps a chain's min-distances in registers, 32 per thread at most
+# (`csrc/fps_exact.cu`), so a chain holds up to 1,024 x 32 points.
+FPS_EXACT_MAX_POINTS = 1024 * 32
 
 
 def _fps_plain(points: torch.Tensor, num_centroids: int) -> torch.Tensor:
@@ -50,8 +54,9 @@ def _shard_offsets(num_shards: int, ns: int, device) -> torch.Tensor:
 
 def _fps_sharded_plain(points: torch.Tensor, num_centroids: int,
                        num_shards: int = _LANES) -> torch.Tensor:
-    """Plain twin of K1: exact FPS per contiguous shard (port of
-    `_fps_sharded_xla`), shard-major global indices (B, M) int32."""
+    """Plain twin of K1 and of K6's G-shard case: exact FPS per contiguous
+    shard (port of `_fps_sharded_xla`), shard-major global indices (B, M)
+    int32."""
     b, _, n = points.shape
     g = num_shards
     ns, m_g = n // g, num_centroids // g
@@ -80,6 +85,51 @@ def fps_lane_sharded(points: torch.Tensor,
     return out
 
 
+def _fps_exact_launch(points: torch.Tensor, num_centroids: int,
+                      num_shards: int) -> torch.Tensor:
+    """Launch K6 on B * G chains: exact FPS over each contiguous N/G slice
+    for M/G centroids, shard-major global indices (B, M) int32."""
+    b, _, n = points.shape
+    ns = n // num_shards
+    if ns > FPS_EXACT_MAX_POINTS:
+        raise ValueError(f"the K6 kernel holds chains of at most "
+                         f"{FPS_EXACT_MAX_POINTS} points (got {ns})")
+    _build.check(points, "points", torch.float32, (b, 3, n))
+    out = torch.empty((b, num_centroids), dtype=torch.int32,
+                      device=points.device)
+    _build.launch("fps_exact", points, b, n, num_shards,
+                  num_centroids // num_shards, out)
+    return out
+
+
+def fps_exact(points: torch.Tensor, num_centroids: int) -> torch.Tensor:
+    """Exact FPS over B whole scenes (K6): (B, 3, N) f32 -> (B, M) int32,
+    slot 0 is point 0.  CUDA tensors launch `csrc/fps_exact.cu`; CPU
+    tensors take `_fps_plain`."""
+    if points.shape[2] < 1 or num_centroids < 1:
+        raise ValueError(f"FPS needs N >= 1 and M >= 1 (N={points.shape[2]}, "
+                         f"M={num_centroids})")
+    if not _build.on_cuda(points):
+        return _fps_plain(points, num_centroids)
+    return _fps_exact_launch(points, num_centroids, 1)
+
+
+def fps_sharded(points: torch.Tensor, num_centroids: int,
+                num_shards: int) -> torch.Tensor:
+    """G-shard FPS (K6): exact FPS in each of the G contiguous N/G slices of
+    a scene for M/G centroids, (B, 3, N) f32 -> (B, M) int32 shard-major
+    global indices.  Requires `fps_sharding_applies(N, M, G)`.  CUDA tensors
+    launch `csrc/fps_exact.cu` with B * G chains; CPU tensors take
+    `_fps_sharded_plain`."""
+    n = points.shape[2]
+    if not fps_sharding_applies(n, num_centroids, num_shards):
+        raise ValueError(f"{num_shards}-shard FPS needs G | N, G | M and "
+                         f"N >= M (N={n}, M={num_centroids})")
+    if not _build.on_cuda(points):
+        return _fps_sharded_plain(points, num_centroids, num_shards)
+    return _fps_exact_launch(points, num_centroids, num_shards)
+
+
 def fps_sharding_applies(n: int, num_centroids: int,
                          num_shards: int) -> bool:
     """True iff farthest_point_sample(num_shards=G) takes the sharded path
@@ -98,10 +148,10 @@ def farthest_point_sample(points: torch.Tensor, num_centroids: int,
 
     Args:
         points: (B, 3, N) xyz, channels-first.
-        num_centroids: number of centroids M to select (M <= N).
-        num_shards: 1 = exact FPS.  128 = sharded FPS (K1) when
-            `fps_sharding_applies`; exact FPS otherwise.  Other shard counts
-            are the JAX package's G-shard kernel, not ported yet.
+        num_centroids: number of centroids M to select.
+        num_shards: 1 = exact FPS (K6).  G > 1 = sharded FPS when
+            `fps_sharding_applies` (K1 at G = 128, K6 otherwise); exact FPS
+            when it does not.
         sort_local: sharded path only — sort each shard's picks by index,
             so a cloud sorted along an axis yields sorted centroids.
 
@@ -110,14 +160,13 @@ def farthest_point_sample(points: torch.Tensor, num_centroids: int,
     """
     n = points.shape[2]
     if fps_sharding_applies(n, num_centroids, num_shards):
-        if num_shards != _LANES:
-            raise NotImplementedError(
-                f"sharded FPS with {num_shards} shards is the G-shard "
-                "kernel (K6 in ROADMAP.md §2), not ported yet")
-        out = fps_lane_sharded(points, num_centroids)
+        if num_shards == _LANES:
+            out = fps_lane_sharded(points, num_centroids)
+        else:
+            out = fps_sharded(points, num_centroids, num_shards)
         if sort_local:
             m_g = num_centroids // num_shards
             out = torch.sort(out.reshape(-1, num_shards, m_g), dim=2)[0] \
                 .reshape(-1, num_centroids)
         return out
-    return _fps_plain(points, num_centroids)
+    return fps_exact(points, num_centroids)

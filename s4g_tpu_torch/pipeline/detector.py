@@ -1,5 +1,5 @@
 """GraspDetector — the end-to-end grasp-proposal API on the GPU (port of
-s4g_tpu/pipeline/detector.py: `detect` and `detect_batch`).
+s4g_tpu/pipeline/detector.py: `detect`, `detect_batch` and `eval`).
 
 One call: camera frame -> train frame, preprocessing (voxel / outlier /
 fixed-size sample), the PN2_CLS forward, post-processing, the collision
@@ -12,8 +12,14 @@ validity mask.  The stage functions `prep_one` / `post_one` (one scene) and
 (B, 3, N), so at B >= 2 its SA1 stage is the fused kernel (K3) and its
 numbers differ from `detect`'s at bf16 level, as in the JAX package.
 
-Not in this slice: streaming, `eval`, mesh serving, training and
-checkpoint loading (ROADMAP.md).
+A YAML path in place of the model name selects another configuration of
+the same model, e.g. the reference-parity one (`curvature_model.yaml` with
+SORT_POINTS false and FPS_SHARDS 1: exact FPS, K6, and full-scan ball
+queries, which `ops.neighbors.set_default_bq_impl("kernel")` sends to
+K2f).
+
+Not in this slice: streaming, mesh serving, training and checkpoint
+loading (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -285,3 +291,24 @@ class GraspDetector:
         self.last_num_valid = [int(v) for v in out["num_valid"]]
         return [_grasps({k: v[i] for k, v in out.items()}, num_selected)
                 for i in range(len(arrays))]
+
+    def eval(self, cloud: np.ndarray,
+             sample_idx: Optional[torch.Tensor] = None) -> dict:
+        """Raw model predictions for one camera-frame cloud, (n, 3) or
+        (3, n) (reference grasp_detector.py:107-121): pad, rotate to the
+        train frame, voxel + outlier preprocessing and the fixed-size sample
+        (always, as in the JAX package), then one forward.  The sample
+        indices are `sample_idx` when given (injected draws), else drawn
+        from the detector's generator.
+
+        Returns: the PN2_CLS predictions of a batch of one, channels-first
+        f32 tensors on the detector's device ("score" (1, C, N), "frame_R",
+        "frame_t", "movable_logits")."""
+        cloud = np.asarray(cloud, np.float32)
+        if cloud.shape[0] == 3 and cloud.shape[1] != 3:
+            cloud = cloud.T
+        padded, valid = self._pad_cloud(cloud)
+        with torch.no_grad():
+            points = prep_one(padded, valid, self.num_input,
+                              sample_idx=sample_idx, generator=self.generator)
+            return self.net({"scene_points": points.t()[None].contiguous()})

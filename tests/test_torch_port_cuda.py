@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch twins on the card, at
 edge shapes the main path does not reach: ragged tiles, windows that run
-past the last point, exact ties, invalid rows, empty balls.  chip_smoke.py
-holds the kernels at the main path's shapes.
+past the last point, exact ties, invalid rows, empty balls, N below a block
+and M = 1.  chip_smoke.py holds the kernels at the main paths' shapes.
 
 Needs a CUDA device (a CUDA kernel has no CPU mode), so every test carries
 the `cuda` marker and skips without one.  On a machine with a GPU and no
@@ -47,6 +47,106 @@ def test_fps_lane_kernel_matches_plain(cuda, ns, m_g, grid):
     got = sp.fps_lane_sharded(pts.to(cuda), 128 * m_g)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("b,n,m,case", [
+    (1, 25, 25, "random"),        # N below one warp, M = N
+    (3, 5003, 700, "random"),     # b = 3, ragged N and M
+    (1, 20000, 300, "random"),    # N past the shared-memory cache: L2 reads
+    (2, 1030, 1, "random"),       # M = 1
+    (2, 300, 200, "duplicates"),  # 40 distinct points: ties at 0 after them
+    (1, 2000, 50, "one point"),   # every distance 0: every pick is 0
+])
+def test_fps_exact_kernel_matches_plain(cuda, b, n, m, case):
+    rng = np.random.RandomState(n + m)
+    pts = rng.rand(b, 3, n).astype(np.float32)
+    if case == "duplicates":
+        pts = pts[:, :, rng.randint(0, 40, n)]
+    elif case == "one point":
+        pts[:] = pts[:, :, :1]
+    pts = torch.from_numpy(np.ascontiguousarray(pts))
+    want = sp._fps_plain(pts, m)
+    got = sp.fps_exact(pts.to(cuda), m)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    if case == "one point":
+        assert not want.any()
+
+
+@pytest.mark.parametrize("b,g,n,m", [(2, 8, 4000, 800), (3, 3, 999, 99),
+                                     (1, 4, 64, 64)])
+def test_fps_sharded_kernel_matches_plain(cuda, b, g, n, m):
+    pts = torch.from_numpy(np.random.RandomState(n).rand(b, 3, n)
+                           .astype(np.float32))
+    want = sp._fps_sharded_plain(pts, m, g)
+    got = sp.fps_sharded(pts.to(cuda), m, g)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+def test_fps_on_cuda_launches_a_kernel(cuda, monkeypatch):
+    """farthest_point_sample never hands a CUDA tensor to the plain loop:
+    exact FPS and G-shard FPS launch K6, 128 shards K1."""
+    monkeypatch.setattr(sp, "_fps_plain",
+                        lambda *a: pytest.fail("plain FPS on the card"))
+    pts = torch.rand(2, 3, 128 * 16, device=cuda)
+    for shards, kernel in ((1, "fps_exact"), (8, "fps_exact"),
+                           (5, "fps_exact"), (128, "fps_lane")):
+        before = _build.LAUNCHES[kernel]
+        sp.farthest_point_sample(pts, 256, num_shards=shards)
+        assert _build.LAUNCHES[kernel] == before + 1, shards
+
+
+@pytest.mark.parametrize("b,n,m,radius,k,shift", [
+    (1, 20, 7, 0.3, 8, 0.0),          # N below one 32-key chunk
+    (3, 5001, 1000, 0.05, 64, 0.0),   # b = 3, ragged N and M
+    (2, 25600, 333, 0.02, 64, 0.0),   # SA1's N: 800 words per centroid
+    (2, 4096, 300, 0.5, 8, 0.0),      # K = 8, overfull balls
+    (1, 3000, 64, 0.1, 16, 9.0),      # balls with no hit
+    (1, nb.FULL_SCAN_MAX_KEYS, 40, 0.05, 24, 0.0),   # the largest N held
+])
+@pytest.mark.parametrize("stratified", [False, True])
+def test_ball_query_full_kernel_matches_plain(cuda, b, n, m, radius, k,
+                                              shift, stratified):
+    rng = np.random.RandomState(n + m)
+    pts = (rng.rand(b, 3, n) * 0.6).astype(np.float32)
+    cents = np.ascontiguousarray(pts[:, :, rng.choice(n, m, replace=False)]
+                                 + np.float32(shift))
+    pts, cents = torch.from_numpy(pts), torch.from_numpy(cents)
+    want = nb._ball_query_full(pts, cents, radius * radius, k,
+                               stratified=stratified)
+    got = nb.ball_query_full_scan(pts.to(cuda), cents.to(cuda), radius, k,
+                                  stratified)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    if shift:
+        assert not want[1].any()
+    else:
+        assert int(want[1].min()) > 0
+
+
+def test_k6_and_k2f_wrappers_check_their_operands(cuda):
+    pts = torch.rand(1, 3, 1000, device=cuda)
+    with pytest.raises(TypeError):
+        sp.fps_exact(pts.double(), 10)
+    with pytest.raises(ValueError, match="contiguous"):
+        sp.fps_exact(pts.transpose(1, 2).contiguous().transpose(1, 2), 10)
+    with pytest.raises(ValueError, match="holds chains"):
+        sp.fps_exact(torch.rand(1, 3, sp.FPS_EXACT_MAX_POINTS + 1,
+                                device=cuda), 10)
+    cents = pts[:, :, :10].contiguous()
+    with pytest.raises(TypeError):
+        nb.ball_query_full_scan(pts, cents.double(), 0.1, 8)
+    with pytest.raises(ValueError, match="mixed devices"):
+        nb.ball_query_full_scan(pts, cents.cpu(), 0.1, 8)
+    with pytest.raises(ValueError, match="at most"):
+        nb.ball_query_full_scan(
+            torch.rand(1, 3, nb.FULL_SCAN_MAX_KEYS + 1, device=cuda), cents,
+            0.1, 8)
+    before = _build.LAUNCHES["ball_query_full"]
+    nb.ball_query(pts, cents, 0.1, 8, impl="kernel")
+    assert _build.LAUNCHES["ball_query_full"] == before + 1
 
 
 @pytest.mark.parametrize("n,m,radius,k", [
