@@ -42,10 +42,12 @@ run, but the run then exits non-zero without printing a result:
    clutter scenes, whose SA1 windows overflow (the full-scan fallback), with
    the launches of its kernels counted the same way (K3's must be > 0);
    then the parity configuration at full width (`_parity_phase`): detect
-   x3 and detect_batch at b = 2 (K6 three times per forward, no K1, no
-   K2), detect x3 under the ball-query override (K2f three times per
-   forward) and one eval; then one detect_batch at b = 2 on the sort-only
-   ablation (SORT_POINTS, FPS_SHARDS 1: K6 feeding K3);
+   x3, detect_batch at b = 2 (K6 three times per forward, no K1, no K2),
+   detect x3 under the ball-query override (K2f three times per forward)
+   and one eval; then one detect_batch at b = 2 on the sort-only ablation
+   (SORT_POINTS, FPS_SHARDS 1: K6 feeding K3).  Each of these five runs is
+   counted on its own, and every kernel must launch exactly its count per
+   forward (`_parity_launches`);
 5. profile: one detect, one detect_batch at b = 2 and one parity detect
    under torch.profiler — device time by kernel and the device's idle
    share.
@@ -815,16 +817,15 @@ def _k2f_phase(inp, torch):
             *_bound_ms(ops, nbytes))
 
 
-def _expect(label, launches, forwards, per_forward, nonzero=()):
-    """Fail unless each kernel of `per_forward` launched that many times per
-    forward and each of `nonzero` at least once."""
-    bad = {k: launches[k] for k, per in per_forward.items()
-           if launches[k] != per * forwards}
-    bad.update({k: 0 for k in nonzero if launches[k] <= 0})
+def _expect(label, launches, forwards, per_forward):
+    """Fail unless every kernel launched `per_forward[kernel]` times per
+    forward (each kernel must be named)."""
+    bad = {k: launches[k] for k in launches
+           if launches[k] != per_forward[k] * forwards}
     print(f"{label}: {forwards} forwards, launches {launches}", flush=True)
     if bad:
         raise AssertionError(f"{label}: launches {bad}; expected per forward "
-                             f"{per_forward} and > 0 for {list(nonzero)}")
+                             f"{per_forward}")
 
 
 def _stage_medians(label, runs):
@@ -834,18 +835,28 @@ def _stage_medians(label, runs):
     return med
 
 
-# The parity path: K6 three times per forward, never the sorted-slab route.
-PARITY_LAUNCHES = {"fps_exact": 3, "fps_lane": 0, "ball_query_slab": 0,
-                   "sa1_fused": 0}
+def _parity_launches(det, **changes):
+    """Launches per parity detect of `det`, with `changes`: K6 for each SA
+    stage, K4 for each FP stage at or above its pair threshold (two at full
+    width), K5 once per scene post-processed; never K1, K2 or K3, and K2f
+    only under the ball-query override."""
+    from s4g_tpu_torch.ops.neighbors import KERNEL_MIN_PAIRS
+    cfg = det.cfg.MODEL.PN2
+    sizes = (det.num_input, *cfg.NUM_CENTROIDS)
+    fp = sum(a * b >= KERNEL_MIN_PAIRS for a, b in zip(sizes, sizes[1:]))
+    return {"fps_lane": 0, "fps_exact": len(cfg.NUM_CENTROIDS),
+            "ball_query_full": 0, "ball_query_slab": 0, "three_nn": fp,
+            "collision_counts": 1, "sa1_fused": 0, **changes}
 
 
 def _parity_phase(det, torch, np):
     """The reference-parity configuration at full width, through the API:
-    detect x3 on a tabletop and detect_batch at b = 2 (ball queries on the
-    "auto" route, the plain full scan), then detect x3 under the
+    detect x3 on a tabletop, then detect_batch at b = 2 (ball queries on
+    the "auto" route, the plain full scan), then detect x3 under the
     ball-query override (K2f three times per forward), then one eval.  Each
     run is warmed up, then driven with the launch counts zeroed before it
-    and read after it.  Returns each run's launches and stage medians."""
+    and read after it, and each kernel's count must be exactly its
+    per-forward count.  Returns each run's launches and stage medians."""
     from s4g_tpu_torch import _build
     from s4g_tpu_torch.ops import neighbors as nb
 
@@ -862,13 +873,16 @@ def _parity_phase(det, torch, np):
         _check_grasps("parity detect", [det.detect(scenes["tabletop0"],
                                                    **kw)])
         runs.append(dict(det.timings))
-    results = det.detect_batch(pair, **kw)
-    _check_grasps("parity detect_batch", results)
-    paths["parity"] = dict(_build.LAUNCHES)
-    _expect("parity detect x3 + detect_batch b=2", paths["parity"],
-            NUM_DETECT + 1, dict(PARITY_LAUNCHES, ball_query_full=0),
-            ("three_nn", "collision_counts"))
+    paths["parity_detect"] = dict(_build.LAUNCHES)
+    _expect("parity detect x3", paths["parity_detect"], NUM_DETECT,
+            _parity_launches(det))
     medians["detect"] = _stage_medians("parity detect tabletop", runs)
+
+    _build.reset_launches()
+    _check_grasps("parity detect_batch", det.detect_batch(pair, **kw))
+    paths["parity_batch"] = dict(_build.LAUNCHES)
+    _expect("parity detect_batch b=2", paths["parity_batch"], 1,
+            _parity_launches(det, collision_counts=2))
     medians["detect_batch b=2"] = _stage_medians("parity detect_batch b=2",
                                                  [det.timings])
 
@@ -886,8 +900,8 @@ def _parity_phase(det, torch, np):
         nb.set_default_bq_impl(None)
     _expect("parity detect x3, kernel ball query",
             paths["parity_kernel_bq"], NUM_DETECT,
-            dict(PARITY_LAUNCHES, ball_query_full=3),
-            ("three_nn", "collision_counts"))
+            _parity_launches(det, ball_query_full=len(
+                det.cfg.MODEL.PN2.NUM_CENTROIDS)))
     medians["detect, kernel ball query"] = _stage_medians(
         "parity detect tabletop, kernel ball query", runs)
 
@@ -895,7 +909,7 @@ def _parity_phase(det, torch, np):
     preds = det.eval(scenes["tabletop0"])
     paths["parity_eval"] = dict(_build.LAUNCHES)
     _expect("parity eval", paths["parity_eval"], 1,
-            dict(PARITY_LAUNCHES, ball_query_full=0), ("three_nn",))
+            _parity_launches(det, collision_counts=0))
     n = det.num_input
     for key, c in (("score", 3), ("frame_R", 9), ("frame_t", 4),
                    ("movable_logits", 5)):
@@ -920,9 +934,7 @@ def _sort_only_phase(det, torch, np):
     _check_grasps("sort-only detect_batch", det.detect_batch(pair, **kw))
     launches = dict(_build.LAUNCHES)
     _expect("sort-only detect_batch b=2", launches, 1,
-            {"fps_exact": 3, "fps_lane": 0, "sa1_fused": 1,
-             "ball_query_slab": 0, "ball_query_full": 0},
-            ("three_nn", "collision_counts"))
+            _parity_launches(det, sa1_fused=1, collision_counts=2))
     return launches, _stage_medians("sort-only detect_batch b=2",
                                     [det.timings])
 

@@ -18,8 +18,8 @@
 // each key is read from L2 once per 32 centroids.  A warp turns each 32-key
 // chunk into one ballot word per centroid; the words of all 32 centroids
 // over all N keys stay in shared memory (102 KB at N = 25,600; 160 bytes
-// per 32 keys with the prefix counts, so N <= 41,568 — the wrapper raises
-// beyond).  Then each warp, per centroid, takes the words' prefix counts
+// per 32 keys with the prefix counts, so N <= 41,568 — the launcher
+// returns cudaErrorInvalidValue beyond).  Then each warp, per centroid, takes the words' prefix counts
 // and walks the ranks with slab_select.cuh, the selection K2 and K3 use.
 
 #include "slab_select.cuh"
@@ -129,6 +129,7 @@ extern "C" int s4g_ball_query_full(const float* pts, const float* cents,
   const size_t smem =
       kTileBytes + (kCentroidsPerBlock + kWarps) * sizeof(int) *
                        static_cast<size_t>(nwords);
+  if (smem > kS4gMaxSmem) return cudaErrorInvalidValue;  // N > 41,568
   static size_t granted = 0;
   cudaError_t err = s4g_allow_smem(ball_query_full_kernel, smem, &granted);
   if (err != cudaSuccess) return err;

@@ -20,6 +20,9 @@ __device__ __forceinline__ float s4g_sqdist(float ax, float ay, float az,
                    __fmul_rn(dz, dz));
 }
 
+// The most dynamic shared memory one block may take on sm_90 (227 KB).
+constexpr size_t kS4gMaxSmem = 232448;
+
 // Dynamic shared memory above 48 KB needs an opt-in per kernel.  Raised
 // only when a launch needs more than before, so steady-state launches (and
 // CUDA-graph captures) make no attribute call.

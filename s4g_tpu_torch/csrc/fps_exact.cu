@@ -41,9 +41,8 @@ constexpr int kMaxThreads = 1024;
 constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kMaxPpt = 32;
 constexpr size_t kRedBytes = 2 * kMaxWarps * (sizeof(float) + sizeof(int));
-constexpr size_t kMaxSmem = 232448;  // the most a block may take on sm_90
 constexpr int kMaxCached =
-    static_cast<int>((kMaxSmem - kRedBytes) / (3 * sizeof(float)));
+    static_cast<int>((kS4gMaxSmem - kRedBytes) / (3 * sizeof(float)));
 
 // (v, j) <- the larger value, ties to the lower index.
 __device__ __forceinline__ void argmax_merge(float& v, int& j, float ov,

@@ -52,11 +52,6 @@ KERNEL_MIN_PAIRS = 1 << 22
 # in-radius keys overflowed its window); read by chip_smoke.py.
 SLAB_FALLBACKS = {"overflow": 0}
 
-# K2f keeps the ballot words of a block's 32 centroids over all N keys in
-# shared memory (`csrc/ball_query_full.cu`): 160 bytes per 32 keys beside
-# a 24 KB key tile, within the 227 KB a block may take.
-FULL_SCAN_MAX_KEYS = 32 * ((232448 - 24576) // 160)
-
 # Route that ball_query's impl="auto" resolves to (None: "torch", the
 # full scan in plain PyTorch, as JAX's "auto" resolves to "xla").
 _DEFAULT_BQ_IMPL = None
@@ -190,10 +185,11 @@ def ball_query_full_scan(points: torch.Tensor, centroids: torch.Tensor,
                          stratified: bool = False):
     """Full-scan ball query (K2f): every centroid tests every point.
 
-    Args: points (B, 3, N) f32, N <= FULL_SCAN_MAX_KEYS on the card;
-        centroids (B, 3, M) f32.
+    Args: points (B, 3, N) f32; centroids (B, 3, M) f32.
     Returns: index (B, M, K) int32, count (B, M) int32.  CUDA tensors
-    launch `csrc/ball_query_full.cu`; CPU tensors take `_ball_query_full`."""
+    launch `csrc/ball_query_full.cu`, which keeps every ballot word of a
+    scan in shared memory and refuses (the launch raises) an N whose words
+    do not fit; CPU tensors take `_ball_query_full`."""
     b, _, n = points.shape
     m = centroids.shape[2]
     radius2 = radius * radius
@@ -203,9 +199,6 @@ def ball_query_full_scan(points: torch.Tensor, centroids: torch.Tensor,
     if not _build.on_cuda(points, centroids):
         return _ball_query_full(points, centroids, radius2, num_neighbours,
                                 stratified=stratified)
-    if n > FULL_SCAN_MAX_KEYS:
-        raise ValueError(f"the K2f kernel scans at most {FULL_SCAN_MAX_KEYS} "
-                         f"points per scene (got {n})")
     _build.check(points, "points", torch.float32, (b, 3, n))
     _build.check(centroids, "centroids", torch.float32, (b, 3, m))
     idx = torch.empty((b, m, num_neighbours), dtype=torch.int32,

@@ -23,10 +23,6 @@ from .. import _build
 
 _LANES = 128
 
-# K6 keeps a chain's min-distances in registers, 32 per thread at most
-# (`csrc/fps_exact.cu`), so a chain holds up to 1,024 x 32 points.
-FPS_EXACT_MAX_POINTS = 1024 * 32
-
 
 def _fps_plain(points: torch.Tensor, num_centroids: int) -> torch.Tensor:
     """Exact FPS, (B, 3, N) -> (B, M) int32 (port of `_fps_xla`)."""
@@ -88,12 +84,10 @@ def fps_lane_sharded(points: torch.Tensor,
 def _fps_exact_launch(points: torch.Tensor, num_centroids: int,
                       num_shards: int) -> torch.Tensor:
     """Launch K6 on B * G chains: exact FPS over each contiguous N/G slice
-    for M/G centroids, shard-major global indices (B, M) int32."""
+    for M/G centroids, shard-major global indices (B, M) int32.  The kernel
+    keeps a chain's min-distances in registers and refuses (the launch
+    raises) a chain longer than they hold."""
     b, _, n = points.shape
-    ns = n // num_shards
-    if ns > FPS_EXACT_MAX_POINTS:
-        raise ValueError(f"the K6 kernel holds chains of at most "
-                         f"{FPS_EXACT_MAX_POINTS} points (got {ns})")
     _build.check(points, "points", torch.float32, (b, 3, n))
     out = torch.empty((b, num_centroids), dtype=torch.int32,
                       device=points.device)

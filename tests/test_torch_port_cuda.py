@@ -103,7 +103,9 @@ def test_fps_on_cuda_launches_a_kernel(cuda, monkeypatch):
     (2, 25600, 333, 0.02, 64, 0.0),   # SA1's N: 800 words per centroid
     (2, 4096, 300, 0.5, 8, 0.0),      # K = 8, overfull balls
     (1, 3000, 64, 0.1, 16, 9.0),      # balls with no hit
-    (1, nb.FULL_SCAN_MAX_KEYS, 40, 0.05, 24, 0.0),   # the largest N held
+    # The largest N whose ballot words fit a block's 227 KB of shared
+    # memory: 32 * ((232448 - 24576) // 160).
+    (1, 41568, 40, 0.05, 24, 0.0),
 ])
 @pytest.mark.parametrize("stratified", [False, True])
 def test_ball_query_full_kernel_matches_plain(cuda, b, n, m, radius, k,
@@ -132,18 +134,18 @@ def test_k6_and_k2f_wrappers_check_their_operands(cuda):
         sp.fps_exact(pts.double(), 10)
     with pytest.raises(ValueError, match="contiguous"):
         sp.fps_exact(pts.transpose(1, 2).contiguous().transpose(1, 2), 10)
-    with pytest.raises(ValueError, match="holds chains"):
-        sp.fps_exact(torch.rand(1, 3, sp.FPS_EXACT_MAX_POINTS + 1,
-                                device=cuda), 10)
+    # One point more than 1,024 threads with 32 min-distances each hold.
+    with pytest.raises(RuntimeError, match="fps_exact failed to launch"):
+        sp.fps_exact(torch.rand(1, 3, 1024 * 32 + 1, device=cuda), 10)
     cents = pts[:, :, :10].contiguous()
     with pytest.raises(TypeError):
         nb.ball_query_full_scan(pts, cents.double(), 0.1, 8)
     with pytest.raises(ValueError, match="mixed devices"):
         nb.ball_query_full_scan(pts, cents.cpu(), 0.1, 8)
-    with pytest.raises(ValueError, match="at most"):
-        nb.ball_query_full_scan(
-            torch.rand(1, 3, nb.FULL_SCAN_MAX_KEYS + 1, device=cuda), cents,
-            0.1, 8)
+    with pytest.raises(RuntimeError,
+                       match="ball_query_full failed to launch"):
+        nb.ball_query_full_scan(torch.rand(1, 3, 41568 + 1, device=cuda),
+                                cents, 0.1, 8)
     before = _build.LAUNCHES["ball_query_full"]
     nb.ball_query(pts, cents, 0.1, 8, impl="kernel")
     assert _build.LAUNCHES["ball_query_full"] == before + 1
