@@ -24,33 +24,41 @@ run, but the run then exits non-zero without printing a result:
    (full-scan ball query) at the reference-parity configuration's shapes
    (`curvature_model.yaml` with SORT_POINTS false and FPS_SHARDS 1) at
    b = 1 and 2, bit for bit (K6 also with 8 shards), timed beside their
-   twins;
+   twins; then K7 (the SharedMLP chain) at each of the ten chains of a
+   b = 1 fused-chain forward, their inputs captured from a seeded tabletop,
+   held against its twin (bf16 within 1e-2 of the output's max, as K3;
+   f32 within 1e-5) plus one f32 case at SA2's shape, timed per forward
+   beside its twin, its bound, the fused route as the model calls it (BN
+   folding and weight packing included) and the unfused route;
 3. reference: the detect stages at a narrow width that still takes every
    kernel route, on the GPU and on the CPU (plain twins), each stage fed
    the same inputs on both devices (see `_reference_phase`); then the
    detect_batch stages at b = 2 the same way, at a narrow width whose SA1
    the fused stage takes (`_batch_reference_phase`); then the detect
-   stages at the narrow width of the parity configuration under the
-   ball-query override (K6 and K2f, `_parity_reference_phase`);
+   stages at the narrow width of the parity configuration (K6 and K2f,
+   `_parity_reference_phase`); then the first two again on the fused-chain
+   route (K7 on the GPU, `_fused_reference_phase`);
 4. main paths: `GraspDetector(model="curvature_model").detect` at full width
    with seeded random weights on a synthetic camera-frame tabletop (a plane
    plus boxes), a few times, then a clutter scene; per-stage and total ms,
-   the number of valid grasps, the rotations' orthonormality, whether the
-   SA1 slab window overflowed, and the launch count of each of its kernels
-   (each must be > 0); then `detect_batch` at b = 1, 2 and 4 on tabletops
-   (timed; SA1 is K3 at b >= 2) and at b = 2 and 4 on tabletops mixed with
-   clutter scenes, whose SA1 windows overflow (the full-scan fallback), with
-   the launches of its kernels counted the same way (K3's must be > 0);
-   then the parity configuration at full width (`_parity_phase`): detect
-   x3, detect_batch at b = 2 (K6 three times per forward, no K1, no K2),
-   detect x3 under the ball-query override (K2f three times per forward)
-   and one eval; then one detect_batch at b = 2 on the sort-only ablation
-   (SORT_POINTS, FPS_SHARDS 1: K6 feeding K3).  Each of these five runs is
-   counted on its own, and every kernel must launch exactly its count per
-   forward (`_parity_launches`);
-5. profile: one detect, one detect_batch at b = 2 and one parity detect
-   under torch.profiler — device time by kernel and the device's idle
-   share.
+   the number of valid grasps, the rotations' orthonormality and whether
+   the SA1 slab window overflowed; then `detect_batch` at b = 1, 2 and 4 on
+   tabletops (timed; SA1 is K3 at b >= 2) and at b = 2 and 4 on tabletops
+   mixed with clutter scenes, whose SA1 windows overflow (the full-scan
+   fallback); then the parity configuration at full width
+   (`_parity_phase`): detect x3, detect_batch at b = 2 and one eval; then
+   one detect_batch at b = 2 on the sort-only ablation (SORT_POINTS,
+   FPS_SHARDS 1: K6 feeding K3); then the fused-chain configuration
+   (`_fused_phase`, the deployed detector with `nn_layers.MLP_IMPL`
+   "fused"): detect x3, detect_batch at b = 2 x3, and one detect with the
+   route on "auto" over the pooled SA chains only, then the route off and
+   on in turns at b = 1 and 2 (uncounted, timed).  Each run's launch
+   counters are zeroed before it and read after it, and every kernel must
+   launch exactly its count per forward (`_deployed_launches`,
+   `_parity_launches`), given the SA1 overflows the run reported;
+5. profile: one detect, one detect_batch at b = 2, one parity detect and
+   one fused-chain detect under torch.profiler — device time by kernel and
+   the device's idle share.
 
 Then one JSON line with every kernel's numbers and, last, the contract line
 `{"ok": true, "device": {...}}`.  Without a CUDA device, or without the
@@ -59,6 +67,7 @@ package beside this script, it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -78,10 +87,9 @@ PEAK_BYTES = 3.35e12
 NUM_DETECT = 3
 NUM_BATCH = 3
 
-# Kernels each main path must launch.
-DETECT_KERNELS = ("fps_lane", "ball_query_slab", "three_nn",
-                  "collision_counts")
-BATCH_KERNELS = ("fps_lane", "sa1_fused", "three_nn", "collision_counts")
+# The ball query's slab capacity (`ops.neighbors.ball_query`): a sorted SA
+# input above it takes K2, every other one K2f.
+SLAB_CAPACITY = 6144
 
 
 def _bound_ms(ops: float, nbytes: float):
@@ -678,18 +686,13 @@ NARROW_PARITY = {**NARROW, "MODEL": {**NARROW["MODEL"], "PN2": {
 
 
 def _parity_reference_phase(torch, np, devices=("cpu", "cuda")):
-    """`_reference_phase` at NARROW_PARITY under the ball-query override: on
-    the GPU every FPS is K6 and every ball query K2f (each must launch), on
-    the CPU their plain twins; checked as `_reference_phase` checks."""
+    """`_reference_phase` at NARROW_PARITY: on the GPU every FPS is K6 and
+    every ball query K2f (each must launch), on the CPU their plain twins;
+    checked as `_reference_phase` checks."""
     from s4g_tpu_torch import _build
-    from s4g_tpu_torch.ops import neighbors as nb
 
     before = dict(_build.LAUNCHES)
-    nb.set_default_bq_impl("kernel")
-    try:
-        out = _reference_phase(torch, np, devices, config=NARROW_PARITY)
-    finally:
-        nb.set_default_bq_impl(None)
+    out = _reference_phase(torch, np, devices, config=NARROW_PARITY)
     idle = [k for k in ("fps_exact", "ball_query_full")
             if _build.LAUNCHES[k] == before[k]]
     if devices[1] != "cpu" and idle:
@@ -817,6 +820,184 @@ def _k2f_phase(inp, torch):
             *_bound_ms(ops, nbytes))
 
 
+def _chain_inputs(det, torch, np):
+    """Each SharedMLP chain of a b = 1 fused-chain forward of `det` at full
+    width, as `SharedMLP.fused_eval` receives it, from a seeded tabletop:
+    [(module name, module, x, max_pool_k)], in call order."""
+    from s4g_tpu_torch.models import nn_layers
+    from s4g_tpu_torch.pipeline.detector import prep_one
+
+    captured = []
+    orig = nn_layers.SharedMLP.fused_eval
+
+    def capture(self, x, max_pool_k=None):
+        captured.append((self, x.clone(), max_pool_k))
+        return orig(self, x, max_pool_k)
+
+    cloud, valid = det._pad_cloud(tabletop_cloud(np.random.RandomState(7)))
+    gen = torch.Generator(device=det.device).manual_seed(7)
+    nn_layers.SharedMLP.fused_eval = capture
+    try:
+        with _mlp_route(MLP_IMPL="fused"), torch.no_grad():
+            points = prep_one(cloud, valid, det.num_input, generator=gen)
+            det.net({"scene_points": points.t()[None].contiguous()})
+    finally:
+        nn_layers.SharedMLP.fused_eval = orig
+    names = {id(m): n for n, m in det.net.named_modules()}
+    return [(names[id(m)], m, x, k) for m, x, k in captured]
+
+
+def _k7_case(name, mlp, x, k, cd, torch):
+    """K7 on one chain against its twin on the card, then timed: the kernel
+    alone (packed weights), the twin and, at the module's own compute
+    dtype, the fused route as the model runs it (`fused_eval`: BN folding,
+    packing, casts, kernel) and the unfused route (`SharedMLP.forward` with
+    the route off).  Returns the numbers."""
+    from s4g_tpu_torch.ops import mlp_chain as mc
+
+    with torch.no_grad():
+        params = mlp.folded_params()
+        flat = x.reshape(-1, x.shape[-1])
+        relu = (True,) * len(params)
+        got = mc.mlp_chain(flat, params, relu, k, cd)
+        torch.cuda.synchronize()
+        want = mc._mlp_chain_plain(flat, params, relu, k, cd)
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    # f32: sums in another order; bf16: an f32 sum in another order flips an
+    # odd bf16 rounding of a hidden activation (as for K3).
+    tol = 1e-5 if cd == torch.float32 else 1e-2
+    if not (scale > 0 and err <= tol * scale):
+        raise AssertionError(f"mlp_chain {name} ({cd}): max |kernel - plain| "
+                             f"= {err} > {tol} x max |plain| = {scale}")
+    equal = float((got == want).double().mean())
+    packed, kpad0 = mc._pack(params, flat.shape[1], cd)
+    xc = flat.to(cd).contiguous()
+    c_out = params[-1][0].shape[1]
+    with torch.no_grad():
+        ms = _graph_ms(lambda: mc._launch(xc, packed, kpad0, c_out, relu, k))
+        plain = _event_ms(lambda: mc._mlp_chain_plain(flat, params, relu, k,
+                                                      cd), reps=5)
+        route = unfused = float("nan")
+        if cd == mlp[0].dtype:
+            route = _graph_ms(lambda: mlp.fused_eval(x, k))
+            with _mlp_route(MLP_IMPL="unfused"):
+                unfused = _graph_ms(lambda: mlp(x, max_pool_k=k))
+    widths = [flat.shape[1]] + [w.shape[1] for w, _ in params]
+    flop = 2.0 * flat.shape[0] * sum(a * b for a, b in zip(widths, widths[1:]))
+    nbytes = (xc.numel() * xc.element_size() + 4 * got.numel()
+              + sum(w.numel() * xc.element_size() + 4 * b.numel()
+                    for w, b in params))
+    print(f"kernel mlp_chain {name} ({str(cd)[6:]}): rows {flat.shape[0]}, "
+          f"widths {widths}, pool {k}; max|kernel-plain|={err:.3g} (max|plain|"
+          f" {scale:.3g}), bit-equal share {equal:.4f}; kernel {ms:.4f} ms, "
+          f"fused route {route:.4f}, unfused route {unfused:.4f}, plain "
+          f"{plain:.4f}", flush=True)
+    return {"err": err, "ms": ms, "plain": plain, "route": route,
+            "unfused": unfused, "flop": flop, "bytes": nbytes}
+
+
+def _k7_phase(chains, torch):
+    """K7 at each chain of a b = 1 fused-chain forward (bf16 at full width),
+    then one f32 case at SA2's chain; per-forward sums of the bf16 cases
+    against the bf16 bound."""
+    cases = [_k7_case(name, mlp, x, k, mlp[0].dtype, torch)
+             for name, mlp, x, k in chains]
+    name, mlp, x, k = next(c for c in chains if c[0] == "sa_modules.1.mlp")
+    f32 = _k7_case(name, mlp, x, k, torch.float32, torch)
+    tot = {key: sum(c[key] for c in cases) for key in cases[0]}
+    t_ops = tot["flop"] / PEAK_BF16_FLOPS
+    t_bytes = tot["bytes"] / PEAK_BYTES
+    print(f"kernel mlp_chain: {len(cases)} chains per b=1 forward, "
+          f"{tot['flop']:.3e} FLOP, {tot['bytes'] / 1e6:.1f} MB; kernel "
+          f"{tot['ms']:.4f} ms, fused route {tot['route']:.4f} ms, unfused "
+          f"route {tot['unfused']:.4f} ms, plain {tot['plain']:.4f} ms; f32 "
+          f"at SA2 {f32['ms']:.4f} ms (err {f32['err']:.3g})", flush=True)
+    report = ("mlp_chain", "s4g_tpu_torch/csrc/mlp_chain.cu",
+              "s4g_tpu/ops/pallas/mlp_kernels.py:31",
+              max(max(c["err"] for c in cases), f32["err"]),
+              tot["ms"], tot["plain"], 1e3 * max(t_ops, t_bytes),
+              "operations" if t_ops >= t_bytes else "bytes")
+    return report, {"unfused_ms": tot["unfused"],
+                    "fused_route_ms": tot["route"]}
+
+
+def _fused_reference_phase(torch, np, devices=("cpu", "cuda")):
+    """`_reference_phase` and `_batch_reference_phase` on the fused-chain
+    route: on the GPU every chain is K7 (10 at b = 1; 9 at b = 2, where K3
+    takes SA1), on the CPU its twin; checked as those phases check."""
+    from s4g_tpu_torch import _build
+
+    with _mlp_route(MLP_IMPL="fused"):
+        before = _build.LAUNCHES["mlp_chain"]
+        one = _reference_phase(torch, np, devices)
+        mid = _build.LAUNCHES["mlp_chain"]
+        two = _batch_reference_phase(torch, np, devices)
+    counts = (mid - before, _build.LAUNCHES["mlp_chain"] - mid)
+    if devices[1] != "cpu" and counts != (10, 9):
+        raise AssertionError(f"fused-chain forwards launched K7 {counts} "
+                             "times, expected (10, 9)")
+    return {"b1": one, "b2": two}
+
+
+def _fused_phase(det, torch, np):
+    """The fused-chain configuration at full width (the deployed detector
+    with `MLP_IMPL` "fused"): detect x3 on a tabletop (K7 10 times per
+    forward), detect_batch at b = 2 x3 (9: K3 takes SA1), then one detect
+    with the route on "auto", MLP_FUSE_MIN_ROWS 1 and MLP_FUSE_SCOPE
+    "pooled" (the three SA chains).  Each run is warmed up, then counted on
+    its own, every kernel exactly (`_deployed_launches`).  Then the
+    route off and on in turns at b = 1 and 2, for the end-to-end
+    comparison.  Returns each run's launches and stage medians."""
+    from s4g_tpu_torch import _build
+
+    scenes = _scenes(np)
+    kw = {"score_threshold": 0.0, "verticalness_threshold": -1e9}
+    pair = [scenes["tabletop0"], scenes["tabletop2"]]
+    paths, medians = {}, {}
+    runs = [("fused_detect", "fused-chain detect", 1, NUM_DETECT, 10,
+             {"MLP_IMPL": "fused"}),
+            ("fused_batch", "fused-chain detect_batch b=2", 2, NUM_BATCH, 9,
+             {"MLP_IMPL": "fused"}),
+            ("fused_pooled_detect", "pooled-scope detect", 1, 1, 3,
+             {"MLP_IMPL": "auto", "MLP_FUSE_MIN_ROWS": 1,
+              "MLP_FUSE_SCOPE": "pooled"})]
+    for path, label, b, reps, chains, settings in runs:
+        def call():
+            if b == 1:
+                return [det.detect(scenes["tabletop0"], **kw)]
+            return det.detect_batch(pair, **kw)
+        with _mlp_route(**settings):
+            call()
+            _build.reset_launches()
+            timings, expected = [], {}
+            for _ in range(reps):
+                results, want = _counted(det, call, b, chains)
+                expected = _add(expected, want)
+                _check_grasps(label, results)
+                timings.append(dict(det.timings))
+        paths[path] = dict(_build.LAUNCHES)
+        _expect(label, paths[path], 1, expected)
+        medians[label] = _stage_medians(label, timings)
+        print(f"{label}: num_valid {det.last_num_valid}", flush=True)
+
+    # The route off ("auto", the deployed default) and on ("fused") in turns,
+    # off-on-on-off twice per batch size, so that the host clock's drift
+    # falls on both sides of the end-to-end comparison.
+    for b, call in ((1, lambda: det.detect(scenes["tabletop0"], **kw)),
+                    (2, lambda: det.detect_batch(pair, **kw))):
+        turns = {"auto": [], "fused": []}
+        for impl in ("auto", "fused", "fused", "auto") * 2:
+            with _mlp_route(MLP_IMPL=impl):
+                call()
+            turns[impl].append(dict(det.timings))
+        name = "detect" if b == 1 else f"detect_batch b={b}"
+        for impl, runs in turns.items():
+            medians[f"{name} in turns, {impl}"] = _stage_medians(
+                f"{name} in turns, MLP_IMPL {impl}", runs)
+    return paths, medians
+
+
 def _expect(label, launches, forwards, per_forward):
     """Fail unless every kernel launched `per_forward[kernel]` times per
     forward (each kernel must be named)."""
@@ -835,30 +1016,87 @@ def _stage_medians(label, runs):
     return med
 
 
-def _parity_launches(det, **changes):
-    """Launches per parity detect of `det`, with `changes`: K6 for each SA
-    stage, K4 for each FP stage at or above its pair threshold (two at full
-    width), K5 once per scene post-processed; never K1, K2 or K3, and K2f
-    only under the ball-query override."""
+def _fp_kernel_stages(det) -> int:
+    """FP stages of `det` at or above K4's pair threshold (two at full
+    width)."""
     from s4g_tpu_torch.ops.neighbors import KERNEL_MIN_PAIRS
-    cfg = det.cfg.MODEL.PN2
-    sizes = (det.num_input, *cfg.NUM_CENTROIDS)
-    fp = sum(a * b >= KERNEL_MIN_PAIRS for a, b in zip(sizes, sizes[1:]))
-    return {"fps_lane": 0, "fps_exact": len(cfg.NUM_CENTROIDS),
-            "ball_query_full": 0, "ball_query_slab": 0, "three_nn": fp,
-            "collision_counts": 1, "sa1_fused": 0, **changes}
+    sizes = (det.num_input, *det.cfg.MODEL.PN2.NUM_CENTROIDS)
+    return sum(a * b >= KERNEL_MIN_PAIRS for a, b in zip(sizes, sizes[1:]))
+
+
+def _parity_launches(det, **changes):
+    """Launches per parity detect of `det`, with `changes`: K6 and K2f for
+    each SA stage, K4 for each FP stage at or above its pair threshold, K5
+    once per scene post-processed; never K1, K2, K3 or K7."""
+    from s4g_tpu_torch import _build
+    stages = len(det.cfg.MODEL.PN2.NUM_CENTROIDS)
+    return {**{k: 0 for k in _build.LAUNCHES}, "fps_exact": stages,
+            "ball_query_full": stages, "three_nn": _fp_kernel_stages(det),
+            "collision_counts": 1, **changes}
+
+
+def _deployed_launches(det, b: int, overflow: bool = False,
+                       mlp_chain: int = 0):
+    """Launches per deployed forward of `det` (SORT_POINTS, FPS_SHARDS 128)
+    at batch `b`: K1 for each SA stage; SA1 through K2 at b = 1 and K3 at
+    b >= 2, or, when its key windows `overflow`, through the full-scan
+    fallback (K2f); K2f for every other SA stage (inputs below the slab
+    capacity); K4 for each FP stage at or above its pair threshold; K5 once
+    per scene post-processed; `mlp_chain` K7 chains."""
+    from s4g_tpu_torch import _build
+    sizes = (det.num_input, *det.cfg.MODEL.PN2.NUM_CENTROIDS)
+    out = {k: 0 for k in _build.LAUNCHES}
+    out.update(fps_lane=len(sizes) - 1, three_nn=_fp_kernel_stages(det),
+               collision_counts=b, mlp_chain=mlp_chain,
+               ball_query_full=sum(n <= SLAB_CAPACITY for n in sizes[:-1]))
+    if overflow:
+        out["ball_query_full"] += 1
+    else:
+        out["ball_query_slab" if b == 1 else "sa1_fused"] = 1
+    return out
+
+
+def _add(total: dict, more: dict) -> dict:
+    return {k: total.get(k, 0) + v for k, v in more.items()}
+
+
+def _counted(det, call, b: int, mlp_chain: int = 0):
+    """Run `call()` once; return its result and the launches it should have
+    made, `_deployed_launches` with the SA1 overflow that the run reported
+    (the slab route's fallback at b = 1, the fused stage's at b >= 2)."""
+    from s4g_tpu_torch.ops import neighbors as nb
+    from s4g_tpu_torch.ops import sa_fused as sf
+
+    before = nb.SLAB_FALLBACKS["overflow"] + sf.SA1_FALLBACKS["overflow"]
+    out = call()
+    overflow = (nb.SLAB_FALLBACKS["overflow"] + sf.SA1_FALLBACKS["overflow"]
+                > before)
+    return out, _deployed_launches(det, b, overflow, mlp_chain)
+
+
+@contextlib.contextmanager
+def _mlp_route(**settings):
+    """Set the fused-chain route's module settings (`nn_layers.MLP_IMPL`,
+    `MLP_FUSE_MIN_ROWS`, `MLP_FUSE_SCOPE`) and restore them after."""
+    from s4g_tpu_torch.models import nn_layers
+    old = {k: getattr(nn_layers, k) for k in settings}
+    for k, v in settings.items():
+        setattr(nn_layers, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(nn_layers, k, v)
 
 
 def _parity_phase(det, torch, np):
     """The reference-parity configuration at full width, through the API:
-    detect x3 on a tabletop, then detect_batch at b = 2 (ball queries on
-    the "auto" route, the plain full scan), then detect x3 under the
-    ball-query override (K2f three times per forward), then one eval.  Each
-    run is warmed up, then driven with the launch counts zeroed before it
-    and read after it, and each kernel's count must be exactly its
-    per-forward count.  Returns each run's launches and stage medians."""
+    detect x3 on a tabletop, then detect_batch at b = 2, then one eval
+    (every ball query K2f).  Each run is warmed up, then driven with the
+    launch counts zeroed before it and read after it, and each kernel's
+    count must be exactly its per-forward count.  Returns each run's
+    launches and stage medians."""
     from s4g_tpu_torch import _build
-    from s4g_tpu_torch.ops import neighbors as nb
 
     scenes = _scenes(np)
     kw = {"score_threshold": 0.0, "verticalness_threshold": -1e9}
@@ -886,25 +1124,6 @@ def _parity_phase(det, torch, np):
     medians["detect_batch b=2"] = _stage_medians("parity detect_batch b=2",
                                                  [det.timings])
 
-    nb.set_default_bq_impl("kernel")
-    try:
-        det.detect(scenes["tabletop0"], **kw)
-        _build.reset_launches()
-        runs = []
-        for _ in range(NUM_DETECT):
-            _check_grasps("parity detect, kernel ball query",
-                          [det.detect(scenes["tabletop0"], **kw)])
-            runs.append(dict(det.timings))
-        paths["parity_kernel_bq"] = dict(_build.LAUNCHES)
-    finally:
-        nb.set_default_bq_impl(None)
-    _expect("parity detect x3, kernel ball query",
-            paths["parity_kernel_bq"], NUM_DETECT,
-            _parity_launches(det, ball_query_full=len(
-                det.cfg.MODEL.PN2.NUM_CENTROIDS)))
-    medians["detect, kernel ball query"] = _stage_medians(
-        "parity detect tabletop, kernel ball query", runs)
-
     _build.reset_launches()
     preds = det.eval(scenes["tabletop0"])
     paths["parity_eval"] = dict(_build.LAUNCHES)
@@ -923,7 +1142,7 @@ def _parity_phase(det, torch, np):
 def _sort_only_phase(det, torch, np):
     """The sort-only ablation (SORT_POINTS with FPS_SHARDS 1): one
     detect_batch at b = 2 on tabletops, where K6 feeds K3 through the
-    re-sort of the exact picks."""
+    re-sort of the exact picks, and K2f takes SA2 and SA3."""
     from s4g_tpu_torch import _build
 
     scenes = _scenes(np)
@@ -934,7 +1153,9 @@ def _sort_only_phase(det, torch, np):
     _check_grasps("sort-only detect_batch", det.detect_batch(pair, **kw))
     launches = dict(_build.LAUNCHES)
     _expect("sort-only detect_batch b=2", launches, 1,
-            _parity_launches(det, sa1_fused=1, collision_counts=2))
+            _parity_launches(det, sa1_fused=1, collision_counts=2,
+                             ball_query_full=len(
+                                 det.cfg.MODEL.PN2.NUM_CENTROIDS) - 1))
     return launches, _stage_medians("sort-only detect_batch b=2",
                                     [det.timings])
 
@@ -944,7 +1165,9 @@ def _detect_phase(det, torch, np):
     NUM_DETECT times (timed), then a clutter scene whose random-weight
     grasps partly clear the collision check (on the tabletop nearly every
     random grasp hits the table), so importance sampling draws from real
-    mass.  Returns each kernel's launches in the counted runs."""
+    mass.  Every kernel must launch exactly its count for each run
+    (`_deployed_launches`).  Returns each kernel's launches in the counted
+    runs."""
     from s4g_tpu_torch import _build
     from s4g_tpu_torch.ops import neighbors as nb
 
@@ -954,11 +1177,13 @@ def _detect_phase(det, torch, np):
                verticalness_threshold=-1e9)
     _build.reset_launches()
     nb.SLAB_FALLBACKS["overflow"] = 0
-    runs, found, fallbacks = [], {}, {}
+    runs, found, fallbacks, expected = [], {}, {}, {}
     for name in ["tabletop"] * NUM_DETECT + ["clutter"]:
         before = nb.SLAB_FALLBACKS["overflow"]
-        poses, scores = det.detect(scenes[name], score_threshold=0.0,
-                                   verticalness_threshold=-1e9)
+        (poses, scores), want = _counted(det, lambda: det.detect(
+            scenes[name], score_threshold=0.0, verticalness_threshold=-1e9),
+            1)
+        expected = _add(expected, want)
         if name == "tabletop":
             runs.append(dict(det.timings))
         found[name] = (poses, scores, det.last_num_valid)
@@ -975,11 +1200,8 @@ def _detect_phase(det, torch, np):
     if not len(found["clutter"][0]):
         raise AssertionError("no valid grasp on the clutter scene")
     print(f"detect: SA1 slab-window overflow fallbacks by scene {fallbacks} "
-          f"(tabletop x{NUM_DETECT}, clutter x1), launches {launches}",
-          flush=True)
-    missing = [k for k in DETECT_KERNELS if launches[k] <= 0]
-    if missing:
-        raise AssertionError(f"main path never launched: {missing}")
+          f"(tabletop x{NUM_DETECT}, clutter x1)", flush=True)
+    _expect("detect", launches, 1, expected)
     return launches
 
 
@@ -1020,13 +1242,14 @@ def _detect_batch_phase(det, torch, np):
     _build.reset_launches()
     sf.SA1_FALLBACKS["overflow"] = 0
     nb.SLAB_FALLBACKS["overflow"] = 0
-    timings, found = {}, {}
+    timings, found, expected = {}, {}, {}
     plan = ([(names, True) for _ in range(NUM_BATCH)
              for names in BATCHES.values()]
             + [(names, False) for names in MIXED.values()])
     for names, timed in plan:
         k3, fb = _build.LAUNCHES["sa1_fused"], sf.SA1_FALLBACKS["overflow"]
-        results = run(names)
+        results, want = _counted(det, lambda: run(names), len(names))
+        expected = _add(expected, want)
         label = "+".join(names)
         if timed:
             timings.setdefault(len(names), []).append(dict(det.timings))
@@ -1061,15 +1284,13 @@ def _detect_batch_phase(det, torch, np):
                    if name.startswith("clutter")):
             raise AssertionError(f"{label}: no valid grasp on a clutter "
                                  "scene")
-    print(f"detect_batch: SA1 overflow fallbacks {sf.SA1_FALLBACKS}, "
-          f"launches {launches}", flush=True)
-    missing = [k for k in BATCH_KERNELS if launches[k] <= 0]
-    if missing:
-        raise AssertionError(f"batched path never launched: {missing}")
+    print(f"detect_batch: SA1 overflow fallbacks {sf.SA1_FALLBACKS}",
+          flush=True)
+    _expect("detect_batch", launches, 1, expected)
     return launches, medians
 
 
-def _profile_phase(det, torch, np, top: int = 12, batch=None):
+def _profile_phase(det, torch, np, top: int = 12, batch=None, name=None):
     """One tabletop detect (or, with `batch` scene names, one detect_batch)
     under torch.profiler: device time by kernel name (the `top` largest),
     the device's busy time against the call's wall time, and so its idle
@@ -1079,7 +1300,8 @@ def _profile_phase(det, torch, np, top: int = 12, batch=None):
 
     scenes = _scenes(np)
     kw = {"score_threshold": 0.0, "verticalness_threshold": -1e9}
-    label = "detect" if batch is None else f"detect_batch b={len(batch)}"
+    label = name or ("detect" if batch is None
+                     else f"detect_batch b={len(batch)}")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         if batch is None:
@@ -1139,6 +1361,7 @@ def main() -> int:
         "sort_only_model", model={"COMPUTE_DTYPE": "float32"},
         SORT_POINTS=True, FPS_SHARDS=1), seed=0)
     failed = []
+    extras = {}
 
     def phase(name, fn):
         """Run one phase; a failure is printed and fails the run at the end
@@ -1160,6 +1383,9 @@ def main() -> int:
         pinp = _parity_inputs(pdet, torch, np)
         rep.append(_k6_phase(pinp, torch))
         rep.append(_k2f_phase(pinp, torch))
+        k7, extras["mlp_chain"] = _k7_phase(_chain_inputs(det, torch, np),
+                                            torch)
+        rep.append(k7)
         for name, _, _, err, ms, plain, bound, by in rep:
             print(f"kernel {name}: max|kernel-plain|={err:.3g} kernel "
                   f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.5f} ms "
@@ -1175,14 +1401,23 @@ def main() -> int:
     ref_p = phase("parity reference",
                   lambda: _parity_reference_phase(torch, np))
     print(f"parity reference: {ref_p}", flush=True)
+    ref_f = phase("fused-chain reference",
+                  lambda: _fused_reference_phase(torch, np))
+    print(f"fused-chain reference: {ref_f}", flush=True)
     launches = phase("detect", lambda: _detect_phase(det, torch, np))
     batch = phase("detect_batch", lambda: _detect_batch_phase(det, torch, np))
     parity = phase("parity", lambda: _parity_phase(pdet, torch, np))
     sort_only = phase("sort-only", lambda: _sort_only_phase(sdet, torch, np))
+    fused = phase("fused-chain", lambda: _fused_phase(det, torch, np))
     phase("profile", lambda: _profile_phase(det, torch, np))
     phase("profile batch", lambda: _profile_phase(det, torch, np,
                                                   batch=BATCHES[2]))
     phase("profile parity", lambda: _profile_phase(pdet, torch, np))
+
+    def profile_fused():
+        with _mlp_route(MLP_IMPL="fused"):
+            _profile_phase(det, torch, np, name="fused-chain detect")
+    phase("profile fused-chain", profile_fused)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s, build included",
           flush=True)
     if failed:
@@ -1191,13 +1426,14 @@ def main() -> int:
 
     # launches: over every main path's counted runs, and by path.
     paths = {"detect": launches, "detect_batch": batch[0], **parity[0],
-             "sort_only_batch": sort_only[0]}
+             "sort_only_batch": sort_only[0], **fused[0]}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": sum(p[name] for p in paths.values()),
          "launches_by_path": {k: p[name] for k, p in paths.items()},
          "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
-         "bound_by": by, "library_ms": None, "status": "ok"}
+         "bound_by": by, "library_ms": None, **extras.get(name, {}),
+         "status": "ok"}
         for name, src, tpu, err, ms, plain, bound, by in report]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

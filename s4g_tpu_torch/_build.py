@@ -59,6 +59,10 @@ _SIGNATURES = {
     # out (B,M,C3)
     "s4g_sa1_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                       _I, _I, _I, _P, _P),
+    # x (P,C_in), 4 x (w, b), p, c_in, c_out, layers, kpad0, n0..n3,
+    # relu_mask, pool_k, bf16, out (P or P/pool_k, C_out)
+    "s4g_mlp_chain": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                      _I, _I, _I, _I, _I, _I, _I, _P, _P),
 }
 
 # Launch counts per kernel (plain integers; chip_smoke.py zeroes them before

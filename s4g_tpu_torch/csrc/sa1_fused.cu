@@ -33,8 +33,7 @@
 // registers; layer 3 runs in 64-column chunks whose max over the 16 rows
 // is folded into a per-warp running max in shared memory.
 
-#include <cuda_bf16.h>
-
+#include "bf16_mma.cuh"
 #include "slab_select.cuh"
 
 namespace {
@@ -67,27 +66,6 @@ constexpr size_t kPhase2Bytes =
 constexpr size_t kUnionBytes =
     kPhase1Bytes > kPhase2Bytes ? kPhase1Bytes : kPhase2Bytes;
 static_assert(kUnionBytes % 16 == 0, "rel must stay 16-byte aligned");
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// Two floats -> one bf16x2 register (lo in the low half), round to nearest.
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-// c += a * b for one 16x8x16 tile: a 4 regs (16x16 bf16, row major), b 2 regs
-// (16x8 bf16, column major), c 4 f32.
-__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Layer 1 of one slot at one column: ReLU(((rx*w0 + ry*w1) + rz*w2) + b1),
 // rounded after every operation (the weights are bf16 values, so every

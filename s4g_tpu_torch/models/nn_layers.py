@@ -16,6 +16,23 @@ f32 between layers.
 whole stage as one kernel (K3, `ops/sa_fused.py`) with BatchNorm folded
 into each layer and bf16 rounding between layers, as the JAX package runs
 SA1 at batch >= 2.
+
+`SharedMLP.fused_eval` is the fused-chain route: the whole chain, and the
+SA stages' max over the neighbours, as one kernel (K7, `ops/mlp_chain.py`)
+with BatchNorm folded in, hidden activations rounded to the compute dtype
+and the result cast to it (so the next stage gets bf16 features where the
+unfused route hands it f32), as JAX's `_fused_eval`.  `fuses_chain` is
+JAX's rule for taking it (`nn_layers.py:201-224`), read from three module
+settings, the counterparts of JAX's S4G_MLP_* flags (the port reads no
+environment variable; set the attributes, as the tests do):
+
+* `MLP_IMPL`: "auto" (fuse on CUDA tensors only, where the two settings
+  below allow), "unfused" (never; JAX's "xla") or "fused" (every eligible
+  chain, on any device; JAX's "pallas" / "pallas_interpret");
+* `MLP_FUSE_MIN_ROWS`: "auto" fuses a chain of at least this many rows;
+* `MLP_FUSE_SCOPE`: "all" or "pooled" (only the SA stages' pooled chains).
+
+Defaults keep the route off, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -26,9 +43,39 @@ import torch
 from torch import nn
 
 from ..ops import sa_fused
+from ..ops.mlp_chain import mlp_chain
 from ..ops.neighbors import ball_query_grouped
 
 BN_EPS = 1e-5
+
+MLP_IMPL = "auto"
+MLP_FUSE_MIN_ROWS = 1 << 60
+MLP_FUSE_SCOPE = "all"
+_MLP_IMPLS = ("auto", "unfused", "fused")
+_MLP_SCOPES = ("all", "pooled")
+
+
+def fuses_chain(impl: str, min_rows: int, scope: str, shape: Sequence[int],
+                max_pool_k: Optional[int], on_cuda: bool) -> bool:
+    """JAX's rule for the fused chain (`nn_layers.py:201-224`), with "the
+    backend is the TPU" read as "the tensor is on CUDA".  A pooled chain is
+    eligible only when the pool axis has `max_pool_k` rows and `max_pool_k`
+    divides 2,048 (the TPU kernel's row tile: it decides the numerics, so
+    it is kept); "fused" ignores `min_rows` and `scope`."""
+    if impl not in _MLP_IMPLS:
+        raise ValueError(f"MLP_IMPL {impl!r} is not one of {_MLP_IMPLS}")
+    if scope not in _MLP_SCOPES:
+        raise ValueError(f"MLP_FUSE_SCOPE {scope!r} is not one of "
+                         f"{_MLP_SCOPES}")
+    force = impl == "fused"
+    rows = 1
+    for d in shape[:-1]:
+        rows *= d
+    pooled_ok = (max_pool_k is not None and shape[-2] == max_pool_k
+                 and 2048 % max_pool_k == 0)
+    unpooled_ok = max_pool_k is None and (force or scope == "all")
+    eligible = (pooled_ok or unpooled_ok) and (force or rows >= min_rows)
+    return impl != "unfused" and eligible and (force or on_cuda)
 
 
 class PointConv(nn.Module):
@@ -70,7 +117,12 @@ class SharedMLP(nn.ModuleList):
     def forward(self, x: torch.Tensor,
                 max_pool_k: Optional[int] = None) -> torch.Tensor:
         """`max_pool_k`: max-pool the output over the second-to-last
-        (neighbour) axis, which must have that size."""
+        (neighbour) axis, which must have that size.  The fused-chain route
+        (`fuses_chain`) runs the chain as one kernel instead."""
+        if not self.training and fuses_chain(
+                MLP_IMPL, MLP_FUSE_MIN_ROWS, MLP_FUSE_SCOPE, x.shape,
+                max_pool_k, x.is_cuda):
+            return self.fused_eval(x, max_pool_k)
         for layer in self:
             x = layer(x)
         if max_pool_k is not None:
@@ -93,6 +145,21 @@ class SharedMLP(nn.ModuleList):
                            (bn.bias.float() - bn.running_mean.float() * inv)
                            .contiguous()))
         return params
+
+    def fused_eval(self, x: torch.Tensor,
+                   max_pool_k: Optional[int] = None) -> torch.Tensor:
+        """The whole chain (and the max over the second-to-last axis when
+        `max_pool_k` is set) as one kernel, K7 (port of `_fused_eval`).
+
+        Returns the chain's output cast to the compute dtype, (..., C_out),
+        without the pooled axis when pooling."""
+        params = self.folded_params()
+        lead = x.shape[:-1]
+        out = mlp_chain(x.reshape(-1, x.shape[-1]), params,
+                        (True,) * len(params), max_pool_k, self[0].dtype)
+        if max_pool_k is not None:
+            lead = lead[:-1]
+        return out.to(self[0].dtype).reshape(*lead, out.shape[-1])
 
     def sa1_fused_eval(self, points: torch.Tensor, centroids: torch.Tensor,
                        pkeys: torch.Tensor, ckeys: torch.Tensor,

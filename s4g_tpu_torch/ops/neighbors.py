@@ -10,20 +10,16 @@ Port of s4g_tpu/ops/neighbors.py, with the same semantics:
 * three_nn returns the 3 smallest squared distances, ascending, ties to the
   lower index, with the distances recomputed in exact difference form.
 
-Routes, as in the JAX package (`neighbors.py:54-75, 482-496, 684-693`):
+Routes, as in the JAX package's "auto" (`neighbors.py:482-496, 684-693`):
 
-* the ball query's `impl` ("auto", "torch" or "kernel"; "auto" resolves
-  to the module default, `set_default_bq_impl`, else "torch");
-* "torch": a sorted cloud with N > slab capacity (SA1 at deployment)
-  takes the sorted-slab ball query — the CUDA kernel
-  `csrc/ball_query_slab.cu` (K2) on CUDA tensors, its plain twin on CPU
-  tensors — with a full-scan fallback when a tile's key window overflows
-  (part of the semantics); every other ball query is the full scan in
-  plain PyTorch (`_ball_query_full`);
-* "kernel": every ball query is the full-scan kernel
-  `csrc/ball_query_full.cu` (K2f), sorted cloud or not, as JAX's
-  `impl="pallas"` skips the slab route; CPU tensors take its plain twin
-  `_ball_query_full`;
+* a sorted cloud with N > slab capacity (SA1 at deployment) takes the
+  sorted-slab ball query — the CUDA kernel `csrc/ball_query_slab.cu` (K2)
+  on CUDA tensors, its plain twin on CPU tensors — with a full-scan
+  fallback when a tile's key window overflows (part of the semantics);
+* every other ball query, and that fallback, is the full scan — the CUDA
+  kernel `csrc/ball_query_full.cu` (K2f) on CUDA tensors, its plain twin
+  `_ball_query_full` on CPU tensors.  The slab and full-scan selections
+  are the same keys bit for bit, so the route never changes a result;
 * 3-NN with N1 * N2 >= 2^22 selects with the CUDA kernel
   `csrc/three_nn.cu` (K4) (plain twin on CPU); smaller stages select with
   matmul-form distances, the twin of `_three_nn_select_xla`.
@@ -51,28 +47,6 @@ KERNEL_MIN_PAIRS = 1 << 22
 # Times the sorted-slab route fell back to the full scan (a tile's
 # in-radius keys overflowed its window); read by chip_smoke.py.
 SLAB_FALLBACKS = {"overflow": 0}
-
-# Route that ball_query's impl="auto" resolves to (None: "torch", the
-# full scan in plain PyTorch, as JAX's "auto" resolves to "xla").
-_DEFAULT_BQ_IMPL = None
-_BQ_IMPLS = ("torch", "kernel")
-
-
-def set_default_bq_impl(impl: Optional[str]) -> None:
-    """Override the route ball_query's impl="auto" takes: "kernel" (K2f),
-    "torch", or None (the default, "torch")."""
-    global _DEFAULT_BQ_IMPL
-    if impl is not None and impl not in _BQ_IMPLS:
-        raise ValueError(f"unknown ball-query impl {impl!r}")
-    _DEFAULT_BQ_IMPL = impl
-
-
-def _resolve_bq_impl(impl: str) -> str:
-    if impl == "auto":
-        return _DEFAULT_BQ_IMPL or "torch"
-    if impl not in _BQ_IMPLS:
-        raise ValueError(f"unknown ball-query impl {impl!r}")
-    return impl
 
 
 def _f32(x: float) -> float:
@@ -163,8 +137,8 @@ def _axis_keys(arr: torch.Tensor, sorted_axis: torch.Tensor) -> torch.Tensor:
 
 def _ball_query_full(points, centroids, radius2: float, k: int,
                      chunk: int = 512, stratified: bool = False):
-    """Full-scan ball query (the plain route of every non-slab stage and the
-    slab route's overflow fallback)."""
+    """Full-scan ball query in plain PyTorch: K2f's twin (CPU tensors) and
+    its oracle on the card."""
     b, _, m = centroids.shape
     idx_out, cnt_out = [], []
     for bi in range(b):
@@ -306,19 +280,19 @@ def tile_windows(pkeys: torch.Tensor, ckeys_s: torch.Tensor,
     return lo_tile.to(torch.int32), overflow
 
 
-def _ball_query_sorted_pruned(points, centroids, radius2: float,
-                              num_neighbours: int, chunk: int,
-                              sorted_axis: torch.Tensor,
+def _ball_query_sorted_pruned(points, centroids, radius: float,
+                              num_neighbours: int, sorted_axis: torch.Tensor,
                               centroids_sorted: bool = False,
                               stratified: bool = False):
     """Slab-pruned ball query for scenes sorted ascending along
     `sorted_axis` (port of `_ball_query_sorted_pruned`, kernel route).
 
     The overflow test reads one device bool on the host (one sync): on
-    overflow the whole call takes the full scan, which gives the same
+    overflow the whole call takes the full scan (K2f), which gives the same
     result because the slab result is exactly the full-scan result."""
     b, _, m = centroids.shape
     n = points.shape[2]
+    radius2 = radius * radius
     pkeys = _axis_keys(points, sorted_axis)
     ckeys = _axis_keys(centroids, sorted_axis)
     if centroids_sorted:
@@ -333,8 +307,9 @@ def _ball_query_sorted_pruned(points, centroids, radius2: float,
     lo_tile, overflow = slab_windows(pkeys, ckeys_s, radius2, n)
     if bool(overflow):
         SLAB_FALLBACKS["overflow"] += 1
-        idx_s, cnt_s = _ball_query_full(points, cent_s, radius2,
-                                        num_neighbours, chunk, stratified)
+        idx_s, cnt_s = ball_query_full_scan(
+            points.contiguous(), cent_s.contiguous(), radius, num_neighbours,
+            stratified)
     else:
         idx_s, cnt_s = ball_query_fused_slab(
             points.contiguous(), cent_s.contiguous(), lo_tile,
@@ -348,10 +323,9 @@ def _ball_query_sorted_pruned(points, centroids, radius2: float,
 
 
 def ball_query(points: torch.Tensor, centroids: torch.Tensor, radius: float,
-               num_neighbours: int, chunk: int = 512,
-               sorted_axis: Optional[torch.Tensor] = None,
+               num_neighbours: int, sorted_axis: Optional[torch.Tensor] = None,
                slab_capacity: int = 6144, centroids_sorted: bool = False,
-               stratified: bool = False, impl: str = "auto"):
+               stratified: bool = False):
     """Ball query with reference-CUDA semantics (see module docstring).
 
     Args:
@@ -359,41 +333,34 @@ def ball_query(points: torch.Tensor, centroids: torch.Tensor, radius: float,
         radius: strict < on squared distance.
         sorted_axis: optional (B,) integer tensor; the caller guarantees the
             points are sorted ascending along that coordinate.  With
-            N > slab_capacity the sorted-slab route runs (K2), unless the
-            route is "kernel".
+            N > slab_capacity the sorted-slab route runs (K2); every other
+            query is the full scan (K2f).
         centroids_sorted: promise that the centroids are sorted the same way.
         stratified: overfull balls take rank-stratified in-range points.
-        impl: "auto" (the module default), "torch" or "kernel" (K2f).
 
     Returns: index (B, M, K) int32, count (B, M) int32.
     """
-    n = points.shape[2]
-    radius2 = radius * radius
-    if _resolve_bq_impl(impl) == "kernel":
-        return ball_query_full_scan(points.contiguous(),
-                                    centroids.contiguous(), radius,
-                                    num_neighbours, stratified)
-    if sorted_axis is not None and n > slab_capacity:
-        return _ball_query_sorted_pruned(points, centroids, radius2,
-                                         num_neighbours, chunk, sorted_axis,
+    if sorted_axis is not None and points.shape[2] > slab_capacity:
+        return _ball_query_sorted_pruned(points, centroids, radius,
+                                         num_neighbours, sorted_axis,
                                          centroids_sorted=centroids_sorted,
                                          stratified=stratified)
-    return _ball_query_full(points, centroids, radius2, num_neighbours,
-                            chunk, stratified)
+    return ball_query_full_scan(points.contiguous(), centroids.contiguous(),
+                                radius, num_neighbours, stratified)
 
 
 def ball_query_grouped(points: torch.Tensor, centroids: torch.Tensor,
-                       radius: float, num_neighbours: int, chunk: int = 512,
+                       radius: float, num_neighbours: int,
                        sorted_axis: Optional[torch.Tensor] = None,
                        slab_capacity: int = 6144,
                        centroids_sorted: bool = False,
-                       stratified: bool = False, impl: str = "auto"):
+                       stratified: bool = False):
     """ball_query plus the grouped relative coordinates
     rel = points[index] - centroid, (B, M, K, 3) f32 (0 where count == 0)."""
     b, _, m = centroids.shape
-    idx, count = ball_query(points, centroids, radius, num_neighbours, chunk,
+    idx, count = ball_query(points, centroids, radius, num_neighbours,
                             sorted_axis, slab_capacity, centroids_sorted,
-                            stratified, impl)
+                            stratified)
     g = flat_gather_rows(points.transpose(1, 2).float(),
                          idx.reshape(b, m * num_neighbours))
     rel = (g.reshape(b, m, num_neighbours, 3)

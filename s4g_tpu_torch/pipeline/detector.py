@@ -15,8 +15,8 @@ numbers differ from `detect`'s at bf16 level, as in the JAX package.
 A YAML path in place of the model name selects another configuration of
 the same model, e.g. the reference-parity one (`curvature_model.yaml` with
 SORT_POINTS false and FPS_SHARDS 1: exact FPS, K6, and full-scan ball
-queries, which `ops.neighbors.set_default_bq_impl("kernel")` sends to
-K2f).
+queries, K2f).  `models.nn_layers.MLP_IMPL = "fused"` runs every SharedMLP
+chain through K7 (the fused-chain configuration).
 
 Not in this slice: streaming, mesh serving, training and checkpoint
 loading (ROADMAP.md).

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch twins on the card, at
 edge shapes the main path does not reach: ragged tiles, windows that run
-past the last point, exact ties, invalid rows, empty balls, N below a block
-and M = 1.  chip_smoke.py holds the kernels at the main paths' shapes.
+past the last point, exact ties, invalid rows, empty balls, N below a block,
+M = 1, one-row chains and all-zero rows; and the launches of a narrow
+deployed forward.  chip_smoke.py holds the kernels at the main paths' shapes.
 
 Needs a CUDA device (a CUDA kernel has no CPU mode), so every test carries
 the `cuda` marker and skips without one.  On a machine with a GPU and no
@@ -16,6 +17,10 @@ import pytest
 import torch
 
 from s4g_tpu_torch import _build
+from s4g_tpu_torch.configs.config import load_cfg_from_dict
+from s4g_tpu_torch.models import build_model
+from s4g_tpu_torch.models import nn_layers as nnl
+from s4g_tpu_torch.ops import mlp_chain as mc
 from s4g_tpu_torch.ops import neighbors as nb
 from s4g_tpu_torch.ops import sa_fused as sf
 from s4g_tpu_torch.ops import sampling as sp
@@ -147,7 +152,7 @@ def test_k6_and_k2f_wrappers_check_their_operands(cuda):
         nb.ball_query_full_scan(torch.rand(1, 3, 41568 + 1, device=cuda),
                                 cents, 0.1, 8)
     before = _build.LAUNCHES["ball_query_full"]
-    nb.ball_query(pts, cents, 0.1, 8, impl="kernel")
+    nb.ball_query(pts, cents, 0.1, 8)
     assert _build.LAUNCHES["ball_query_full"] == before + 1
 
 
@@ -297,3 +302,134 @@ def test_wrappers_check_their_operands(cuda):
     before = dict(_build.LAUNCHES)
     nb.three_nn_fused(pts, pts[:, :, :16].contiguous())
     assert _build.LAUNCHES["three_nn"] == before["three_nn"] + 1
+
+
+def _chain(rng, p, widths, zero_rows=False):
+    """(P, C_in) rows and folded f32 affines scaled by 1/sqrt(fan-in)."""
+    x = rng.randn(p, widths[0]).astype(np.float32)
+    if zero_rows:
+        x[::3] = 0.0
+    params = [(torch.from_numpy((rng.randn(widths[i], widths[i + 1])
+                                 / np.sqrt(widths[i])).astype(np.float32)),
+               torch.from_numpy((rng.randn(widths[i + 1]) * 0.1)
+                                .astype(np.float32)))
+              for i in range(len(widths) - 1)]
+    return torch.from_numpy(x), params
+
+
+@pytest.mark.parametrize("p,widths,pool,dtype,zero_rows", [
+    (1, (3, 128, 128, 256), None, "bfloat16", False),        # P = 1
+    (1000, (259, 256, 256, 512), None, "bfloat16", False),   # ragged tile
+    (4096, (3, 128, 128, 256), 64, "bfloat16", False),       # SA1's chain
+    (1000, (259, 256, 256, 512), 8, "float32", True),        # pool 8, f32
+    (300, (1536, 1024, 1024), None, "bfloat16", False),      # FP1's widths
+    (300, (1536, 1024, 1024), None, "float32", False),
+    (640, (515, 512, 512, 1024), 64, "bfloat16", True),      # SA3's chain
+    (333, (256, 512, 256, 256, 128), None, "bfloat16", True),  # 4 layers
+    (96, (20, 48), 16, "float32", False),                     # 1 layer
+])
+def test_mlp_chain_kernel_matches_plain(cuda, p, widths, pool, dtype,
+                                        zero_rows):
+    rng = np.random.RandomState(p + len(widths))
+    x, params = _chain(rng, p, widths, zero_rows)
+    relu = tuple([True] * (len(params) - 1) + [len(params) % 2 == 0])
+    cd = getattr(torch, dtype)
+    want = mc._mlp_chain_plain(x, params, relu, pool, cd)
+    got = mc.mlp_chain(x.to(cuda), [(w.to(cuda), b.to(cuda))
+                                    for w, b in params], relu, pool, cd)
+    torch.cuda.synchronize()
+    got = got.cpu()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    scale = float(want.abs().max())
+    assert scale > 0.1
+    # f32: sums in another order.  bf16: an f32 sum in another order flips
+    # an odd bf16 rounding of a hidden activation (as for K3).
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    assert float((got - want).abs().max()) <= tol * scale
+
+
+def test_mlp_chain_wrapper_refuses_and_counts(cuda, monkeypatch):
+    rng = np.random.RandomState(0)
+    x, params = _chain(rng, 64, (40, 32, 16))
+    x = x.to(cuda)
+    params = [(w.to(cuda), b.to(cuda)) for w, b in params]
+    monkeypatch.setattr(mc, "_mlp_chain_plain",
+                        lambda *a, **kw: pytest.fail("plain chain on the card"))
+    with pytest.raises(ValueError, match="mixed devices"):
+        mc.mlp_chain(x.cpu(), params, (True, True))
+    with pytest.raises(ValueError, match="up to 4 layers"):
+        five = [(torch.eye(40, device=cuda), torch.zeros(40, device=cuda))] * 5
+        mc.mlp_chain(x, five, (True,) * 5)
+    with pytest.raises(RuntimeError, match="mlp_chain failed to launch"):
+        mc.mlp_chain(x[:48], params, (True, True), pool_k=24)  # not 2^k
+    wide = torch.zeros(4096, 16, device=cuda)   # a 32-row tile: 262 KB
+    with pytest.raises(RuntimeError, match="mlp_chain failed to launch"):
+        mc.mlp_chain(torch.zeros(8, 4096, device=cuda),
+                     [(wide, torch.zeros(16, device=cuda))], (True,))
+    before = _build.LAUNCHES["mlp_chain"]
+    mc.mlp_chain(x, params, (True, True), pool_k=16)
+    assert _build.LAUNCHES["mlp_chain"] == before + 1
+
+
+NARROW_DEPLOYED = {
+    "MODEL": {"TYPE": "PN2_CLS", "COMPUTE_DTYPE": "bfloat16", "PN2": {
+        "NUM_INPUT": 16384, "NUM_CENTROIDS": (4096, 256, 128),
+        "RADIUS": (0.02, 0.08, 0.32), "NUM_NEIGHBOURS": (32, 32, 32),
+        "SA_CHANNELS": ((32, 32, 64), (64, 64, 64), (64, 64, 128)),
+        "FP_CHANNELS": ((64, 64), (64, 64), (64, 64, 32)),
+        "NUM_FP_NEIGHBOURS": (3, 3, 3), "SEG_CHANNELS": (64, 32),
+        "SORT_POINTS": True, "FPS_SHARDS": 128}},
+    "DATA": {"SCORE_CLASSES": 3},
+}
+
+
+def _narrow_forward(cuda, dense_column):
+    """One b = 1 forward of a narrow deployed PN2_CLS (sorted cloud, SA1
+    above the slab capacity) on a seeded cloud; with `dense_column`, most
+    points share one sliver along the sort axis, so SA1's slab windows
+    overflow."""
+    rng = np.random.RandomState(1)
+    pts = (rng.rand(1, 3, 16384) * [[[0.6], [0.4], [0.3]]]).astype(np.float32)
+    if dense_column:
+        pts[0, 0, :13000] = 0.3 + 0.001 * rng.rand(13000)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        net = build_model(load_cfg_from_dict(NARROW_DEPLOYED)).to(cuda)
+    out = net({"scene_points": torch.from_numpy(pts).to(cuda)})
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("dense_column,full", [(False, 2), (True, 3)])
+def test_deployed_forward_scans_in_full_through_k2f(cuda, monkeypatch,
+                                                    dense_column, full):
+    """SA2 and SA3 are full scans (K2f); an overflowing SA1 adds its
+    fallback.  No ball query reaches the plain full scan on the card."""
+    monkeypatch.setattr(nb, "_ball_query_full",
+                        lambda *a, **kw: pytest.fail("plain scan on the card"))
+    before = dict(_build.LAUNCHES)
+    fallbacks = nb.SLAB_FALLBACKS["overflow"]
+    out = _narrow_forward(cuda, dense_column)
+    launched = {k: _build.LAUNCHES[k] - before[k] for k in before}
+    assert launched["ball_query_full"] == full
+    assert launched["ball_query_slab"] == 3 - full
+    assert nb.SLAB_FALLBACKS["overflow"] - fallbacks == full - 2
+    assert launched["mlp_chain"] == 0
+    assert bool(torch.isfinite(out["score"]).all())
+
+
+@pytest.mark.parametrize("settings,chains", [
+    ({"MLP_IMPL": "fused"}, 10),
+    ({"MLP_IMPL": "auto", "MLP_FUSE_MIN_ROWS": 1}, 10),
+    ({"MLP_IMPL": "auto", "MLP_FUSE_MIN_ROWS": 1, "MLP_FUSE_SCOPE": "pooled"},
+     3),
+])
+def test_fused_chain_route_launches_k7(cuda, monkeypatch, settings, chains):
+    for name, value in settings.items():
+        monkeypatch.setattr(nnl, name, value)
+    monkeypatch.setattr(mc, "_mlp_chain_plain",
+                        lambda *a, **kw: pytest.fail("plain chain on the card"))
+    before = _build.LAUNCHES["mlp_chain"]
+    out = _narrow_forward(cuda, False)
+    assert _build.LAUNCHES["mlp_chain"] - before == chains
+    assert bool(torch.isfinite(out["score"]).all())

@@ -1,10 +1,10 @@
 """The port's reference-parity configuration against the JAX package on the
 CPU: exact and G-shard FPS (K6's plain twins against the TPU kernel in
 interpret mode), the full-scan ball query (K2f's plain twin against
-`ball_query_fused_pallas` in interpret mode), the ball query's route
-override, PN2_CLS with SORT_POINTS false and FPS_SHARDS 1 on both
-ball-query routes, the sort-only ablation at batch 2 and
-`GraspDetector.eval`.
+`ball_query_fused_pallas` in interpret mode), the ball query's one route
+(slab for a big sorted cloud, else K2f), PN2_CLS with SORT_POINTS false and
+FPS_SHARDS 1 against both of JAX's ball-query routes, the sort-only
+ablation at batch 2 and `GraspDetector.eval`.
 
 Inputs are made with numpy from a seed.  Indices and counts must match
 exactly; model outputs within 1e-4 in f32 and within the bf16 tolerances of
@@ -151,12 +151,6 @@ def jax_bq_kernel(monkeypatch):
             orig(p, c, r, k, True, stratified))
 
 
-@pytest.fixture
-def port_bq_default(monkeypatch):
-    """Restore the port's ball-query default after the test."""
-    monkeypatch.setattr(tnb, "_DEFAULT_BQ_IMPL", None)
-
-
 def _sorted_scene(seed, n, m):
     rng = np.random.RandomState(seed)
     pts = (rng.rand(1, 3, n) * 0.5).astype(np.float32)
@@ -168,9 +162,10 @@ def _sorted_scene(seed, n, m):
 @pytest.mark.parametrize("stratified", [False, True])
 def test_kernel_route_skips_the_slab_route(jax_bq_kernel, monkeypatch,
                                            stratified):
-    """A sorted cloud above the slab capacity: impl="kernel" scans in full
-    (K2f), as JAX's impl="pallas" does; impl="torch" takes the slab route
-    (K2's twin).  All three agree: the slab result is the full-scan one."""
+    """A sorted cloud above the slab capacity: JAX's kernel route
+    (impl="pallas") scans in full; the port, which has one route, takes the
+    slab route (K2's twin) there and the full scan (K2f's wrapper) without
+    the sort.  All three agree: the slab result is the full-scan one."""
     pts, cents = _sorted_scene(0, 8192, 1024)
     axis = jnp.zeros((1,), jnp.int32)
     want_i, want_c = jnb.ball_query(
@@ -178,47 +173,41 @@ def test_kernel_route_skips_the_slab_route(jax_bq_kernel, monkeypatch,
         sorted_axis=axis, centroids_sorted=True, stratified=stratified)
     full = _spy(monkeypatch, tnb, "ball_query_full_scan")
     slab = _spy(monkeypatch, tnb, "_ball_query_sorted_pruned")
-    got = {}
-    for impl in ("kernel", "torch"):
-        got[impl] = tops.ball_query(
-            _t(pts), _t(cents), 0.03, 32,
-            sorted_axis=torch.zeros(1, dtype=torch.long),
-            centroids_sorted=True, stratified=stratified, impl=impl)
-        assert (len(full), len(slab)) == ((1, 0) if impl == "kernel"
-                                          else (1, 1))
-        np.testing.assert_array_equal(got[impl][0].numpy(),
-                                      np.asarray(want_i))
-        np.testing.assert_array_equal(got[impl][1].numpy(),
-                                      np.asarray(want_c))
+    for sorted_axis, calls in ((torch.zeros(1, dtype=torch.long), (0, 1)),
+                               (None, (1, 1))):
+        got = tops.ball_query(_t(pts), _t(cents), 0.03, 32,
+                              sorted_axis=sorted_axis, centroids_sorted=True,
+                              stratified=stratified)
+        assert (len(full), len(slab)) == calls
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want_i))
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want_c))
 
 
-def test_route_override(port_bq_default, monkeypatch):
+def test_route_override(monkeypatch):
+    """The ball-query override is gone: every full scan goes through K2f's
+    wrapper (its twin `_ball_query_full` on CPU tensors), grouped or not,
+    and the route takes no `impl` argument."""
     pts = np.random.RandomState(1).rand(2, 3, 500).astype(np.float32)
     cents = pts[:, :, :50]
     full = _spy(monkeypatch, tnb, "ball_query_full_scan")
     want = tnb._ball_query_full(_t(pts), _t(cents), 0.2 * 0.2, 16)
-    assert tnb._resolve_bq_impl("auto") == "torch"
-    tops.ball_query(_t(pts), _t(cents), 0.2, 16)
-    assert not full
-    tnb.set_default_bq_impl("kernel")
-    assert tnb._resolve_bq_impl("auto") == "kernel"
     got = tops.ball_query(_t(pts), _t(cents), 0.2, 16)
     assert len(full) == 1
     idx, cnt, rel = tops.ball_query_grouped(_t(pts), _t(cents), 0.2, 16)
     assert len(full) == 2 and rel.shape == (2, 50, 16, 3)
     for g, w, h in zip(got, want, (idx, cnt)):
         assert torch.equal(g, w) and torch.equal(h, w)
-    assert tnb._resolve_bq_impl("torch") == "torch"
-    with pytest.raises(ValueError, match="impl"):
-        tops.ball_query(_t(pts), _t(cents), 0.2, 16, impl="pallas")
-    with pytest.raises(ValueError, match="impl"):
-        tnb.set_default_bq_impl("xla")
+    for gone in ("set_default_bq_impl", "_DEFAULT_BQ_IMPL",
+                 "_resolve_bq_impl"):
+        assert not hasattr(tnb, gone)
+    with pytest.raises(TypeError, match="impl"):
+        tops.ball_query(_t(pts), _t(cents), 0.2, 16, impl="kernel")
 
 
-def test_sa1_fused_fallback_takes_the_override(port_bq_default, monkeypatch):
+def test_sa1_fused_fallback_takes_the_override(monkeypatch):
     """The full-scan fallback of the fused SA1 stage (a tile's keys
-    overflow its window) is an ordinary ball query, so under the override
-    it runs K2f, as JAX's nn_layers.py:149-151 does."""
+    overflow its window) is an ordinary ball query, so it runs K2f (as the
+    JAX stage's fallback, nn_layers.py:149-151, runs its full scan)."""
     n, m = 9000, 1000
     rng = np.random.RandomState(2)
     pts = np.zeros((1, 3, n), np.float32)          # one dense column
@@ -227,7 +216,6 @@ def test_sa1_fused_fallback_takes_the_override(port_bq_default, monkeypatch):
     cents = np.ascontiguousarray(pts[:, :, np.sort(rng.choice(n, m, False))])
     mlp = SharedMLP(3, (128, 128, 256), ndim=2).eval()
     full = _spy(monkeypatch, tnb, "ball_query_full_scan")
-    tnb.set_default_bq_impl("kernel")
     before = sf.SA1_FALLBACKS["overflow"]
     out = mlp.sa1_fused_eval(_t(pts), _t(cents), _t(pts[:, 0]),
                              _t(cents[:, 0]), 0.02, 32)
@@ -264,17 +252,17 @@ def _assert_close(got, want, dtype):
 @pytest.mark.parametrize("route", ["auto", "kernel"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_pn2_cls_parity_config_matches_jax(kernel_routed_three_nn,
-                                           jax_bq_kernel, port_bq_default,
-                                           monkeypatch, dtype, route):
+                                           jax_bq_kernel, monkeypatch, dtype,
+                                           route):
     """SORT_POINTS false, FPS_SHARDS 1: exact FPS at all three stages (K6's
-    twin) and full-scan ball queries — plain on "auto", K2f's twin under
-    the override (JAX: its kernel in interpret mode)."""
+    twin) and full-scan ball queries through K2f's wrapper (its twin here),
+    held against JAX on either of its ball-query routes: XLA ("auto") and
+    its kernel ("kernel": `impl="pallas"`, in interpret mode)."""
     cloud = (np.random.RandomState(0).rand(1, 3, PARITY["NUM_INPUT"])
              * [[[0.6], [0.4], [0.3]]]).astype(np.float32)
     jnet, variables, tnet = _model_pair(dict(PARITY), dtype, cloud)
     if route == "kernel":
         monkeypatch.setattr(jnb, "_ENV_BQ_IMPL", "pallas")
-        tnb.set_default_bq_impl("kernel")
     want = jnet.apply(variables, {"scene_points": jnp.asarray(cloud)},
                       train=False)
     fps = _spy(monkeypatch, tsamp, "fps_exact")
@@ -282,7 +270,7 @@ def test_pn2_cls_parity_config_matches_jax(kernel_routed_three_nn,
     monkeypatch.setattr(tsamp, "fps_lane_sharded",
                         lambda *a: pytest.fail("128-shard FPS"))
     got = tnet({"scene_points": _t(cloud)})
-    assert len(fps) == 3 and len(full) == (3 if route == "kernel" else 0)
+    assert len(fps) == 3 and len(full) == 3
     _assert_close(got, want, dtype)
 
 
