@@ -9,18 +9,20 @@ run, but the run then exits non-zero without printing a result:
 
 1. build: every kernel of the main paths compiled from
    `s4g_tpu_torch/csrc` with nvcc (one process per source, in parallel,
-   then one link), loaded with ctypes;
+   then one link), loaded with ctypes; ptxas' report of every kernel
+   (registers, shared memory, spills, performance advisories);
 2. kernels: each of K1 (FPS), K2 (slab ball query), K4 (3-NN) and K5
    (collision counts) run at the main path's shapes on inputs taken from a
    seeded synthetic scene, held against its plain PyTorch twin on the card
-   (indices and counts exact, distances within 1e-6), and timed with CUDA
+   (bit for bit: indices, counts and distances), and timed with CUDA
    events (CUDA-graph replays of back-to-back launches, so host launch cost
    is excluded), beside its plain twin's time and its bound; then K3 (the
    fused SA1 stage of detect_batch) at b = 2 on a tabletop and a clutter
    scene, held against its twin (zero rows exact, the rest within 1e-2 of
    the output's max: f32 sums in another order flip an odd bf16 rounding
    of a hidden activation), timed beside its twin, its bound and the
-   unfused SA1 route at the same b = 2; then K6 (exact FPS) and K2f
+   unfused SA1 route at the same b = 2, and again on two tabletops (the
+   windows fit: the input detect_batch hands K3); then K6 (exact FPS) and K2f
    (full-scan ball query) at the reference-parity configuration's shapes
    (`curvature_model.yaml` with SORT_POINTS false and FPS_SHARDS 1) at
    b = 1 and 2, bit for bit (K6 also with 8 shards), timed beside their
@@ -323,12 +325,10 @@ def _kernel_phase(inp, torch):
 
     # K4: the two FP stages above the 2^22-pair threshold.
     nn_calls = [(st[1], st[2]), (st[0], st[1])]
+    # Indices and distances bit for bit.
     err = max(_compare("three_nn", nb.three_nn_fused(q, kk),
-                       nb._three_nn_plain(q, kk), False)
+                       nb._three_nn_plain(q, kk), True)
               for q, kk in nn_calls)
-    for q, kk in nn_calls:   # indices exact
-        _compare("three_nn", nb.three_nn_fused(q, kk)[:1],
-                 nb._three_nn_plain(q, kk)[:1], True)
     ms = sum(_graph_ms(lambda q=q, kk=kk: nb.three_nn_fused(q, kk))
              for q, kk in nn_calls)
     plain = sum(_event_ms(lambda q=q, kk=kk: nb._three_nn_plain(q, kk),
@@ -337,6 +337,10 @@ def _kernel_phase(inp, torch):
     ops = sum(9.0 * q.shape[2] * kk.shape[2] for q, kk in nn_calls)
     nbytes = sum(12 * (q.shape[2] + kk.shape[2]) + 24 * q.shape[2]
                  for q, kk in nn_calls)
+    print("kernel three_nn: keys per block " + ", ".join(
+        f"{q.shape[2]}<-{kk.shape[2]}: "
+        f"{nb.three_nn_key_chunk(1, q.shape[2], kk.shape[2])}"
+        for q, kk in nn_calls), flush=True)
     report.append(("three_nn", "s4g_tpu_torch/csrc/three_nn.cu",
                    "s4g_tpu/ops/pallas/neighbor_kernels.py:58", err, ms,
                    plain, *_bound_ms(ops, nbytes)))
@@ -356,11 +360,12 @@ def _kernel_phase(inp, torch):
     return report
 
 
-def _batch_sa1_inputs(det, torch, np):
+def _batch_sa1_inputs(det, torch, np, clutter: bool = True):
     """K3's inputs on the detect_batch path at b = 2, from a seeded tabletop
-    and a seeded clutter scene: model input, each scene's widest-axis sort,
-    the SA1 FPS, then the fused stage's windows (and the slab ball query's,
-    for the unfused route)."""
+    and a seeded clutter scene (or, without `clutter`, a second tabletop:
+    a pair whose windows fit, as detect_batch hands K3): model input, each
+    scene's widest-axis sort, the SA1 FPS, then the fused stage's windows
+    (and the slab ball query's, for the unfused route)."""
     from s4g_tpu_torch.models.pn2_modules import gather_cl
     from s4g_tpu_torch.ops.neighbors import _axis_keys, slab_windows
     from s4g_tpu_torch.ops.sa_fused import sa1_slab_setup
@@ -368,9 +373,10 @@ def _batch_sa1_inputs(det, torch, np):
     from s4g_tpu_torch.pipeline.detector import prep_batch
 
     cfg = det.cfg.MODEL.PN2
+    second = (clutter_cloud(np.random.RandomState(8)) if clutter
+              else tabletop_cloud(np.random.RandomState(9)))
     padded, valid = zip(*(det._pad_cloud(c) for c in (
-        tabletop_cloud(np.random.RandomState(7)),
-        clutter_cloud(np.random.RandomState(8)))))
+        tabletop_cloud(np.random.RandomState(7)), second)))
     gen = torch.Generator(device=det.device).manual_seed(7)
     r, n = cfg.RADIUS[0], det.num_input
     with torch.no_grad():
@@ -1380,6 +1386,12 @@ def main() -> int:
               f"{inp['cloud_valid'].shape[0]}", flush=True)
         rep = _kernel_phase(inp, torch)
         rep.append(_k3_phase(_batch_sa1_inputs(det, torch, np), torch))
+        # K3 again on two tabletops, whose windows fit: what detect_batch
+        # hands K3 (a batch whose windows overflow takes the full scan).
+        pair = _k3_phase(_batch_sa1_inputs(det, torch, np, clutter=False),
+                         torch)
+        extras["sa1_fused"] = {"tabletop_pair_ms": pair[4],
+                               "tabletop_pair_max_abs_err": pair[3]}
         pinp = _parity_inputs(pdet, torch, np)
         rep.append(_k6_phase(pinp, torch))
         rep.append(_k2f_phase(pinp, torch))

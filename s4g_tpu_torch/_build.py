@@ -49,16 +49,17 @@ _SIGNATURES = {
     # stratified, idx (B,M,K), cnt (B,M)
     "s4g_ball_query_slab": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P,
                             _P),
-    # query (B,3,N1), key (B,3,N2), b, n1, n2, idx (B,N1,3), dist (B,N1,3)
-    "s4g_three_nn": (_P, _P, _I, _I, _I, _P, _P, _P),
+    # query (B,3,N1), key (B,3,N2), b, n1, n2, chunk, partial idx and dist
+    # (B,nsplit,3,N1) or NULL, idx (B,N1,3), dist (B,N1,3)
+    "s4g_three_nn": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
     # mats (G,16), cloud_valid (N,4), g, n, 6 box bounds, back (G,), fing (G,)
     "s4g_collision_counts": (_P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _P, _P,
                              _P),
-    # pts (B,3,N), cents (B,3,M), lo_tile (B,T), w1 (3,C1), b1, w2 (C1,C2),
-    # b2, w3 (C2,C3), b3, b, n, m, ntile, r2, k, c3, stratified,
-    # out (B,M,C3)
-    "s4g_sa1_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-                      _I, _I, _I, _P, _P),
+    # pts (B,3,N), cents (B,3,M), lo_tile (B,T), wpack (bf16 W2 and W3 in
+    # the kernel's shared-memory layout), fpack (f32 W1, b1, b2, b3), b, n,
+    # m, ntile, r2, k, c3, stratified, out (B,M,C3)
+    "s4g_sa1_fused": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P,
+                      _P),
     # x (P,C_in), 4 x (w, b), p, c_in, c_out, layers, kpad0, n0..n3,
     # relu_mask, pool_k, bf16, out (P or P/pool_k, C_out)
     "s4g_mlp_chain": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

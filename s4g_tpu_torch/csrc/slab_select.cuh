@@ -59,22 +59,41 @@ __device__ __forceinline__ int prefix_counts(const unsigned* words,
   return total;
 }
 
-// One warp: the window's in-range ballot words of centroid (cx, cy, cz) and
-// their inclusive prefix counts.  Returns the number of in-range keys.
+// One warp: the in-range ballot words of centroid (cx, cy, cz) over the
+// window's words [w_lo, w_lo + nw), into words[0 .. nw), and their inclusive
+// prefix counts.  Returns the number of in-range keys among them.
+__device__ __forceinline__ int scan_words(const float* kx, const float* ky,
+                                          const float* kz, float cx, float cy,
+                                          float cz, float r2, unsigned* words,
+                                          int* prefix, int w_lo, int nw,
+                                          int lane) {
+  // One in-range ballot word per 32-key chunk.  Lane i keeps word w0 + i of
+  // each run of 32 in a register and stores it after the run, so the loop
+  // body holds no store and the key loads of several words are in flight.
+  for (int w0 = 0; w0 < nw; w0 += 32) {
+    const int len = min(32, nw - w0);
+    unsigned mine = 0;
+#pragma unroll 8
+    for (int i = 0; i < len; ++i) {
+      const int j = (w_lo + w0 + i) * 32 + lane;
+      const float d = s4g_sqdist(kx[j], ky[j], kz[j], cx, cy, cz);
+      const unsigned bits = __ballot_sync(S4G_FULL_MASK, d < r2);
+      mine = lane == i ? bits : mine;
+    }
+    if (lane < len) words[w0 + lane] = mine;
+  }
+  __syncwarp();
+  return prefix_counts(words, prefix, nw, lane);
+}
+
+// The same over the whole window.
 __device__ __forceinline__ int scan_window(const float* kx, const float* ky,
                                            const float* kz, float cx,
                                            float cy, float cz, float r2,
                                            unsigned* words, int* prefix,
                                            int lane) {
-  // One in-range ballot word per 32-key chunk.
-  for (int w = 0; w < kWords; ++w) {
-    const int j = w * 32 + lane;
-    const float d = s4g_sqdist(kx[j], ky[j], kz[j], cx, cy, cz);
-    const unsigned bits = __ballot_sync(S4G_FULL_MASK, d < r2);
-    if (lane == 0) words[w] = bits;
-  }
-  __syncwarp();
-  return prefix_counts(words, prefix, kWords, lane);
+  return scan_words(kx, ky, kz, cx, cy, cz, r2, words, prefix, 0, kWords,
+                    lane);
 }
 
 // The scan rank (1-based) that slot `slot` takes.

@@ -415,24 +415,74 @@ def _three_nn_select_matmul(query_xyz, key_xyz, chunk: int = 2048):
     return torch.cat(out, dim=1).to(torch.int32)
 
 
-def _three_nn_plain(query_xyz, key_xyz, chunk: int = 2048):
-    """Plain twin of K4: exact difference-form distances, 3 smallest by
-    (distance, index)."""
+# K4's key split: a block takes NN_TILE_Q queries (128 threads x 4), and the
+# key range is cut so that a call puts at least NN_MIN_BLOCKS blocks on the
+# card (four per SM of an H100's 132: 16 warps to hide the distance
+# chains' latency), in chunks of a multiple of NN_CHUNK_ALIGN keys.
+NN_TILE_Q = 512
+NN_MIN_BLOCKS = 4 * 132
+NN_CHUNK_ALIGN = 64
+
+
+def three_nn_key_chunk(b: int, n1: int, n2: int) -> int:
+    """Keys per block of K4 for a (B, N1) x (B, N2) call; n2 when one chunk
+    already fills the card."""
+    tiles = b * -(-n1 // NN_TILE_Q)
+    split = -(-NN_MIN_BLOCKS // tiles)
+    chunk = -(-n2 // split)
+    chunk = -(-chunk // NN_CHUNK_ALIGN) * NN_CHUNK_ALIGN
+    # Rounding up may leave too few chunks: shorten until the card is full.
+    while chunk > NN_CHUNK_ALIGN and tiles * -(-n2 // chunk) < NN_MIN_BLOCKS:
+        chunk -= NN_CHUNK_ALIGN
+    return min(chunk, n2)
+
+
+def _top3(d: torch.Tensor, ids: torch.Tensor):
+    """The 3 smallest entries of d (..., W) by (distance, id): three rounds
+    of min extraction, each taking the lowest id among the equal minima
+    and removing that entry.  Returns ids and distances (..., 3)."""
+    big = torch.iinfo(ids.dtype).max
+    picks, dists = [], []
+    for _ in range(3):
+        mn = torch.amin(d, dim=-1, keepdim=True)
+        i = torch.where(d == mn, ids, big).amin(dim=-1, keepdim=True)
+        picks.append(i[..., 0])
+        dists.append(mn[..., 0])
+        d = torch.where(ids == i, float("inf"), d)
+    return torch.stack(picks, -1), torch.stack(dists, -1)
+
+
+def _three_nn_plain(query_xyz, key_xyz, chunk: int | None = None):
+    """Plain twin of K4, in the kernel's steps: exact difference-form
+    distances; the keys cut in `chunk`-key ranges (default: the kernel's own
+    split, `three_nn_key_chunk`), each range's 3 smallest by (distance,
+    index), then the 3 smallest of those partials by (distance, index).
+    Each partial is exact on its range, so the result is the 3 smallest of
+    all keys whatever the chunk."""
     b, _, n1 = query_xyz.shape
     n2 = key_xyz.shape[2]
+    if chunk is None:
+        chunk = three_nn_key_chunk(b, n1, n2)
     col = torch.arange(n2, device=query_xyz.device)[None, None, :]
     idx_out, dist_out = [], []
-    for q0 in range(0, n1, chunk):
-        d = pairwise_sqdist_exact(query_xyz[:, :, q0:q0 + chunk], key_xyz)
-        picks, dists = [], []
-        for _ in range(3):
-            mn = torch.amin(d, dim=-1, keepdim=True)
-            i = torch.where(d == mn, col, n2).amin(dim=-1)   # lowest index
-            picks.append(i)
-            dists.append(mn[..., 0])
-            d = torch.where(col == i[..., None], float("inf"), d)
-        idx_out.append(torch.stack(picks, -1))
-        dist_out.append(torch.stack(dists, -1))
+    for q0 in range(0, n1, 2048):
+        q = query_xyz[:, :, q0:q0 + 2048]
+        parts_i, parts_d = [], []
+        for k0 in range(0, n2, chunk):
+            d = pairwise_sqdist_exact(q, key_xyz[:, :, k0:k0 + chunk])
+            ids = col[..., k0:k0 + chunk].expand_as(d)
+            if d.shape[-1] < 3:    # a short last range: pad with misses
+                pad = 3 - d.shape[-1]
+                d = torch.cat([d, d.new_full((*d.shape[:-1], pad),
+                                             float("inf"))], -1)
+                ids = torch.cat([ids, ids.new_full((*ids.shape[:-1], pad),
+                                                   n2)], -1)
+            i, dd = _top3(d, ids)
+            parts_i.append(i)
+            parts_d.append(dd)
+        i, dd = _top3(torch.cat(parts_d, -1), torch.cat(parts_i, -1))
+        idx_out.append(i)
+        dist_out.append(dd)
     return (torch.cat(idx_out, dim=1).to(torch.int32),
             torch.cat(dist_out, dim=1))
 
@@ -440,8 +490,10 @@ def _three_nn_plain(query_xyz, key_xyz, chunk: int = 2048):
 def three_nn_fused(query_xyz: torch.Tensor, key_xyz: torch.Tensor):
     """3-NN selection (K4): (B, 3, N1) x (B, 3, N2) f32 -> index (B, N1, 3)
     int32 and exact squared distances (B, N1, 3), ascending, ties to the
-    lowest key index.  CUDA tensors launch `csrc/three_nn.cu`; CPU tensors
-    take `_three_nn_plain`."""
+    lowest key index.  CUDA tensors launch `csrc/three_nn.cu` (one call:
+    the key chunks of `three_nn_key_chunk`, then their merge into the
+    result when there is more than one chunk); CPU tensors take
+    `_three_nn_plain`."""
     b, _, n1 = query_xyz.shape
     n2 = key_xyz.shape[2]
     if n2 < 3:
@@ -450,10 +502,18 @@ def three_nn_fused(query_xyz: torch.Tensor, key_xyz: torch.Tensor):
         return _three_nn_plain(query_xyz, key_xyz)
     _build.check(query_xyz, "query_xyz", torch.float32, (b, 3, n1))
     _build.check(key_xyz, "key_xyz", torch.float32, (b, 3, n2))
-    idx = torch.empty((b, n1, 3), dtype=torch.int32, device=query_xyz.device)
-    dist = torch.empty((b, n1, 3), dtype=torch.float32,
-                       device=query_xyz.device)
-    _build.launch("three_nn", query_xyz, key_xyz, b, n1, n2, idx, dist)
+    dev = query_xyz.device
+    chunk = three_nn_key_chunk(b, n1, n2)
+    nsplit = -(-n2 // chunk)
+    pidx = pdist = None
+    if nsplit > 1:   # the chunks' partial top-3s, merged by the same call
+        pidx = torch.empty((b, nsplit, 3, n1), dtype=torch.int32, device=dev)
+        pdist = torch.empty((b, nsplit, 3, n1), dtype=torch.float32,
+                            device=dev)
+    idx = torch.empty((b, n1, 3), dtype=torch.int32, device=dev)
+    dist = torch.empty((b, n1, 3), dtype=torch.float32, device=dev)
+    _build.launch("three_nn", query_xyz, key_xyz, b, n1, n2, chunk, pidx,
+                  pdist, idx, dist)
     return idx, dist
 
 

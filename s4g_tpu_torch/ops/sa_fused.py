@@ -17,10 +17,14 @@ max over the K neighbours.  The JAX package runs SA1 this way at batch >= 2
   where no key is in range.
 
 `sa1_fused_slab` launches the CUDA kernel `csrc/sa1_fused.cu` (K3) on CUDA
-tensors; CPU tensors take its plain twin `_sa1_fused_plain`.
+tensors, with W2 and W3 packed once per call by `pack_sa1_weights` into the
+layout the kernel's shared memory takes; CPU tensors take its plain twin
+`_sa1_fused_plain`.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -41,8 +45,8 @@ assert (SA_C_TILE, SA_K_TILE, SA_SLAB_TILES) == (BQ_C_TILE, BQ_K_TILE,
 # overflowed its window; read by chip_smoke.py.
 SA1_FALLBACKS = {"overflow": 0}
 
-# What the CUDA kernel holds (its fragments live in registers): C1 = C2 =
-# 128, C3 a multiple of 64 up to 256, K <= 128.
+# What the CUDA kernel holds (its operands live in registers and W2 and W3
+# in shared memory): C1 = C2 = 128, C3 a multiple of 128 up to 256, K <= 128.
 _KERNEL_C12 = 128
 _KERNEL_MAX_C3 = 256
 _KERNEL_MAX_K = 128
@@ -69,17 +73,61 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
+# K3 reads W2 and W3 from shared memory as wgmma's B operand: bf16, K-major
+# (each output column's K inputs contiguous), in 64-wide atoms of K whose
+# rows (128 bytes) hold their 16-byte chunks XOR-swizzled by the row index
+# mod 8 (the hardware's 128-byte swizzle).
+SWIZZLE_K = 64
+
+
+@functools.lru_cache(maxsize=None)
+def _b_operand_positions(k: int, n: int, device: torch.device):
+    """Flat position of element (k, n) of a (K, N) B operand in K3's
+    shared-memory layout, as a (K, N) int64 tensor."""
+    if k % SWIZZLE_K:
+        raise ValueError(f"K3's B operands need K % {SWIZZLE_K} == 0, got {k}")
+    kk = torch.arange(k).view(k, 1)
+    nn = torch.arange(n).view(1, n)
+    pos = ((kk // SWIZZLE_K) * (n * SWIZZLE_K) + nn * SWIZZLE_K
+           + (((kk % SWIZZLE_K) // 8) ^ (nn % 8)) * 8 + kk % 8)
+    return pos.to(device)
+
+
+def pack_b_operand(w: torch.Tensor) -> torch.Tensor:
+    """(K, N) f32 weights -> flat bf16 (K*N,) in K3's B-operand layout."""
+    pos = _b_operand_positions(*w.shape, w.device)
+    out = torch.empty(w.numel(), dtype=torch.bfloat16, device=w.device)
+    out[pos.reshape(-1)] = w.to(torch.bfloat16).reshape(-1)
+    return out
+
+
+def pack_sa1_weights(w1, b1, w23, b23):
+    """K3's operands, packed once per call: `wpack` bf16, W2 then W3 in the
+    B-operand layout; `fpack` f32, the bf16-rounded W1 (3, C1) row-major,
+    then b1, b2, b3."""
+    (w2, w3), (b2, b3) = w23, b23
+    wpack = torch.cat([pack_b_operand(w2), pack_b_operand(w3)])
+    fpack = torch.cat([_bf16(w1).reshape(-1), b1, b2, b3]).float()
+    return wpack, fpack.contiguous()
+
+
 def _sa1_fused_plain(points, centroids, lo_tile, radius: float,
                      num_neighbours: int, w1, b1, w23, b23,
-                     stratified: bool = True) -> torch.Tensor:
+                     stratified: bool = True,
+                     kpad: int | None = None) -> torch.Tensor:
     """Plain twin of K3 (see the module docstring): K2's plain selection on
     the same windows, then the chain as f32 products of bf16-rounded
-    operands, which are exact, with f32 sums."""
+    operands, which are exact, with f32 sums.  `kpad` > K pads each
+    centroid's slots to kpad by repeating slot 0, as the kernel does; a
+    repeated slot never changes the max."""
     b, _, _ = points.shape
     m = centroids.shape[2]
     k = num_neighbours
     idx, cnt = _ball_query_slab_plain(points, centroids, lo_tile,
                                       radius * radius, k, stratified)
+    if kpad is not None and kpad > k:
+        idx = torch.cat([idx, idx[..., :1].expand(b, m, kpad - k)], -1)
+        k = kpad
     keys = flat_gather_rows(points.transpose(1, 2), idx.reshape(b, m * k))
     rel = _bf16(keys.reshape(b, m, k, 3)
                 - centroids.transpose(1, 2)[:, :, None, :])
@@ -132,8 +180,9 @@ def sa1_fused_slab(points: torch.Tensor, centroids: torch.Tensor,
                            (w3, "w3", (c2, c3)), (b3, "b3", (c3,))):
         _build.check(t, name, torch.float32, shape)
     _build.check(lo_tile, "lo_tile", torch.int32, (b, ntile))
+    wpack, fpack = pack_sa1_weights(w1, b1, w23, b23)
     out = torch.empty((b, m, c3), dtype=torch.float32, device=points.device)
-    _build.launch("sa1_fused", points, centroids, lo_tile, w1, b1, w2, b2,
-                  w3, b3, b, n, m, ntile, _f32(radius * radius),
-                  num_neighbours, c3, int(stratified), out)
+    _build.launch("sa1_fused", points, centroids, lo_tile, wpack, fpack, b, n,
+                  m, ntile, _f32(radius * radius), num_neighbours, c3,
+                  int(stratified), out)
     return out

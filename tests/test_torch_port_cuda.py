@@ -180,12 +180,17 @@ def test_ball_query_slab_kernel_matches_plain(cuda, n, m, radius, k,
         assert torch.equal(g.cpu(), w)
 
 
-@pytest.mark.parametrize("n1,n2,grid", [(3000, 5000, None), (700, 4099, 0.05),
-                                        (129, 3, None)])
-def test_three_nn_kernel_matches_plain(cuda, n1, n2, grid):
+@pytest.mark.parametrize("b,n1,n2,grid", [
+    (2, 3000, 5000, None), (2, 700, 4099, 0.05), (2, 129, 3, None),
+    (2, 200, 30000, None),    # few queries, many keys: 469 chunks, merged
+    (4, 5120, 1024, None),    # b = 4 at the small FP stage
+    (4, 2000, 6000, 0.1),     # tie grid: duplicate keys across the chunks
+    (1, 600, 2500, None),     # one query tile, a ragged last chunk
+])
+def test_three_nn_kernel_matches_plain(cuda, b, n1, n2, grid):
     rng = np.random.RandomState(n2)
-    q = torch.from_numpy(rng.rand(2, 3, n1).astype(np.float32))
-    keys = rng.rand(2, 3, n2).astype(np.float32)
+    q = torch.from_numpy(rng.rand(b, 3, n1).astype(np.float32))
+    keys = rng.rand(b, 3, n2).astype(np.float32)
     if grid is not None:                          # duplicate keys: ties
         keys = (np.round(keys / grid) * grid).astype(np.float32)
     keys = torch.from_numpy(keys)
@@ -194,6 +199,9 @@ def test_three_nn_kernel_matches_plain(cuda, n1, n2, grid):
     torch.cuda.synchronize()
     assert torch.equal(got_i.cpu(), want_i)
     assert torch.equal(got_d.cpu(), want_d)
+    # The split itself: one chunk must give what many give.
+    one_i, one_d = nb._three_nn_plain(q, keys, n2)
+    assert torch.equal(one_i, want_i) and torch.equal(one_d, want_d)
 
 
 @pytest.mark.parametrize("g,n", [(1001, 20000), (8, 65536)])
@@ -235,6 +243,10 @@ def _k3_operands(rng, b, n, m, radius, shift=0.0, c3=256):
     (3, 9000, 700, 0.2, 16, 0.0, 128),     # b = 3, overfull balls, C3 = 128
     (2, 9000, 700, 0.001, 8, 0.0, 256),    # mostly empty balls, K pads to 16
     (2, 9000, 1024, 0.03, 24, 10.0, 256),  # every tile empty: zero rows
+    # 1,280 centroid groups: several per persistent block, across tiles and
+    # scenes.
+    (4, 12000, 5120, 0.03, 16, 0.0, 256),
+    (2, 9000, 600, 0.2, 128, 0.0, 256),    # K = 128: two tiles a centroid
 ])
 def test_sa1_fused_kernel_matches_plain(cuda, b, n, m, radius, k, shift, c3):
     rng = np.random.RandomState(n + m + k)

@@ -324,3 +324,51 @@ def test_batch1_keeps_the_unfused_route(monkeypatch):
     assert sa1._fuses(2, torch.zeros(2)) and not sa1._fuses(1, torch.zeros(1))
     assert not sa1._fuses(2, None)
     assert not tnet.sa_modules[1]._fuses(2, torch.zeros(2))   # widths 32
+
+
+# -- K3's packed operands and slot padding ------------------------------------
+
+def _unpack(flat, k, n):
+    """Inverse of `sa_fused.pack_b_operand`: (K, N) values as f32."""
+    return flat[sf._b_operand_positions(k, n, flat.device)].float()
+
+
+@pytest.mark.parametrize("c3", [128, 256])
+def test_packed_weights_unpack_to_bf16(c3):
+    """The wrapper's packed buffers hold exactly the bf16-rounded weights:
+    W2 and W3 in the kernel's B-operand layout, W1 and the biases in f32."""
+    w1, b1, w2, b2, w3, b3 = (_t(a) for a in _affines(8, c3=c3))
+    wpack, fpack = sf.pack_sa1_weights(w1, b1, (w2, w3), (b2, b3))
+    assert wpack.dtype == torch.bfloat16 and wpack.numel() == 128 * (128 + c3)
+    assert torch.equal(_unpack(wpack[:128 * 128], 128, 128),
+                       sf._bf16(w2))
+    assert torch.equal(_unpack(wpack[128 * 128:], 128, c3),
+                       sf._bf16(w3))
+    assert fpack.dtype == torch.float32 and fpack.numel() == 3 * 128 + 256 + c3
+    assert torch.equal(fpack[:384].reshape(3, 128), sf._bf16(w1))
+    assert torch.equal(fpack[384:], torch.cat([b1, b2, b3]))
+    # The layout: element (k, n) of W2 sits in row n of K atom k // 64, its
+    # 16-byte chunk swizzled by n % 8.
+    k, n = 90, 13                      # atom 1, column 26 of it: chunk 3
+    pos = 128 * 64 + n * 64 + (3 ^ (n % 8)) * 8 + 26 % 8
+    assert wpack[pos] == w2[k, n].to(torch.bfloat16)
+    # Every position is written exactly once.
+    pos_all = sf._b_operand_positions(128, c3, torch.device("cpu"))
+    assert torch.equal(torch.sort(pos_all.reshape(-1))[0],
+                       torch.arange(128 * c3))
+
+
+@pytest.mark.parametrize("radius,k", [(0.05, 16), (0.22, 24), (0.05, 40)])
+def test_slot_padding_leaves_plain_twin_unchanged(radius, k):
+    """Padding each centroid's K slots to a power of two >= 16 by repeating
+    slot 0, as K3 does, gives the plain twin's output bit for bit."""
+    pts, cent = _scene(2, 4096, 512)
+    lo, _ = sf.sa1_slab_setup(_t(pts[:, 0]), _t(cent[:, 0]), radius, 4096)
+    w1, b1, w2, b2, w3, b3 = (_t(a) for a in _affines(9))
+    args = (_t(pts), _t(cent), lo, radius, k, w1, b1, (w2, w3), (b2, b3))
+    kpad = max(16, 1 << (k - 1).bit_length())
+    want = sf._sa1_fused_plain(*args)
+    got = sf._sa1_fused_plain(*args, kpad=kpad)
+    assert (kpad > k) == (k != 16)
+    assert torch.equal(got, want)
+    assert float(want.abs().max()) > 0.1
