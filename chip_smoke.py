@@ -258,6 +258,38 @@ def _path_inputs(det, torch, np):
             "g2l": g2l, "cloud_valid": cloud_valid.contiguous()}
 
 
+def _slab_keys(pts, cents, lo_tile, r2: float) -> float:
+    """Distance tests a sorted-slab selection needs on this data, summed over
+    the centroids: where a coordinate ascends over the centroid tile's key
+    window, only the window's keys within the ball's slab along it (the
+    half-width 1.05 r + 1e-5 |c| of `sa1_fused.cu`'s `margin`: every key
+    outside has d2 > r2), else the whole window."""
+    import torch
+    from s4g_tpu_torch.ops import neighbors as nb
+    b, _, n = pts.shape
+    m = cents.shape[2]
+    r2 = torch.tensor(r2, dtype=torch.float32)
+    total = 0
+    for bi in range(b):
+        for t, c0 in enumerate(range(0, m, nb.BQ_C_TILE)):
+            keys = int(lo_tile[bi, t]) * nb.BQ_K_TILE + torch.arange(
+                nb.BQ_WINDOW, device=pts.device)
+            win = torch.where(keys < n, pts[bi][:, keys.clamp(max=n - 1)],
+                              1e9)   # keys past N are padding
+            c = cents[bi, :, c0:c0 + nb.BQ_C_TILE]
+            axis = next((a for a in range(3)
+                         if bool(torch.all(win[a, 1:] >= win[a, :-1]))), None)
+            if axis is None:
+                total += c.shape[1] * nb.BQ_WINDOW
+                continue
+            ca = c[axis]
+            half = 1.05 * torch.sqrt(r2) + 1e-5 * ca.abs()
+            lo = torch.searchsorted(win[axis], ca - half)
+            hi = torch.searchsorted(win[axis], ca + half, right=True)
+            total += int((hi - lo).sum())
+    return float(total)
+
+
 def _compare(name, got, want, exact):
     """Kernel outputs against the plain twin's: equal where `exact`, else
     within 1e-6.  Returns the max absolute difference."""
@@ -315,9 +347,12 @@ def _kernel_phase(inp, torch):
                                                         r * r, k, True),
                       reps=5)
     # 9 f32 operations (3 sub, 3 mul, 2 add, compare) per (centroid, key)
-    # of each tile's 8,192-key window.
+    # that this data needs tested (`_slab_keys`).
     m1 = cents.shape[2]
-    ops = 9.0 * m1 * nb.BQ_WINDOW
+    tested = _slab_keys(pts, cents, lo, r * r)
+    ops = 9.0 * tested
+    print(f"kernel ball_query_slab: distance tests needed {int(tested)} of "
+          f"{m1 * nb.BQ_WINDOW} in the windows", flush=True)
     nbytes = 12 * (pts.shape[2] + m1) + 4 * lo.numel() + 4 * m1 * (k + 1)
     report.append(("ball_query_slab", "s4g_tpu_torch/csrc/ball_query_slab.cu",
                    "s4g_tpu/ops/pallas/neighbor_kernels.py:145", err, ms,
@@ -325,10 +360,17 @@ def _kernel_phase(inp, torch):
 
     # K4: the two FP stages above the 2^22-pair threshold.
     nn_calls = [(st[1], st[2]), (st[0], st[1])]
-    # Indices and distances bit for bit.
+    sms = nb.sm_count(st[0].device)
+    chunks = [nb.three_nn_key_chunk(1, q.shape[2], kk.shape[2], sms)
+              for q, kk in nn_calls]
+    # Indices and distances bit for bit, against the twin in the kernel's
+    # key chunks and in one pass.
     err = max(_compare("three_nn", nb.three_nn_fused(q, kk),
-                       nb._three_nn_plain(q, kk), True)
-              for q, kk in nn_calls)
+                       nb._three_nn_plain(q, kk, c), True)
+              for (q, kk), c in zip(nn_calls, chunks))
+    err = max(err, *(_compare("three_nn one pass", nb.three_nn_fused(q, kk),
+                              nb._three_nn_plain(q, kk), True)
+                     for q, kk in nn_calls))
     ms = sum(_graph_ms(lambda q=q, kk=kk: nb.three_nn_fused(q, kk))
              for q, kk in nn_calls)
     plain = sum(_event_ms(lambda q=q, kk=kk: nb._three_nn_plain(q, kk),
@@ -337,10 +379,9 @@ def _kernel_phase(inp, torch):
     ops = sum(9.0 * q.shape[2] * kk.shape[2] for q, kk in nn_calls)
     nbytes = sum(12 * (q.shape[2] + kk.shape[2]) + 24 * q.shape[2]
                  for q, kk in nn_calls)
-    print("kernel three_nn: keys per block " + ", ".join(
-        f"{q.shape[2]}<-{kk.shape[2]}: "
-        f"{nb.three_nn_key_chunk(1, q.shape[2], kk.shape[2])}"
-        for q, kk in nn_calls), flush=True)
+    print(f"kernel three_nn: {sms} SMs, keys per block " + ", ".join(
+        f"{q.shape[2]}<-{kk.shape[2]}: {c}"
+        for (q, kk), c in zip(nn_calls, chunks)), flush=True)
     report.append(("three_nn", "s4g_tpu_torch/csrc/three_nn.cu",
                    "s4g_tpu/ops/pallas/neighbor_kernels.py:58", err, ms,
                    plain, *_bound_ms(ops, nbytes)))
@@ -443,12 +484,13 @@ def _k3_phase(inp, torch):
         unfused_ms = _graph_ms(unfused)
     # Work this run's data needs: each centroid's `count` distinct slots
     # through the chain (a repeated slot never changes the max); 9 f32
-    # operations per (centroid, key) of its window and 6 per layer-1 unit.
+    # operations per (centroid, key) that the selection must test
+    # (`_slab_keys`) and 6 per layer-1 unit.
     c1, c2, c3 = w1.shape[1], w2.shape[1], w3.shape[1]
     rows = float(cnt.sum())
+    tested = _slab_keys(pts, cents, lo, r * r)
     t_ops = (2.0 * rows * (c1 * c2 + c2 * c3) / PEAK_BF16_FLOPS
-             + (9.0 * b * m * nb.BQ_WINDOW + 6.0 * rows * c1)
-             / PEAK_F32_FLOPS)
+             + (9.0 * tested + 6.0 * rows * c1) / PEAK_F32_FLOPS)
     nbytes = (12 * b * (n + m) + 4 * lo.numel()
               + 4 * (3 * c1 + c1 + c1 * c2 + c2 + c2 * c3 + c3)
               + 4 * b * m * c3)
@@ -458,7 +500,8 @@ def _k3_phase(inp, torch):
     print(f"kernel sa1_fused inputs: b={b}, N={n}, M={m}, K={k}, widths "
           f"{c1}/{c2}/{c3}, windows overflow={inp['overflow']}, selected "
           f"rows {int(rows)} of {b * m * k}, empty centroids "
-          f"{int(empty.sum())}", flush=True)
+          f"{int(empty.sum())}, distance tests needed {int(tested)} of "
+          f"{b * m * nb.BQ_WINDOW} in the windows", flush=True)
     print(f"kernel sa1_fused: max|kernel-plain|={err:.3g} (max|plain| "
           f"{scale:.3g}), entries that differ {differ:.3e}; unfused SA1 "
           f"route (K2 + gather + 3 PointConv + max) at b={b}: "

@@ -18,8 +18,9 @@
 //
 // What bounds it on this card: operations — at SA1 (M = 5,120, K = 64,
 // 128/128/256) a scene needs ~32 GFLOP of bf16 products in layers 2-3
-// (~33 us at 989 TFLOP/s) plus ~0.4 G f32 operations for the distance
-// masks and layer 1 (~6 us at 67 TFLOP/s), against ~5 MB of traffic.
+// (~33 us at 989 TFLOP/s) plus the f32 operations of layer 1 and of the
+// distance tests, which on a sorted window only the keys of each ball's
+// slab need, against ~5 MB of traffic.
 // Design, for Hopper:
 // * persistent blocks: one 384-thread block per SM walks a contiguous run
 //   of the (scene, 16-centroid group) work list, so W2 and W3 are loaded
@@ -51,9 +52,9 @@
 // slack, of the 232,448 a block may take.  K = 128
 // (kpad 128) keeps one 12 KB ring stage, so selection and products
 // alternate there.
-// What is left, on an H100 (tools/port_kernel_ablation.py): on sorted
-// tabletop scenes the chain (its products at most ~63 % of the bf16 peak,
-// then layer 1 and the pool); on dense clutter columns the selection.
+// What is left: on sorted tabletop scenes the chain (two warpgroups of
+// m64n64k16 products, then layer 1 and the pool); on dense clutter
+// columns, whose slabs hold most of the window, the selection.
 
 #include <stdint.h>
 

@@ -18,16 +18,17 @@
 // * packed keys: the block stages its keys in shared memory as float4
 //   (x, y, z, 0), one 128-bit broadcast load per key for all four queries;
 // * a key split: the grid is (query tiles x key chunks x B), and the wrapper
-//   picks the chunk length (a multiple of 64 keys) so that a call puts at
-//   least four blocks on each SM where chunks that short allow it (600
-//   blocks at 25600 <- 5120, 160 at 5120 <- 1024, at b = 1).  Each block
+//   picks the chunk length (a multiple of 64 keys) from the card's SM count
+//   so that a call puts at least four blocks on each SM where chunks that
+//   short allow it (on an H100's 132 SMs at b = 1: 600 blocks at 25600 <-
+//   5120, 160 at 5120 <- 1024).  Each block
 //   keeps its chunk's top-3 by strict `<` over ascending keys (ties to the
 //   lowest index inside the chunk) and writes it to scratch; a merge kernel
 //   inserts the chunks' partials in chunk order with the same strict `<`,
 //   which is the lexicographic (d, index) order across chunks: the result
 //   is exact.  One chunk writes the output directly and launches no merge.
-// What is left: the insertion, about half of the kernel's time on an H100
-// (tools/port_kernel_ablation.py); the distances run at ~1.6x the floor.
+// What is left: the top-3 insertion, whose compares and selects per pair
+// are as many instructions as the distance itself.
 
 #include "common.cuh"
 

@@ -416,23 +416,29 @@ def _three_nn_select_matmul(query_xyz, key_xyz, chunk: int = 2048):
 
 
 # K4's key split: a block takes NN_TILE_Q queries (128 threads x 4), and the
-# key range is cut so that a call puts at least NN_MIN_BLOCKS blocks on the
-# card (four per SM of an H100's 132: 16 warps to hide the distance
-# chains' latency), in chunks of a multiple of NN_CHUNK_ALIGN keys.
+# key range is cut so that a call puts at least NN_BLOCKS_PER_SM blocks on
+# each SM of the card (16 warps to hide the distance chains' latency), in
+# chunks of a multiple of NN_CHUNK_ALIGN keys.
 NN_TILE_Q = 512
-NN_MIN_BLOCKS = 4 * 132
+NN_BLOCKS_PER_SM = 4
 NN_CHUNK_ALIGN = 64
 
 
-def three_nn_key_chunk(b: int, n1: int, n2: int) -> int:
-    """Keys per block of K4 for a (B, N1) x (B, N2) call; n2 when one chunk
-    already fills the card."""
+def sm_count(device) -> int:
+    """Streaming multiprocessors of CUDA device `device`."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def three_nn_key_chunk(b: int, n1: int, n2: int, sms: int) -> int:
+    """Keys per block of K4 for a (B, N1) x (B, N2) call on a card with
+    `sms` SMs; n2 when one chunk already fills the card."""
+    min_blocks = NN_BLOCKS_PER_SM * sms
     tiles = b * -(-n1 // NN_TILE_Q)
-    split = -(-NN_MIN_BLOCKS // tiles)
+    split = -(-min_blocks // tiles)
     chunk = -(-n2 // split)
     chunk = -(-chunk // NN_CHUNK_ALIGN) * NN_CHUNK_ALIGN
     # Rounding up may leave too few chunks: shorten until the card is full.
-    while chunk > NN_CHUNK_ALIGN and tiles * -(-n2 // chunk) < NN_MIN_BLOCKS:
+    while chunk > NN_CHUNK_ALIGN and tiles * -(-n2 // chunk) < min_blocks:
         chunk -= NN_CHUNK_ALIGN
     return min(chunk, n2)
 
@@ -454,15 +460,14 @@ def _top3(d: torch.Tensor, ids: torch.Tensor):
 
 def _three_nn_plain(query_xyz, key_xyz, chunk: int | None = None):
     """Plain twin of K4, in the kernel's steps: exact difference-form
-    distances; the keys cut in `chunk`-key ranges (default: the kernel's own
-    split, `three_nn_key_chunk`), each range's 3 smallest by (distance,
-    index), then the 3 smallest of those partials by (distance, index).
-    Each partial is exact on its range, so the result is the 3 smallest of
-    all keys whatever the chunk."""
-    b, _, n1 = query_xyz.shape
-    n2 = key_xyz.shape[2]
+    distances; the keys cut in `chunk`-key ranges (default: one range of
+    all keys; `three_nn_key_chunk` gives the kernel's split), each range's
+    3 smallest by (distance, index), then the 3 smallest of those partials
+    by (distance, index).  Each partial is exact on its range, so the
+    result is the 3 smallest of all keys whatever the chunk."""
+    n1, n2 = query_xyz.shape[2], key_xyz.shape[2]
     if chunk is None:
-        chunk = three_nn_key_chunk(b, n1, n2)
+        chunk = n2
     col = torch.arange(n2, device=query_xyz.device)[None, None, :]
     idx_out, dist_out = [], []
     for q0 in range(0, n1, 2048):
@@ -503,7 +508,7 @@ def three_nn_fused(query_xyz: torch.Tensor, key_xyz: torch.Tensor):
     _build.check(query_xyz, "query_xyz", torch.float32, (b, 3, n1))
     _build.check(key_xyz, "key_xyz", torch.float32, (b, 3, n2))
     dev = query_xyz.device
-    chunk = three_nn_key_chunk(b, n1, n2)
+    chunk = three_nn_key_chunk(b, n1, n2, sm_count(dev))
     nsplit = -(-n2 // chunk)
     pidx = pdist = None
     if nsplit > 1:   # the chunks' partial top-3s, merged by the same call

@@ -194,13 +194,14 @@ def test_three_nn_kernel_matches_plain(cuda, b, n1, n2, grid):
     if grid is not None:                          # duplicate keys: ties
         keys = (np.round(keys / grid) * grid).astype(np.float32)
     keys = torch.from_numpy(keys)
-    want_i, want_d = nb._three_nn_plain(q, keys)
+    chunk = nb.three_nn_key_chunk(b, n1, n2, nb.sm_count(cuda))
+    want_i, want_d = nb._three_nn_plain(q, keys, chunk)   # the kernel's split
     got_i, got_d = nb.three_nn_fused(q.to(cuda), keys.to(cuda))
     torch.cuda.synchronize()
     assert torch.equal(got_i.cpu(), want_i)
     assert torch.equal(got_d.cpu(), want_d)
-    # The split itself: one chunk must give what many give.
-    one_i, one_d = nb._three_nn_plain(q, keys, n2)
+    # The split itself: one pass must give what many chunks give.
+    one_i, one_d = nb._three_nn_plain(q, keys)
     assert torch.equal(one_i, want_i) and torch.equal(one_d, want_d)
 
 

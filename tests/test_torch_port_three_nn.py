@@ -1,9 +1,10 @@
 """K4's plain twin (s4g_tpu_torch/ops/neighbors.py::_three_nn_plain), which
 follows the kernel's steps (the keys cut in chunks, each chunk's top-3, then
 a merge by (distance, index)), against the JAX package's TPU kernel
-`three_nn_pallas` in interpret mode on the CPU, at chunk sizes that cut the
-keys anywhere, including between duplicate keys; and the key split that the
-kernel's wrapper picks.
+`three_nn_pallas` in interpret mode on the CPU, in one pass, at chunk sizes
+that cut the keys anywhere, including between duplicate keys, and at the
+kernel's own split on an H100's 132 SMs; and the key split that the
+kernel's wrapper picks for a card's SM count.
 
 Indices and distances must match exactly.  XLA's CPU backend contracts the
 reference's products and sums into FMAs where the CPU has them, which moves
@@ -26,7 +27,8 @@ from s4g_tpu_torch.ops import neighbors as nb
 REPO = Path(__file__).resolve().parents[1]
 
 CASES = [
-    ("random", 300, 200, None),      # the kernel's own split
+    ("random", 300, 200, None),      # one pass (the default)
+    ("random", 300, 200, "h100"),    # the kernel's split on 132 SMs
     ("random", 300, 200, 3),         # three keys a chunk
     ("random", 300, 200, 7),         # a short last chunk (200 = 28*7 + 4)
     ("random", 300, 200, 200),       # one chunk
@@ -35,7 +37,10 @@ CASES = [
     ("straddle", 130, 700, 64),      # equal keys on both sides of each cut
     ("straddle", 130, 700, 32),
     ("straddle", 130, 700, None),
+    ("straddle", 130, 700, "h100"),
 ]
+
+H100_SMS = 132
 
 _JAX_CHILD = """
 import sys
@@ -113,6 +118,8 @@ def test_three_nn_twin_matches_pallas_interpret(jax_three_nn, case, n1, n2,
                                                 chunk):
     q, k = _cloud(n1 + n2, 2, n1, n2, case)
     want_i, want_d = jax_three_nn[_tag(case, n1, n2)]
+    if chunk == "h100":
+        chunk = nb.three_nn_key_chunk(2, n1, n2, H100_SMS)
     got_i, got_d = nb._three_nn_plain(torch.from_numpy(q),
                                       torch.from_numpy(k), chunk)
     got_i, got_d = got_i.numpy(), got_d.numpy()
@@ -130,12 +137,27 @@ def test_three_nn_twin_matches_pallas_interpret(jax_three_nn, case, n1, n2,
     (2, 25600, 5120), (4, 25600, 5120), (1, 200, 30000), (8, 70000, 5),
 ])
 def test_three_nn_key_split_fills_the_card(b, n1, n2):
-    chunk = nb.three_nn_key_chunk(b, n1, n2)
-    nsplit = -(-n2 // chunk)
-    blocks = b * -(-n1 // nb.NN_TILE_Q) * nsplit
+    _check_split(b, n1, n2, H100_SMS)
+    if (b, n1, n2) == (1, 25600, 5120):
+        chunk = nb.three_nn_key_chunk(b, n1, n2, H100_SMS)
+        assert (chunk, -(-n2 // chunk)) == (448, 12)
+
+
+@pytest.mark.parametrize("sms", [1, 78, 114, 144])
+def test_three_nn_key_split_follows_the_sm_count(sms):
+    # The main path's larger FP stage on cards with other SM counts: more
+    # SMs never get longer chunks.
+    chunks = [_check_split(1, 25600, 5120, s) for s in (sms, 2 * sms)]
+    assert chunks[1] <= chunks[0]
+
+
+def _check_split(b, n1, n2, sms):
+    """The split's invariants on a card with `sms` SMs; returns the chunk."""
+    chunk = nb.three_nn_key_chunk(b, n1, n2, sms)
+    blocks = b * -(-n1 // nb.NN_TILE_Q) * -(-n2 // chunk)
     assert 3 <= chunk <= n2
     assert chunk == n2 or chunk % nb.NN_CHUNK_ALIGN == 0
     # Four blocks per SM, unless the chunks are already as short as allowed.
-    assert blocks >= nb.NN_MIN_BLOCKS or chunk in (n2, nb.NN_CHUNK_ALIGN)
-    if (b, n1, n2) == (1, 25600, 5120):
-        assert (chunk, nsplit, blocks) == (448, 12, 600)
+    assert (blocks >= nb.NN_BLOCKS_PER_SM * sms
+            or chunk in (n2, nb.NN_CHUNK_ALIGN))
+    return chunk
