@@ -26,7 +26,19 @@ run, but the run then exits non-zero without printing a result:
    (full-scan ball query) at the reference-parity configuration's shapes
    (`curvature_model.yaml` with SORT_POINTS false and FPS_SHARDS 1) at
    b = 1 and 2, bit for bit (K6 also with 8 shards), timed beside their
-   twins; then K7 (the SharedMLP chain) at each of the ten chains of a
+   twins, and K2f again at the deployed path's SA2 and SA3 (sorted
+   scenes, the sort promise handed on; kept and broken), bit for bit,
+   timed per scene against a bound of the distance tests the data needs,
+   and at detect_batch's SA1 full-scan fallback (b = 2, tabletop and
+   clutter) with and without the promise; K5's bound counts the operations
+   its counts need on this data (every pair's z row and z-slab test, the
+   rest only for pairs inside the z slab), beside its FMA-less floors
+   (every pair in full, and that pruned count); then the inputs past the
+   kernels' old ranges
+   (`_fault_phase`: the fused SA1 stage at 256/256/512 through K2 + K7, a
+   6-layer K7 chain, K2f at 50,000 and 100,000 keys, K6 at 40,000 points
+   per chain), each printed with its max |kernel - twin| against its
+   tolerance; then K7 (the SharedMLP chain) at each of the ten chains of a
    b = 1 fused-chain forward, their inputs captured from a seeded tabletop,
    held against its twin (bf16 within 1e-2 of the output's max, as K3;
    f32 within 1e-5) plus one f32 case at SA2's shape, timed per forward
@@ -255,6 +267,7 @@ def _path_inputs(det, torch, np):
         cloud_valid = torch.cat([cloud, valid.float()[:, None]], dim=1)
     return {"stages": stages, "lo_tile": lo_tile, "overflow": bool(overflow),
             "radius": cfg.RADIUS[0], "k": cfg.NUM_NEIGHBOURS[0],
+            "radii": cfg.RADIUS, "ks": cfg.NUM_NEIGHBOURS, "axis": axis,
             "g2l": g2l, "cloud_valid": cloud_valid.contiguous()}
 
 
@@ -290,6 +303,27 @@ def _slab_keys(pts, cents, lo_tile, r2: float) -> float:
     return float(total)
 
 
+def _scene_slab_keys(pts, cents, axis, r2: float) -> float:
+    """`_slab_keys` over whole scenes, as K2f scans them with the sort
+    promise: where the scene's key coordinate along `axis` ascends, the
+    keys within each ball's slab (the same half-width), else all N."""
+    import torch
+    b, _, n = pts.shape
+    r2 = torch.tensor(r2, dtype=torch.float32, device=pts.device)
+    total = 0
+    for bi in range(b):
+        ka = pts[bi, int(axis[bi])].contiguous()
+        ca = cents[bi, int(axis[bi])]
+        if not bool(torch.all(ka[1:] >= ka[:-1])):
+            total += ca.numel() * n
+            continue
+        half = 1.05 * torch.sqrt(r2) + 1e-5 * ca.abs()
+        lo = torch.searchsorted(ka, ca - half)
+        hi = torch.searchsorted(ka, ca + half, right=True)
+        total += int((hi - lo).sum())
+    return float(total)
+
+
 def _compare(name, got, want, exact):
     """Kernel outputs against the plain twin's: equal where `exact`, else
     within 1e-6.  Returns the max absolute difference."""
@@ -306,8 +340,9 @@ def _compare(name, got, want, exact):
     return err
 
 
-def _kernel_phase(inp, torch):
-    """Each kernel against its plain twin on the card, then timed."""
+def _kernel_phase(inp, torch, extras):
+    """Each kernel against its plain twin on the card, then timed; extra
+    numbers per kernel go into `extras`."""
     from s4g_tpu_torch.ops import neighbors as nb
     from s4g_tpu_torch.ops import sampling as sp
     from s4g_tpu_torch.pipeline import collision as col
@@ -388,16 +423,62 @@ def _kernel_phase(inp, torch):
 
     # K5: collision counts of the candidate poses against the padded cloud.
     g2l, cv = inp["g2l"], inp["cloud_valid"]
-    err = _compare("collision_counts", col.collision_counts(g2l, cv),
-                   col._collision_counts_plain(g2l, cv), True)
+    want = col._collision_counts_plain(g2l, cv)
+    err = _compare("collision_counts", col.collision_counts(g2l, cv), want,
+                   True)
     ms = _graph_ms(lambda: col.collision_counts(g2l, cv))
+    # The same rows in a depth camera's raster order (the synthetic scene's
+    # rows are in random order): image row, then column, of a 600-pixel
+    # focal length projection; padding last.  Counts do not depend on the
+    # order, so they must equal the twin's on the unordered rows.
+    proj = torch.round(600.0 * cv[:, :2] / cv[:, 2:3])
+    key = torch.where(cv[:, 3] > 0.5, proj[:, 1] * 4096.0 + proj[:, 0],
+                      float("inf"))
+    cv_raster = cv[torch.argsort(key)].contiguous()
+    err = max(err, _compare("collision_counts raster order",
+                            col.collision_counts(g2l, cv_raster), want, True))
+    ms_raster = _graph_ms(lambda: col.collision_counts(g2l, cv_raster))
     plain = _event_ms(lambda: col._collision_counts_plain(g2l, cv), reps=5)
-    # Per (pose, point): 9 mul + 9 add for the transform, ~12 compares.
-    ops = 30.0 * g2l.shape[0] * cv.shape[0]
-    nbytes = 64 * g2l.shape[0] + 16 * cv.shape[0] + 8 * g2l.shape[0]
+    # The operations the counts need on this data: every (pose, valid
+    # point) pair pays its z row (3 mul + 3 add) and the z-slab test (~8);
+    # only the pairs inside the z slab pay the x and y rows and the box
+    # tests (~22 more).  Pairs outside the slab count 0 whatever x and y
+    # are, so no more is needed (as `_slab_keys` counts K2's and K3's
+    # needed distance tests).
+    g = g2l.shape[0]
+    live = cv[:, 3] > 0.5
+    pairs = float(g * int(live.sum()))
+    nbytes = 64 * g + 16 * cv.shape[0] + 8 * g
+    # FMA-less floors, in FP32 instructions at one per lane per clock (half
+    # the FMA-counted peak): ~28 a pair when every pair is tested in full
+    # (6 mul + 6 add + 3 rounded row sums' adds, 10 compares, selects), and
+    # the pruned count above.
+    pts = cv[live, :3]
+    m = g2l.reshape(g, 16)
+    in_z = 0
+    for g0 in range(0, g, 128):
+        mm = m[g0:g0 + 128, :, None]
+        z = (pts[:, 0] * mm[:, 8] + pts[:, 1] * mm[:, 9]
+             + pts[:, 2] * mm[:, 10] + mm[:, 11])
+        in_z += int((z.abs() < col._BOX[2]).sum())
+    ops = 8.0 * pairs + 22.0 * in_z
+    bound, by = _bound_ms(ops, nbytes)
+    rate = PEAK_F32_FLOPS / 2
+    extras["collision_counts"] = {
+        "floor_ms": 1e3 * 28.0 * pairs / rate,
+        "pruned_floor_ms": 1e3 * ops / rate,
+        "pairs": pairs, "pairs_in_z_slab": float(in_z),
+        "raster_order_ms": ms_raster}
+    print(f"kernel collision_counts: {g} poses x {int(live.sum())} valid of "
+          f"{cv.shape[0]} rows, {pairs:.4g} pairs, {in_z} ({in_z / pairs:.4f})"
+          f" inside the z slab; bound {bound:.5f} ms ({by}); FMA-less floor "
+          f"{extras['collision_counts']['floor_ms']:.5f} ms, pruned "
+          f"{extras['collision_counts']['pruned_floor_ms']:.5f} ms; kernel "
+          f"{ms:.4f} ms on the scene's rows, {ms_raster:.4f} ms on the same "
+          f"rows in raster order", flush=True)
     report.append(("collision_counts", "s4g_tpu_torch/csrc/collision_counts.cu",
                    "s4g_tpu/ops/pallas/collision_kernels.py:33", err, ms,
-                   plain, *_bound_ms(ops, nbytes)))
+                   plain, bound, by))
     return report
 
 
@@ -434,7 +515,7 @@ def _batch_sa1_inputs(det, torch, np, clutter: bool = True):
         pkeys, ckeys = _axis_keys(pts, axis), _axis_keys(cents, axis)
         lo_tile, overflow = sa1_slab_setup(pkeys, ckeys, r, n)
         lo_k2, _ = slab_windows(pkeys, ckeys, r * r, n)
-    return {"pts": pts, "cents": cents, "lo_tile": lo_tile,
+    return {"pts": pts, "cents": cents, "lo_tile": lo_tile, "axis": axis,
             "overflow": bool(overflow), "lo_k2": lo_k2, "radius": r,
             "k": cfg.NUM_NEIGHBOURS[0], "mlp": det.net.sa_modules[0].mlp}
 
@@ -833,12 +914,75 @@ def _k6_phase(inp, torch):
             *_bound_ms(ops, nbytes))
 
 
-def _k2f_phase(inp, torch):
+def _k2f_phase(inp, torch, path, fallback, extras):
     """K2f against the plain full scan (`_ball_query_full`), indices and
     counts exact, stratified off and on, at the parity path's SA1, SA2 and
     SA3 shapes at b = 1 and b = 2; then timed per forward at b = 1 beside
-    the plain full scan, the "auto" route."""
+    the plain full scan, the "auto" route.  Then the deployed path's SA2
+    and SA3 (`path`: sorted scenes, the sort promise handed on,
+    stratified), bit for bit, also with a broken promise, timed per scene
+    beside the same calls without the promise, against a bound that counts
+    only the distance tests the data needs (`_scene_slab_keys`); and the
+    SA1 full-scan fallback of detect_batch at b = 2 on a tabletop and a
+    clutter scene (`fallback`, whose K3 windows overflow), bit for bit,
+    timed with the promise (detect_batch's route) and without it (the
+    route before detect_batch handed it on: the tile kernel)."""
     from s4g_tpu_torch.ops import neighbors as nb
+
+    st_d, axis = path["stages"], path["axis"]
+    dcalls = [(st_d[i], st_d[i + 1], path["radii"][i], path["ks"][i])
+              for i in (1, 2)]
+    for p, c, r, k in dcalls:
+        want = nb._ball_query_full(p, c, r * r, k, stratified=True)
+        broken = p.clone()
+        broken[0, int(axis[0]), [3, -3]] = broken[0, int(axis[0]), [-3, 3]]
+        _compare(f"ball_query_full deployed N={p.shape[2]}",
+                 nb.ball_query_full_scan(p, c, r, k, True, sorted_axis=axis),
+                 want, True)
+        _compare(f"ball_query_full deployed N={p.shape[2]} broken promise",
+                 nb.ball_query_full_scan(broken, c, r, k, True,
+                                         sorted_axis=axis),
+                 nb._ball_query_full(broken, c, r * r, k, stratified=True),
+                 True)
+    d_ms = [_graph_ms(lambda a=a: nb.ball_query_full_scan(
+        *a, True, sorted_axis=axis)) for a in dcalls]
+    u_ms = [_graph_ms(lambda a=a: nb.ball_query_full_scan(*a, True))
+            for a in dcalls]
+    tested = sum(_scene_slab_keys(p, c, axis, r * r) for p, c, r, _ in dcalls)
+    pairs = sum(float(p.shape[2] * c.shape[2]) for p, c, _, _ in dcalls)
+    d_bound, d_by = _bound_ms(9.0 * tested, sum(
+        12 * (p.shape[2] + c.shape[2]) + 4 * c.shape[2] * (k + 1)
+        for p, c, _, k in dcalls))
+    print(f"kernel ball_query_full deployed SA2 + SA3 per scene: "
+          f"{sum(d_ms):.4f} ms (SA2 {d_ms[0]:.4f}, SA3 {d_ms[1]:.4f}); "
+          f"without the sort promise {sum(u_ms):.4f} ms (SA2 {u_ms[0]:.4f}, "
+          f"SA3 {u_ms[1]:.4f}); distance tests needed {int(tested)} of "
+          f"{int(pairs)}; bound {d_bound:.5f} ms ({d_by})", flush=True)
+
+    p, c, r, k, fa = (fallback["pts"], fallback["cents"], fallback["radius"],
+                      fallback["k"], fallback["axis"])
+    _compare("ball_query_full SA1 fallback b=2",
+             nb.ball_query_full_scan(p, c, r, k, True, sorted_axis=fa),
+             nb._ball_query_full(p, c, r * r, k, stratified=True), True)
+    f_ms = _graph_ms(lambda: nb.ball_query_full_scan(p, c, r, k, True,
+                                                     sorted_axis=fa))
+    fu_ms = _graph_ms(lambda: nb.ball_query_full_scan(p, c, r, k, True))
+    f_tested = _scene_slab_keys(p, c, fa, r * r)
+    f_bound, f_by = _bound_ms(9.0 * f_tested, p.shape[0] * (
+        12 * (p.shape[2] + c.shape[2]) + 4 * c.shape[2] * (k + 1)))
+    print(f"kernel ball_query_full SA1 fallback at b=2 (tabletop + "
+          f"clutter, K3 windows overflow={fallback['overflow']}): "
+          f"{f_ms:.4f} ms with the sort promise, {fu_ms:.4f} ms "
+          f"without; distance tests needed {int(f_tested)} of "
+          f"{p.shape[0] * p.shape[2] * c.shape[2]}; bound {f_bound:.5f} ms "
+          f"({f_by})", flush=True)
+    extras["ball_query_full"] = {
+        "deployed_sa2_sa3_ms": sum(d_ms), "deployed_no_promise_ms": sum(u_ms),
+        "deployed_sa2_ms": d_ms[0], "deployed_sa3_ms": d_ms[1],
+        "deployed_bound_ms": d_bound, "deployed_tests_needed": tested,
+        "deployed_pairs": pairs, "sa1_fallback_b2_ms": f_ms,
+        "sa1_fallback_b2_no_promise_ms": fu_ms,
+        "sa1_fallback_b2_bound_ms": f_bound}
 
     st, radii, ks = inp["stages"], inp["radius"], inp["k"]
     err = 0.0
@@ -867,6 +1011,101 @@ def _k2f_phase(inp, torch):
     return ("ball_query_full", "s4g_tpu_torch/csrc/ball_query_full.cu",
             "s4g_tpu/ops/pallas/neighbor_kernels.py:343", err, ms, plain,
             *_bound_ms(ops, nbytes))
+
+
+def _fault_phase(binp, torch, np, extras):
+    """The inputs past each kernel's old range, on the card against the
+    twins: the fused SA1 stage at widths 256/256/512 (K2 + K7, on
+    detect_batch's b = 2 tabletop inputs; zero rows exact, the rest within
+    1e-2 of the output's max), a 6-layer pooled K7 chain (two launches;
+    bf16 within 1e-2, f32 within 1e-5), K2f at 50,000 and 100,000 keys
+    with and without the sort promise and K6 at 40,000 points per chain
+    (both bit for bit).  Prints each case's max |kernel - twin| against its
+    tolerance; raises if one fails."""
+    from s4g_tpu_torch.ops import mlp_chain as mc
+    from s4g_tpu_torch.ops import neighbors as nb
+    from s4g_tpu_torch.ops import sa_fused as sf
+    from s4g_tpu_torch.ops import sampling as sp
+
+    rng = np.random.RandomState(11)
+    dev = binp["pts"].device
+    cases, failed = {}, []
+
+    def record(kernel, name, err, tol, **more):
+        ok = err <= tol
+        cases.setdefault(kernel, {})[name] = {
+            "max_abs_err": err, "tolerance": tol, "pass": ok, **more}
+        print(f"fault case {kernel} {name}: max|kernel-twin|={err:.3g}, "
+              f"tolerance {tol:.3g}: {'pass' if ok else 'FAIL'}"
+              + "".join(f", {k} {v}" for k, v in more.items()), flush=True)
+        if not ok:
+            failed.append(f"{kernel} {name}")
+
+    def rand(*shape, scale=0.1):
+        return torch.from_numpy((rng.randn(*shape) * scale)
+                                .astype(np.float32)).to(dev)
+
+    # K3 outside its range: 256/256/512 at K = 64.
+    pts, cents, lo, r, k = (binp["pts"], binp["cents"], binp["lo_tile"],
+                            binp["radius"], binp["k"])
+    w = (rand(3, 256, scale=0.5), rand(256), (rand(256, 256), rand(256, 512)),
+         (rand(256), rand(512)))
+    with torch.no_grad():
+        got = sf.sa1_fused_slab(pts, cents, lo, r, k, *w)
+        torch.cuda.synchronize()
+        want = sf._sa1_fused_plain(pts, cents, lo, r, k, *w)
+        cnt = nb._ball_query_slab_plain(pts, cents, lo, r * r, k, True)[1]
+        ms = _graph_ms(lambda: sf.sa1_fused_slab(pts, cents, lo, r, k, *w))
+    empty = cnt == 0
+    if torch.any(got[empty] != 0):
+        failed.append("sa1_fused wide: non-zero empty rows")
+    scale = float(want.abs().max())
+    record("sa1_fused", "wide_256_256_512", float((got - want).abs().max()),
+           1e-2 * scale, ms=round(ms, 5), empty_rows=int(empty.sum()))
+
+    # K7: a 6-layer pooled chain, split 4 + 2.
+    widths = (3, 64, 64, 128, 128, 256, 256)
+    x = rand(4096 * 64, 3, scale=0.05)
+    params = [(rand(a, b, scale=1 / np.sqrt(a)), rand(b))
+              for a, b in zip(widths, widths[1:])]
+    relu = (True,) * 6
+    for cd, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+        with torch.no_grad():
+            got = mc.mlp_chain(x, params, relu, 64, cd)
+            torch.cuda.synchronize()
+            want = mc._mlp_chain_plain(x, params, relu, 64, cd)
+        record("mlp_chain", f"six_layers_{str(cd)[6:]}",
+               float((got - want).abs().max()),
+               tol * float(want.abs().max()),
+               pieces=mc.chain_pieces(widths, 64, cd))
+
+    # K2f past 41,568 keys, sorted (the promise kept and broken) and not.
+    for n, m, rad, kk in ((50000, 1024, 0.05, 64), (100000, 512, 0.3, 64)):
+        p = torch.from_numpy((rng.rand(1, 3, n) * [[[1.1], [0.9], [0.3]]])
+                             .astype(np.float32)).to(dev)
+        p = p[:, :, torch.argsort(p[0, 0])].contiguous()
+        c = p[:, :, torch.from_numpy(np.sort(rng.choice(n, m, False))
+                                     ).to(dev)].contiguous()
+        axis = torch.zeros(1, dtype=torch.long, device=dev)
+        want = nb._ball_query_full(p, c, rad * rad, kk, stratified=True)
+        err = 0.0
+        for promise in (None, axis):
+            err = max(err, _compare(f"ball_query_full N={n}",
+                                    nb.ball_query_full_scan(
+                                        p, c, rad, kk, True,
+                                        sorted_axis=promise), want, True))
+        record("ball_query_full", f"n{n}", err, 0.0)
+
+    # K6 past 32,768 points per chain.
+    p = torch.from_numpy(rng.rand(1, 3, 40000).astype(np.float32)).to(dev)
+    err = _compare("fps_exact N=40000", [sp.fps_exact(p, 256)],
+                   [sp._fps_plain(p, 256)], True)
+    record("fps_exact", "n40000", err, 0.0)
+
+    for kernel, named in cases.items():
+        extras.setdefault(kernel, {})["fault_cases"] = named
+    if failed:
+        raise AssertionError(f"fault cases failed: {failed}")
 
 
 def _chain_inputs(det, torch, np):
@@ -1427,19 +1666,21 @@ def main() -> int:
         print(f"path inputs: N={inp['stages'][0].shape[2]}, SA1 overflow="
               f"{inp['overflow']}, poses={inp['g2l'].shape[0]}, cloud rows="
               f"{inp['cloud_valid'].shape[0]}", flush=True)
-        rep = _kernel_phase(inp, torch)
-        rep.append(_k3_phase(_batch_sa1_inputs(det, torch, np), torch))
+        rep = _kernel_phase(inp, torch, extras)
+        cinp = _batch_sa1_inputs(det, torch, np)
+        rep.append(_k3_phase(cinp, torch))
         # K3 again on two tabletops, whose windows fit: what detect_batch
         # hands K3 (a batch whose windows overflow takes the full scan).
-        pair = _k3_phase(_batch_sa1_inputs(det, torch, np, clutter=False),
-                         torch)
+        binp = _batch_sa1_inputs(det, torch, np, clutter=False)
+        pair = _k3_phase(binp, torch)
         extras["sa1_fused"] = {"tabletop_pair_ms": pair[4],
                                "tabletop_pair_max_abs_err": pair[3]}
         pinp = _parity_inputs(pdet, torch, np)
         rep.append(_k6_phase(pinp, torch))
-        rep.append(_k2f_phase(pinp, torch))
-        k7, extras["mlp_chain"] = _k7_phase(_chain_inputs(det, torch, np),
-                                            torch)
+        rep.append(_k2f_phase(pinp, torch, inp, cinp, extras))
+        _fault_phase(binp, torch, np, extras)
+        k7, k7_extras = _k7_phase(_chain_inputs(det, torch, np), torch)
+        extras.setdefault("mlp_chain", {}).update(k7_extras)
         rep.append(k7)
         for name, _, _, err, ms, plain, bound, by in rep:
             print(f"kernel {name}: max|kernel-plain|={err:.3g} kernel "

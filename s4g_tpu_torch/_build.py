@@ -40,11 +40,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # pts (B,3,N), b, n, m, out (B,M)
     "s4g_fps_lane": (_P, _I, _I, _I, _P, _P),
-    # pts (B,3,N), b, n, shards, m_g, out (B, shards*m_g)
-    "s4g_fps_exact": (_P, _I, _I, _I, _I, _P, _P),
-    # pts (B,3,N), cents (B,3,M), b, n, m, r2, k, stratified, idx (B,M,K),
-    # cnt (B,M)
-    "s4g_ball_query_full": (_P, _P, _I, _I, _I, _F, _I, _I, _P, _P, _P),
+    # pts (B,3,N), b, n, shards, m_g, spill (f32 scratch past 32,768 points
+    # per chain, or NULL), out (B, shards*m_g)
+    "s4g_fps_exact": (_P, _I, _I, _I, _I, _P, _P, _P),
+    # pts (B,3,N), cents (B,3,M), axes ((B,) int32 promised sort axes, or
+    # NULL), b, n, m, r2, k, stratified, idx (B,M,K), cnt (B,M)
+    "s4g_ball_query_full": (_P, _P, _P, _I, _I, _I, _F, _I, _I, _P, _P, _P),
     # pts (B,3,N), cents (B,3,M), lo_tile (B,T), b, n, m, ntile, r2, k,
     # stratified, idx (B,M,K), cnt (B,M)
     "s4g_ball_query_slab": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P,
@@ -52,9 +53,10 @@ _SIGNATURES = {
     # query (B,3,N1), key (B,3,N2), b, n1, n2, chunk, partial idx and dist
     # (B,nsplit,3,N1) or NULL, idx (B,N1,3), dist (B,N1,3)
     "s4g_three_nn": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
-    # mats (G,16), cloud_valid (N,4), g, n, 6 box bounds, back (G,), fing (G,)
+    # mats (G,16), cloud_valid (N,4), g, n, 6 box bounds, acc (2G+1,) int32
+    # zeroed, back (G,), fing (G,)
     "s4g_collision_counts": (_P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _P, _P,
-                             _P),
+                             _P, _P),
     # pts (B,3,N), cents (B,3,M), lo_tile (B,T), wpack (bf16 W2 and W3 in
     # the kernel's shared-memory layout), fpack (f32 W1, b1, b2, b3), b, n,
     # m, ntile, r2, k, c3, stratified, out (B,M,C3)

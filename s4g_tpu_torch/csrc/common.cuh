@@ -36,3 +36,18 @@ __host__ inline cudaError_t s4g_allow_smem(Kernel kernel, size_t bytes,
   if (err == cudaSuccess) *granted = bytes;
   return err;
 }
+
+// Streaming multiprocessors of the current device, read once per process.
+__host__ inline cudaError_t s4g_sm_count(int* sms) {
+  static int cached = 0;
+  if (cached == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&cached, cudaDevAttrMultiProcessorCount,
+                                   dev);
+    if (err != cudaSuccess) return err;
+  }
+  *sms = cached;
+  return cudaSuccess;
+}

@@ -21,7 +21,11 @@
 //
 // Design: one block per chain.  Each thread owns points tid, tid + T,
 // tid + 2T, ... and keeps their min-distances in registers (PPT of them,
-// a template parameter: up to 32 x 1,024 = 32,768 points per chain).
+// a template parameter: up to 32 x 1,024 = 32,768 points per chain).  A
+// longer chain keeps the min-distances of its points past 32,768 in a
+// scratch buffer the wrapper allocates (4 bytes a point, L2-resident),
+// each thread its own points, relaxed after the register ones so that a
+// thread still visits its points in ascending order.
 // The coordinates of the first `cached` points (as many as fit in 227 KB
 // of shared memory, 19,328 points) are staged in shared memory once; the
 // rest (6,272 of SA1's 25,600) are read through L2 every step.  Each step
@@ -40,6 +44,7 @@ namespace {
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kMaxPpt = 32;
+constexpr int kRegPoints = kMaxThreads * kMaxPpt;   // 32,768
 constexpr size_t kRedBytes = 2 * kMaxWarps * (sizeof(float) + sizeof(int));
 constexpr int kMaxCached =
     static_cast<int>((kS4gMaxSmem - kRedBytes) / (3 * sizeof(float)));
@@ -61,10 +66,11 @@ __device__ __forceinline__ void warp_argmax(float& v, int& j) {
   }
 }
 
-template <int PPT>
+template <int PPT, bool kSpill>
 __global__ void __launch_bounds__(kMaxThreads)
 fps_exact_kernel(const float* __restrict__ pts, int n, int ns, int shards,
-                 int m_g, int cached, int* __restrict__ out) {
+                 int m_g, int cached, float* __restrict__ spill,
+                 int* __restrict__ out) {
   extern __shared__ float smem[];
   float* red_v = smem;                                      // [2][kMaxWarps]
   int* red_j = reinterpret_cast<int*>(red_v + 2 * kMaxWarps);
@@ -92,6 +98,11 @@ fps_exact_kernel(const float* __restrict__ pts, int n, int ns, int shards,
   float md[PPT];
 #pragma unroll
   for (int i = 0; i < PPT; ++i) md[i] = INFINITY;
+  // Points past kRegPoints (kSpill only): their min-distances, each
+  // thread's own.
+  const int nspill = kSpill ? ns - kRegPoints : 0;
+  float* sp = kSpill ? spill + static_cast<size_t>(chain) * nspill : spill;
+  for (int j = tid; j < nspill; j += nthreads) sp[j] = INFINITY;
   __syncthreads();
 
   int* o = out + static_cast<size_t>(chain) * m_g;
@@ -132,6 +143,25 @@ fps_exact_kernel(const float* __restrict__ pts, int n, int ns, int shards,
         }
       }
     }
+    for (int s = tid; kSpill && s < nspill; s += nthreads) {  // past regs
+      const int j = kRegPoints + s;
+      float x, y, z;
+      if (j < cached) {
+        x = sx[j];
+        y = sy[j];
+        z = sz[j];
+      } else {
+        x = __ldg(px + j);
+        y = __ldg(py + j);
+        z = __ldg(pz + j);
+      }
+      const float v = fminf(sp[s], s4g_sqdist(x, y, z, cx, cy, cz));
+      sp[s] = v;
+      if (v > best) {
+        best = v;
+        best_j = j;
+      }
+    }
     warp_argmax(best, best_j);
     // Double-buffered by step parity: a buffer is rewritten two steps
     // later, after the next step's barrier, when every warp has read it.
@@ -149,43 +179,54 @@ fps_exact_kernel(const float* __restrict__ pts, int n, int ns, int shards,
   }
 }
 
-template <int PPT>
+template <int PPT, bool kSpill = false>
 cudaError_t launch_chains(const float* pts, int chains, int n, int ns,
-                          int shards, int m_g, int* out,
+                          int shards, int m_g, float* spill, int* out,
                           cudaStream_t stream) {
   const int per = (ns + PPT - 1) / PPT;
-  const int threads = ((per + 31) / 32) * 32;
+  const int threads = kSpill ? kMaxThreads : ((per + 31) / 32) * 32;
   const int cached = ns < kMaxCached ? ns : kMaxCached;
   const size_t smem = kRedBytes + 3 * sizeof(float) * cached;
   static size_t granted = 0;
   const cudaError_t err =
-      s4g_allow_smem(fps_exact_kernel<PPT>, smem, &granted);
+      s4g_allow_smem(fps_exact_kernel<PPT, kSpill>, smem, &granted);
   if (err != cudaSuccess) return err;
-  fps_exact_kernel<PPT><<<chains, threads, smem, stream>>>(
-      pts, n, ns, shards, m_g, cached, out);
+  fps_exact_kernel<PPT, kSpill><<<chains, threads, smem, stream>>>(
+      pts, n, ns, shards, m_g, cached, spill, out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // pts (B, 3, N) f32; B * shards chains of N/shards points, m_g centroids
-// each; out (B, shards * m_g) int32.
+// each; spill (B * shards * (N/shards - 32,768)) f32 scratch for chains
+// longer than 32,768 points, else NULL; out (B, shards * m_g) int32.
 extern "C" int s4g_fps_exact(const float* pts, int b, int n, int shards,
-                             int m_g, int* out, cudaStream_t stream) {
+                             int m_g, float* spill, int* out,
+                             cudaStream_t stream) {
   const int ns = n / shards;
   const int chains = b * shards;
-  if (ns < 1 || m_g < 1 || ns > kMaxThreads * kMaxPpt)
+  if (ns < 1 || m_g < 1 || (ns > kRegPoints) != (spill != nullptr))
     return cudaErrorInvalidValue;
   // The fewest points per thread that keep the block within 1,024 threads.
   if (ns <= kMaxThreads * 1)
-    return launch_chains<1>(pts, chains, n, ns, shards, m_g, out, stream);
+    return launch_chains<1>(pts, chains, n, ns, shards, m_g, spill, out,
+                            stream);
   if (ns <= kMaxThreads * 2)
-    return launch_chains<2>(pts, chains, n, ns, shards, m_g, out, stream);
+    return launch_chains<2>(pts, chains, n, ns, shards, m_g, spill, out,
+                            stream);
   if (ns <= kMaxThreads * 4)
-    return launch_chains<4>(pts, chains, n, ns, shards, m_g, out, stream);
+    return launch_chains<4>(pts, chains, n, ns, shards, m_g, spill, out,
+                            stream);
   if (ns <= kMaxThreads * 8)
-    return launch_chains<8>(pts, chains, n, ns, shards, m_g, out, stream);
+    return launch_chains<8>(pts, chains, n, ns, shards, m_g, spill, out,
+                            stream);
   if (ns <= kMaxThreads * 16)
-    return launch_chains<16>(pts, chains, n, ns, shards, m_g, out, stream);
-  return launch_chains<32>(pts, chains, n, ns, shards, m_g, out, stream);
+    return launch_chains<16>(pts, chains, n, ns, shards, m_g, spill, out,
+                             stream);
+  if (ns <= kRegPoints)
+    return launch_chains<32>(pts, chains, n, ns, shards, m_g, spill, out,
+                             stream);
+  return launch_chains<32, true>(pts, chains, n, ns, shards, m_g, spill, out,
+                                 stream);
 }

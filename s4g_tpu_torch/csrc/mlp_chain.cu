@@ -20,8 +20,9 @@
 // (~0.21 ms at 989 TFLOP/s) against ~150 MB of chain inputs and outputs
 // (~0.05 ms at 3.35 TB/s); the unfused route also writes and re-reads every
 // hidden activation in f32.
-// Design: a block owns a tile of TM rows (32 in bf16, 16 in f32) and runs
-// the whole chain on it; the tile's activations ping-pong between two
+// Design: a block owns a tile of TM rows (32 in bf16, or 16 where a 32-row
+// tile does not fit shared memory; 16 in f32) and runs the whole chain on
+// it; the tile's activations ping-pong between two
 // shared-memory buffers in T and never reach device memory.  A pooled block
 // owns whole groups (max(TM, pool_k) rows, walked TM rows at a time) and
 // folds each sub-tile's last layer into a running max in shared memory, so
@@ -242,11 +243,11 @@ mlp_chain_kernel(const T* __restrict__ x, Chain ch, float* __restrict__ out) {
   }
 }
 
-template <typename T, int kMT>
-cudaError_t launch(const void* x, Chain ch, float* out, cudaStream_t stream) {
-  constexpr int kTileRows = 16 * kMT;
-  ch.rows_per_block =
-      ch.pool_k > kTileRows ? ch.pool_k : kTileRows;
+// Shared memory of a TM-row tile of chain `ch` (sets its row and buffer
+// geometry).
+template <typename T>
+size_t tile_smem(Chain& ch, int tile_rows) {
+  ch.rows_per_block = ch.pool_k > tile_rows ? ch.pool_k : tile_rows;
   // Buffer 0 holds the inputs of the even layers, buffer 1 of the odd ones.
   int width[2] = {0, 0};
   for (int l = 0; l < ch.layers; ++l)
@@ -254,9 +255,13 @@ cudaError_t launch(const void* x, Chain ch, float* out, cudaStream_t stream) {
   for (int i = 0; i < 2; ++i)
     ch.stride[i] = width[i] ? width[i] + kPadElems : 0;
   const int groups = ch.pool_k ? ch.rows_per_block / ch.pool_k : 0;
-  const size_t smem =
-      sizeof(T) * kTileRows * (ch.stride[0] + ch.stride[1]) +
-      sizeof(float) * groups * ch.npad[ch.layers - 1];
+  return sizeof(T) * tile_rows * (ch.stride[0] + ch.stride[1]) +
+         sizeof(float) * groups * ch.npad[ch.layers - 1];
+}
+
+template <typename T, int kMT>
+cudaError_t launch(const void* x, Chain ch, float* out, cudaStream_t stream) {
+  const size_t smem = tile_smem<T>(ch, 16 * kMT);
   if (smem > kS4gMaxSmem) return cudaErrorInvalidValue;
   static size_t granted = 0;
   const cudaError_t err =
@@ -278,7 +283,8 @@ cudaError_t launch(const void* x, Chain ch, float* out, cudaStream_t stream) {
 // layer i; pool_k 0 or a power of two dividing P; bf16 1 or 0 (f32).
 // out (P or P / pool_k, c_out) f32.  Refuses (cudaErrorInvalidValue)
 // shapes it does not hold, among them tiles whose buffers exceed a block's
-// shared memory.
+// shared memory even at 16 rows (`ops/mlp_chain.py` splits longer and wider
+// chains into sub-chains that fit).
 extern "C" int s4g_mlp_chain(const void* x, const void* w0, const float* b0,
                              const void* w1, const float* b1, const void* w2,
                              const float* b2, const void* w3, const float* b3,
@@ -310,7 +316,11 @@ extern "C" int s4g_mlp_chain(const void* x, const void* w0, const float* b0,
   ch.c_out = c_out;
   ch.p = p;
   ch.pool_k = pool_k;
-  if (bf16 == 1) return launch<__nv_bfloat16, 2>(x, ch, out, stream);
+  if (bf16 == 1) {   // 32-row tiles, or 16 where 32 rows do not fit
+    if (tile_smem<__nv_bfloat16>(ch, 32) <= kS4gMaxSmem)
+      return launch<__nv_bfloat16, 2>(x, ch, out, stream);
+    return launch<__nv_bfloat16, 1>(x, ch, out, stream);
+  }
   if (bf16 == 0) return launch<float, 1>(x, ch, out, stream);
   return cudaErrorInvalidValue;
 }

@@ -207,30 +207,6 @@ __device__ __forceinline__ void rowmax_scatter(const float (&v)[16], int g,
   }
 }
 
-// Half-width of a ball's slab along an ascending coordinate: a key farther
-// than this from the centroid (after f32 rounding of the bound) has
-// |dx| > 1.04 sqrt(r2), so its squared distance rounds to more than r2.
-__device__ __forceinline__ float margin(float r2, float c) {
-  return 1.05f * sqrtf(r2) + 1e-5f * fabsf(c);
-}
-
-// One warp: the first window index whose key is >= v (> v with `after`);
-// the window's keys ascend along this coordinate, so "before" holds for a
-// prefix.  Three ballots (buckets of 256, 8, 1 keys), not 13 dependent
-// loads.
-__device__ __forceinline__ int bound(const float* ka, float v, bool after,
-                                     int lane) {
-  auto before = [&](float x) { return after ? x <= v : x < v; };
-  static_assert(kWindow == 32 * 256, "three ballots cover the window");
-  int at = 256 * __popc(__ballot_sync(S4G_FULL_MASK,
-                                      before(ka[lane * 256 + 255])));
-  if (at == kWindow) return at;
-  at += 8 * __popc(__ballot_sync(S4G_FULL_MASK,
-                                 before(ka[at + lane * 8 + 7])));
-  return at + __popc(__ballot_sync(S4G_FULL_MASK,
-                                   lane < 8 && before(ka[at + (lane & 7)])));
-}
-
 // The selection warpgroup stages the key window [base, base + kWindow) of
 // scene P with 4-byte cp.async copies, all in flight at once; keys past N
 // are padding (1e9, never in range).
@@ -332,8 +308,9 @@ __device__ __forceinline__ void select_groups(
       int w_lo = 0, nw = kWords;
       if (axis >= 0) {
         const float ca = axis == 0 ? cx : axis == 1 ? cy : cz;
-        const int lo = bound(ka, ca - margin(r2, ca), false, lane);
-        const int hi = bound(ka, ca + margin(r2, ca), true, lane);
+        const float mg = s4g_slab::margin(r2, ca);
+        const int lo = s4g_slab::bound(ka, kWindow, ca - mg, false, lane);
+        const int hi = s4g_slab::bound(ka, kWindow, ca + mg, true, lane);
         w_lo = lo / 32;
         nw = (hi + 31) / 32 - w_lo;
       }
@@ -631,14 +608,9 @@ extern "C" int s4g_sa1_fused(const float* pts, const float* cents,
   static size_t granted = 0;
   cudaError_t err = s4g_allow_smem(sa1_fused_kernel, smem, &granted);
   if (err != cudaSuccess) return err;
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-  }
+  int sms = 0;
+  err = s4g_sm_count(&sms);
+  if (err != cudaSuccess) return err;
   const int gps = (m + kGroup - 1) / kGroup;
   const int ngroups = b * gps;
   const int grid = ngroups < sms ? ngroups : sms;

@@ -1,13 +1,16 @@
 // Neighbour selection shared by K2 (ball_query_slab.cu), K3 (sa1_fused.cu)
 // and K2f (ball_query_full.cu), so that all three select the same keys bit
-// for bit.
+// for bit, and the slab bounds K3 and K2f scan on keys that ascend.
 //
 // A key is in range when its f32 difference-form squared distance is < r2
 // (strict); each 32-key chunk becomes one ballot word.  Slot s takes the
 // in-range key of scan rank s+1, or, with `stratified` and an overfull ball
 // (total > K), of rank floor(s*total/K)+1.  The slab kernels scan the
 // 8,192-key window that starts at key lo_tile * 2048 (keys past N are
-// padding, 1e9, never in range); K2f scans all N keys.
+// padding, 1e9, never in range); K2f scans all N keys.  Where the keys
+// ascend along a coordinate, K3 and K2f scan only the words that hold keys
+// within `margin` of the centroid along it (`bound`): every other key is
+// out of range, so ranks, totals and slots are the full scan's.
 #pragma once
 
 #include "common.cuh"
@@ -94,6 +97,33 @@ __device__ __forceinline__ int scan_window(const float* kx, const float* ky,
                                            int lane) {
   return scan_words(kx, ky, kz, cx, cy, cz, r2, words, prefix, 0, kWords,
                     lane);
+}
+
+// Half-width of a ball's slab along an ascending coordinate: a key farther
+// than this from the centroid (after f32 rounding of the bound) has
+// |dx| > 1.04 sqrt(r2), so its squared distance rounds to more than r2.
+__device__ __forceinline__ float margin(float r2, float c) {
+  return 1.05f * sqrtf(r2) + 1e-5f * fabsf(c);
+}
+
+// One warp: the first index of ka[0, n) whose key is >= v (> v with
+// `after`).  The keys ascend, so "before" holds for a prefix.  Each round
+// probes 32 evenly spaced keys with one ballot and keeps the bucket where
+// "before" ends (8,192 keys: buckets of 256, 8, 1), not log2(n) dependent
+// loads.  A NaN bound is before no key.
+__device__ __forceinline__ int bound(const float* __restrict__ ka, int n,
+                                    float v, bool after, int lane) {
+  auto before = [&](float x) { return after ? x <= v : x < v; };
+  int lo = 0, len = n;  // the answer lies in [lo, lo + len]
+  while (len > 0) {
+    const int step = (len + 31) / 32;
+    const int probe = lo + (lane + 1) * step - 1;
+    const bool t = probe < lo + len && before(ka[probe]);
+    const int hi = lo + len;
+    lo += step * __popc(__ballot_sync(S4G_FULL_MASK, t));
+    len = min(hi, lo + step - 1) - lo;
+  }
+  return lo;
 }
 
 // The scan rank (1-based) that slot `slot` takes.

@@ -163,28 +163,34 @@ class SharedMLP(nn.ModuleList):
 
     def sa1_fused_eval(self, points: torch.Tensor, centroids: torch.Tensor,
                        pkeys: torch.Tensor, ckeys: torch.Tensor,
-                       radius: float, k: int,
-                       stratified: bool = True) -> torch.Tensor:
+                       radius: float, k: int, stratified: bool = True,
+                       sorted_axis: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
         """A whole xyz-only SA stage as one kernel (port of
         `_sa1_fused_eval`): slab ball query, grouping, this 3-layer chain
         and the max over the K neighbours (K3).
 
         The window overflow flag is read on the host once for the whole
         batch, as JAX's `lax.cond` decides once: on overflow the stage takes
-        a full-scan ball query and runs the chain with the same folded
+        a full-scan ball query (K2f, handed `sorted_axis` so that it scans
+        only each ball's slab) and runs the chain with the same folded
         weights and bf16 rounding (counted in `sa_fused.SA1_FALLBACKS`).
 
         Args: points (B, 3, N) sorted along each scene's axis; centroids
             (B, 3, M) sorted the same way; pkeys / ckeys (B, N) / (B, M)
-            their keys along that axis.
+            their keys along that axis; sorted_axis optional (B,) tensor,
+            that axis.
         Returns: (B, M, C3) pooled features in the compute dtype."""
         (w1, b1), (w2, b2), (w3, b3) = self.folded_params()
         lo_tile, overflow = sa_fused.sa1_slab_setup(pkeys, ckeys, radius,
                                                     points.shape[2])
         if bool(overflow):
             sa_fused.SA1_FALLBACKS["overflow"] += 1
-            _, cnt, rel = ball_query_grouped(points, centroids, radius, k,
-                                             stratified=stratified)
+            # The full scan, as JAX's fallback (slab_capacity = N keeps it
+            # off the slab route); the promise only narrows K2f's scan.
+            _, cnt, rel = ball_query_grouped(
+                points, centroids, radius, k, sorted_axis=sorted_axis,
+                slab_capacity=points.shape[2], stratified=stratified)
             h = rel.to(torch.bfloat16)
             for w, b in ((w1, b1), (w2, b2), (w3, b3)):
                 # bf16 x bf16 products are exact in f32: an f32 matmul of

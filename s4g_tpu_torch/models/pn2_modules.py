@@ -110,7 +110,7 @@ class PointNetSAModule(nn.Module):
             new_feature = self.mlp.sa1_fused_eval(
                 pts_cf, cent_cf, _axis_keys(pts_cf, sorted_axis),
                 _axis_keys(cent_cf, sorted_axis), self.radius,
-                self.num_neighbours)
+                self.num_neighbours, sorted_axis=sorted_axis)
             return new_xyz, new_feature
         else:
             # xyz-only stage, unfused (batch 1, or a stage K3 does not take).

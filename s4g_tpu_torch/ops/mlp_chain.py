@@ -15,7 +15,12 @@ memory.  The numbers are the TPU kernel's (`mlp_chain_pallas`):
 
 Compute dtypes: bfloat16 and float32 (f32 products in full f32, no TF32).
 `mlp_chain` launches the CUDA kernel `csrc/mlp_chain.cu` (K7) on CUDA
-tensors; CPU tensors take its plain twin `_mlp_chain_plain`.
+tensors; CPU tensors take its plain twin `_mlp_chain_plain`.  The kernel
+holds up to 4 layers whose row tile fits a block's shared memory; a longer
+or wider chain runs as consecutive sub-chains that do (`chain_pieces`), one
+launch each, only the last one pooling.  The split changes no number: a
+sub-chain's output is f32 after its bias and ReLU, and the next one casts
+it to the compute dtype, the rounding the kernel gives a hidden layer.
 """
 
 from __future__ import annotations
@@ -27,10 +32,18 @@ import torch
 from .. import _build
 
 # What the CUDA kernel takes: up to 4 layers, widths padded to multiples of
-# 16 (mma tiles); its C launcher refuses tiles that do not fit a block's
-# shared memory.
+# 16 (mma tiles), and a tile whose activation buffers (rows x the widest
+# even and odd layer inputs, + 8 elements of row padding each) and pooled
+# maxima fit a block's shared memory.  Its tiles: 32 rows in bf16, 16 where
+# 32 do not fit; 16 in f32.  The C launcher refuses the rest.  `_tile_smem`
+# copies the launcher's sum; a GPU test
+# (`test_mlp_chain_planner_agrees_with_the_launcher`) holds the two equal
+# at the widest chains they take.
 _MAX_LAYERS = 4
 _PAD = 16
+_ROW_PAD = 8
+_MAX_SMEM = 232448
+_TILE_ROWS = {torch.bfloat16: (32, 16), torch.float32: (16,)}
 _DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -55,6 +68,50 @@ def _mlp_chain_plain(x: torch.Tensor, params: Sequence, relu: Sequence[bool],
 
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
+
+
+def _tile_smem(kpads: Sequence[int], npad_last: int, pool_k: Optional[int],
+               elem: int, tile: int) -> int:
+    """Shared memory of the kernel's `tile`-row tile of a chain whose
+    layers take padded input widths `kpads` (the C launcher's tile_smem)."""
+    width = [0, 0]
+    for i, kp in enumerate(kpads):
+        width[i % 2] = max(width[i % 2], kp)
+    rows = max(pool_k or 0, tile)
+    groups = rows // pool_k if pool_k else 0
+    return (elem * tile * sum(w + _ROW_PAD for w in width if w)
+            + 4 * groups * npad_last)
+
+
+def _fits(kpads, npad_last, pool_k, compute_dtype) -> bool:
+    elem = torch.tensor([], dtype=compute_dtype).element_size()
+    return any(_tile_smem(kpads, npad_last, pool_k, elem, tile) <= _MAX_SMEM
+               for tile in _TILE_ROWS[compute_dtype])
+
+
+def chain_pieces(widths: Sequence[int], pool_k: Optional[int],
+                 compute_dtype: torch.dtype) -> list:
+    """Consecutive sub-chains [a, b) of a chain with layer widths `widths`
+    (input first) that the kernel holds: each of at most 4 layers and with
+    a tile that fits, taken greedily from the first layer; only the last
+    one pools.  Raises ValueError for a layer that fits no tile alone."""
+    kpads = [_round_up(w, _PAD) for w in widths]
+    layers = len(widths) - 1
+    pieces, a = [], 0
+    while a < layers:
+        b = a
+        while b < layers and b - a < _MAX_LAYERS and _fits(
+                kpads[a:b + 1], kpads[b + 1],
+                pool_k if b + 1 == layers else None, compute_dtype):
+            b += 1
+        if b == a:
+            raise ValueError(
+                f"layer {a} ({widths[a]} -> {widths[a + 1]}) does not fit "
+                f"the K7 kernel's shared memory at any row tile in "
+                f"{compute_dtype}")
+        pieces.append((a, b))
+        a = b
+    return pieces
 
 
 def _pack(params: Sequence, c_in: int, compute_dtype: torch.dtype):
@@ -112,12 +169,27 @@ def mlp_chain(x: torch.Tensor, params: Sequence, relu: Sequence[bool],
     tensors = [x] + [t for wb in params for t in wb]
     if not _build.on_cuda(*tensors):
         return _mlp_chain_plain(x, params, relu, pool_k, compute_dtype)
-    if len(params) > _MAX_LAYERS:
-        raise ValueError(f"the K7 kernel holds up to {_MAX_LAYERS} layers, "
-                         f"got {len(params)}")
-    packed, kpad0 = _pack(params, c_in, compute_dtype)
+    pieces = chain_pieces(widths, pool_k, compute_dtype)
+    return run_pieces(x, params, relu, pool_k, compute_dtype, pieces,
+                      _launch_piece)
+
+
+def _launch_piece(x, params, relu, pool_k, compute_dtype):
+    packed, kpad0 = _pack(params, x.shape[1], compute_dtype)
     return _launch(x.to(compute_dtype).contiguous(), packed, kpad0,
-                   widths[-1], relu, pool_k)
+                   params[-1][0].shape[1], relu, pool_k)
+
+
+def run_pieces(x, params, relu, pool_k, compute_dtype, pieces, run):
+    """The chain as its sub-chains `pieces`, each through `run(x, params,
+    relu, pool_k, compute_dtype)` (the kernel on the card, the twin in the
+    CPU tests); only the last one pools."""
+    h = x
+    for a, b in pieces:
+        last = b == len(params)
+        h = run(h, params[a:b], relu[a:b], pool_k if last else None,
+                compute_dtype)
+    return h
 
 
 def _launch(xc: torch.Tensor, packed: list, kpad0: int, c_out: int,

@@ -18,8 +18,10 @@ Routes, as in the JAX package's "auto" (`neighbors.py:482-496, 684-693`):
   fallback when a tile's key window overflows (part of the semantics);
 * every other ball query, and that fallback, is the full scan — the CUDA
   kernel `csrc/ball_query_full.cu` (K2f) on CUDA tensors, its plain twin
-  `_ball_query_full` on CPU tensors.  The slab and full-scan selections
-  are the same keys bit for bit, so the route never changes a result;
+  `_ball_query_full` on CPU tensors.  Handed the sort promise, K2f checks
+  it on the card and scans only each ball's slab where it holds.  The
+  slab and full-scan selections are the same keys bit for bit, so the
+  route never changes a result;
 * 3-NN with N1 * N2 >= 2^22 selects with the CUDA kernel
   `csrc/three_nn.cu` (K4) (plain twin on CPU); smaller stages select with
   matmul-form distances, the twin of `_three_nn_select_xla`.
@@ -156,29 +158,38 @@ def _ball_query_full(points, centroids, radius2: float, k: int,
 
 def ball_query_full_scan(points: torch.Tensor, centroids: torch.Tensor,
                          radius: float, num_neighbours: int,
-                         stratified: bool = False):
+                         stratified: bool = False,
+                         sorted_axis: Optional[torch.Tensor] = None):
     """Full-scan ball query (K2f): every centroid tests every point.
 
-    Args: points (B, 3, N) f32; centroids (B, 3, M) f32.
+    Args: points (B, 3, N) f32; centroids (B, 3, M) f32; sorted_axis
+        optional (B,) integer tensor: the caller promises that each scene's
+        points ascend along that coordinate.
     Returns: index (B, M, K) int32, count (B, M) int32.  CUDA tensors
-    launch `csrc/ball_query_full.cu`, which keeps every ballot word of a
-    scan in shared memory and refuses (the launch raises) an N whose words
-    do not fit; CPU tensors take `_ball_query_full`."""
+    launch `csrc/ball_query_full.cu`, which checks the promise on the card
+    and, where it holds, tests only the keys of each ball's slab; CPU
+    tensors take `_ball_query_full`, promise or not.  The result is the
+    same either way."""
     b, _, n = points.shape
     m = centroids.shape[2]
     radius2 = radius * radius
     if n < 1 or m < 1 or num_neighbours < 1:
         raise ValueError(f"ball query needs N, M, K >= 1 (N={n}, M={m}, "
                          f"K={num_neighbours})")
-    if not _build.on_cuda(points, centroids):
+    operands = (points, centroids) + (() if sorted_axis is None
+                                      else (sorted_axis,))
+    if not _build.on_cuda(*operands):
         return _ball_query_full(points, centroids, radius2, num_neighbours,
                                 stratified=stratified)
     _build.check(points, "points", torch.float32, (b, 3, n))
     _build.check(centroids, "centroids", torch.float32, (b, 3, m))
+    axes = None
+    if sorted_axis is not None:
+        axes = sorted_axis.to(torch.int32).reshape(b).contiguous()
     idx = torch.empty((b, m, num_neighbours), dtype=torch.int32,
                       device=points.device)
     cnt = torch.empty((b, m), dtype=torch.int32, device=points.device)
-    _build.launch("ball_query_full", points, centroids, b, n, m,
+    _build.launch("ball_query_full", points, centroids, axes, b, n, m,
                   _f32(radius2), num_neighbours, int(stratified), idx, cnt)
     return idx, cnt
 
@@ -309,7 +320,7 @@ def _ball_query_sorted_pruned(points, centroids, radius: float,
         SLAB_FALLBACKS["overflow"] += 1
         idx_s, cnt_s = ball_query_full_scan(
             points.contiguous(), cent_s.contiguous(), radius, num_neighbours,
-            stratified)
+            stratified, sorted_axis)
     else:
         idx_s, cnt_s = ball_query_fused_slab(
             points.contiguous(), cent_s.contiguous(), lo_tile,
@@ -334,7 +345,8 @@ def ball_query(points: torch.Tensor, centroids: torch.Tensor, radius: float,
         sorted_axis: optional (B,) integer tensor; the caller guarantees the
             points are sorted ascending along that coordinate.  With
             N > slab_capacity the sorted-slab route runs (K2); every other
-            query is the full scan (K2f).
+            query is the full scan (K2f), which is handed the promise and
+            tests only each ball's slab where it holds.
         centroids_sorted: promise that the centroids are sorted the same way.
         stratified: overfull balls take rank-stratified in-range points.
 
@@ -346,7 +358,8 @@ def ball_query(points: torch.Tensor, centroids: torch.Tensor, radius: float,
                                          centroids_sorted=centroids_sorted,
                                          stratified=stratified)
     return ball_query_full_scan(points.contiguous(), centroids.contiguous(),
-                                radius, num_neighbours, stratified)
+                                radius, num_neighbours, stratified,
+                                sorted_axis)
 
 
 def ball_query_grouped(points: torch.Tensor, centroids: torch.Tensor,

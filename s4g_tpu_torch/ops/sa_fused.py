@@ -19,7 +19,11 @@ max over the K neighbours.  The JAX package runs SA1 this way at batch >= 2
 `sa1_fused_slab` launches the CUDA kernel `csrc/sa1_fused.cu` (K3) on CUDA
 tensors, with W2 and W3 packed once per call by `pack_sa1_weights` into the
 layout the kernel's shared memory takes; CPU tensors take its plain twin
-`_sa1_fused_plain`.
+`_sa1_fused_plain`.  K3 holds widths 128/128/C3 <= 256 and K <= 128; a
+stage outside that range computes the same function through two other
+hand-written kernels (`_sa1_wide`: K2's selection on the stage's own
+windows, then K7 over the three layers with the max over the slots), whose
+numbers differ from K3's only in the order of f32 sums.
 """
 
 from __future__ import annotations
@@ -29,9 +33,10 @@ import functools
 import torch
 
 from .. import _build
+from .mlp_chain import mlp_chain
 from .neighbors import (BQ_C_TILE, BQ_K_TILE, BQ_SLAB_TILES,
-                        _ball_query_slab_plain, _f32, flat_gather_rows,
-                        tile_windows)
+                        _ball_query_slab_plain, _f32, ball_query_fused_slab,
+                        flat_gather_rows, tile_windows)
 
 # Tile geometry of the TPU kernel; the same as the slab ball query's, so
 # the two scan the same key windows.
@@ -141,6 +146,35 @@ def _sa1_fused_plain(points, centroids, lo_tile, radius: float,
     return torch.where(cnt[..., None] > 0, torch.amax(h, dim=2), 0.0)
 
 
+def _sa1_wide(points, centroids, lo_tile, radius: float, num_neighbours: int,
+              w1, b1, w23, b23, stratified: bool = True) -> torch.Tensor:
+    """The fused stage outside K3's range: K2 (`ball_query_fused_slab`) on
+    the stage's own windows `lo_tile`, the slots padded to a power of two
+    by repeating slot 0 (as `_sa1_fused_plain`'s kpad), rel = key -
+    centroid in f32 rounded to bf16, then K7 (`mlp_chain`) over the three
+    layers in bf16 with ReLU and the max over each centroid's slots, and
+    zero rows where no key is in range.  K7 rounds hidden layers to bf16
+    and keeps the last in f32, at K3's rounding points; its bf16 x bf16
+    products are exact in f32, so only the order of the f32 sums differs
+    from K3 (layer 1 included).  On CPU tensors both kernels take their
+    twins."""
+    b = points.shape[0]
+    m = centroids.shape[2]
+    kpad = 1 << (num_neighbours - 1).bit_length()
+    idx, cnt = ball_query_fused_slab(points, centroids, lo_tile, radius,
+                                     num_neighbours, stratified)
+    if kpad > num_neighbours:
+        idx = torch.cat([idx, idx[..., :1].expand(b, m,
+                                                  kpad - num_neighbours)], -1)
+    keys = flat_gather_rows(points.transpose(1, 2), idx.reshape(b, m * kpad))
+    rel = (keys.reshape(b, m, kpad, 3)
+           - centroids.transpose(1, 2)[:, :, None, :]).to(torch.bfloat16)
+    (w2, w3), (b2, b3) = w23, b23
+    out = mlp_chain(rel.reshape(-1, 3), [(w1, b1), (w2, b2), (w3, b3)],
+                    (True, True, True), kpad, torch.bfloat16)
+    return torch.where(cnt[..., None] > 0, out.reshape(b, m, -1), 0.0)
+
+
 def sa1_fused_slab(points: torch.Tensor, centroids: torch.Tensor,
                    lo_tile: torch.Tensor, radius: float, num_neighbours: int,
                    w1: torch.Tensor, b1: torch.Tensor, w23: tuple,
@@ -155,7 +189,8 @@ def sa1_fused_slab(points: torch.Tensor, centroids: torch.Tensor,
     Args: points (B, 3, N) f32; centroids (B, 3, M) f32; lo_tile
         (B, ceil(M/512)) int32; w1 (3, C1), b1 (C1,), w23 ((C1, C2),
         (C2, C3)), b23 ((C2,), (C3,)): the folded f32 affines.
-    Returns: (B, M, C3) f32 max-pooled stage output."""
+    Returns: (B, M, C3) f32 max-pooled stage output.  Stages outside K3's
+    range take `_sa1_wide` on CUDA tensors."""
     b, _, n = points.shape
     m = centroids.shape[2]
     (w2, w3), (b2, b3) = w23, b23
@@ -168,11 +203,11 @@ def sa1_fused_slab(points: torch.Tensor, centroids: torch.Tensor,
     if not _build.on_cuda(*operands):
         return _sa1_fused_plain(points, centroids, lo_tile, radius,
                                 num_neighbours, w1, b1, w23, b23, stratified)
+    ntile = -(-m // SA_C_TILE)
     if (c1, c2) != (_KERNEL_C12, _KERNEL_C12) or c3 > _KERNEL_MAX_C3 \
             or num_neighbours > _KERNEL_MAX_K:
-        raise ValueError(f"the K3 kernel holds widths 128/128/C3 <= 256 and "
-                         f"K <= 128 (got {c1}/{c2}/{c3}, K={num_neighbours})")
-    ntile = -(-m // SA_C_TILE)
+        return _sa1_wide(points, centroids, lo_tile, radius, num_neighbours,
+                         w1, b1, w23, b23, stratified)
     for t, name, shape in ((points, "points", (b, 3, n)),
                            (centroids, "centroids", (b, 3, m)),
                            (w1, "w1", (3, c1)), (b1, "b1", (c1,)),

@@ -81,18 +81,28 @@ def fps_lane_sharded(points: torch.Tensor,
     return out
 
 
+# K6 keeps a chain's min-distances in registers up to this many points
+# (1,024 threads x 32), the rest in a scratch buffer.
+FPS_REG_POINTS = 1024 * 32
+
+
 def _fps_exact_launch(points: torch.Tensor, num_centroids: int,
                       num_shards: int) -> torch.Tensor:
     """Launch K6 on B * G chains: exact FPS over each contiguous N/G slice
-    for M/G centroids, shard-major global indices (B, M) int32.  The kernel
-    keeps a chain's min-distances in registers and refuses (the launch
-    raises) a chain longer than they hold."""
+    for M/G centroids, shard-major global indices (B, M) int32.  A chain
+    longer than FPS_REG_POINTS keeps the min-distances past them in an f32
+    scratch buffer allocated here."""
     b, _, n = points.shape
     _build.check(points, "points", torch.float32, (b, 3, n))
+    ns = n // num_shards
+    spill = None
+    if ns > FPS_REG_POINTS:
+        spill = torch.empty(b * num_shards * (ns - FPS_REG_POINTS),
+                            dtype=torch.float32, device=points.device)
     out = torch.empty((b, num_centroids), dtype=torch.int32,
                       device=points.device)
     _build.launch("fps_exact", points, b, n, num_shards,
-                  num_centroids // num_shards, out)
+                  num_centroids // num_shards, spill, out)
     return out
 
 

@@ -81,17 +81,26 @@ def collision_counts(global_to_local: torch.Tensor,
     Args: global_to_local (G, 4, 4) f32 world->gripper matrices;
         cloud_valid (N, 4) f32 rows (x, y, z, valid), valid 0 excludes.
     Returns: back_count, finger_count: (G,) f32.
-    CUDA tensors launch `csrc/collision_counts.cu`; CPU tensors take
+    CUDA tensors launch `csrc/collision_counts.cu` (its partial counts meet
+    in an int32 scratch, zeroed here); CPU tensors take
     `_collision_counts_plain`."""
     g, n = global_to_local.shape[0], cloud_valid.shape[0]
     if not _build.on_cuda(global_to_local, cloud_valid):
         return _collision_counts_plain(global_to_local, cloud_valid)
     _build.check(global_to_local, "global_to_local", torch.float32, (g, 4, 4))
     _build.check(cloud_valid, "cloud_valid", torch.float32, (n, 4))
-    back = torch.empty(g, dtype=torch.float32, device=cloud_valid.device)
-    fing = torch.empty(g, dtype=torch.float32, device=cloud_valid.device)
+    for t, name in ((global_to_local, "global_to_local"),
+                    (cloud_valid, "cloud_valid")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel "
+                             "reads float4 rows)")
+    dev = cloud_valid.device
+    # The kernel's integer counts (back, then finger) and its block counter.
+    acc = torch.zeros(2 * g + 1, dtype=torch.int32, device=dev)
+    back = torch.empty(g, dtype=torch.float32, device=dev)
+    fing = torch.empty(g, dtype=torch.float32, device=dev)
     _build.launch("collision_counts", global_to_local, cloud_valid, g, n,
-                  *_BOX, back, fing)
+                  *_BOX, acc, back, fing)
     return back, fing
 
 

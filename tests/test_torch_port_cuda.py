@@ -108,9 +108,10 @@ def test_fps_on_cuda_launches_a_kernel(cuda, monkeypatch):
     (2, 25600, 333, 0.02, 64, 0.0),   # SA1's N: 800 words per centroid
     (2, 4096, 300, 0.5, 8, 0.0),      # K = 8, overfull balls
     (1, 3000, 64, 0.1, 16, 9.0),      # balls with no hit
-    # The largest N whose ballot words fit a block's 227 KB of shared
-    # memory: 32 * ((232448 - 24576) // 160).
-    (1, 41568, 40, 0.05, 24, 0.0),
+    (1, 41568, 40, 0.05, 24, 0.0),    # 1,299 words: two segments
+    (1, 50000, 40, 0.05, 24, 0.0),    # past 41,568 keys
+    (1, 25600, 5120, 0.02, 64, 0.0),  # M fills the card at 32 a block
+    (2, 100000, 30, 0.3, 64, 0.0),    # 4 segments, overfull balls
 ])
 @pytest.mark.parametrize("stratified", [False, True])
 def test_ball_query_full_kernel_matches_plain(cuda, b, n, m, radius, k,
@@ -139,21 +140,75 @@ def test_k6_and_k2f_wrappers_check_their_operands(cuda):
         sp.fps_exact(pts.double(), 10)
     with pytest.raises(ValueError, match="contiguous"):
         sp.fps_exact(pts.transpose(1, 2).contiguous().transpose(1, 2), 10)
-    # One point more than 1,024 threads with 32 min-distances each hold.
-    with pytest.raises(RuntimeError, match="fps_exact failed to launch"):
-        sp.fps_exact(torch.rand(1, 3, 1024 * 32 + 1, device=cuda), 10)
     cents = pts[:, :, :10].contiguous()
     with pytest.raises(TypeError):
         nb.ball_query_full_scan(pts, cents.double(), 0.1, 8)
     with pytest.raises(ValueError, match="mixed devices"):
         nb.ball_query_full_scan(pts, cents.cpu(), 0.1, 8)
-    with pytest.raises(RuntimeError,
-                       match="ball_query_full failed to launch"):
-        nb.ball_query_full_scan(torch.rand(1, 3, 41568 + 1, device=cuda),
-                                cents, 0.1, 8)
+    with pytest.raises(ValueError, match="mixed devices"):
+        nb.ball_query_full_scan(pts, cents, 0.1, 8,
+                                sorted_axis=torch.zeros(1, dtype=torch.long))
     before = _build.LAUNCHES["ball_query_full"]
     nb.ball_query(pts, cents, 0.1, 8)
     assert _build.LAUNCHES["ball_query_full"] == before + 1
+
+
+@pytest.mark.parametrize("b,n,m,shards", [
+    (1, 40000, 64, 1),       # 7,232 min-distances past the registers
+    (2, 80000, 96, 2),       # 4 chains of 40,000: each its own scratch
+    (1, 1024 * 32, 40, 1),   # exactly the registers: no scratch
+])
+def test_fps_exact_kernel_past_the_registers(cuda, b, n, m, shards):
+    pts = torch.from_numpy(np.random.RandomState(n).rand(b, 3, n)
+                           .astype(np.float32))
+    if shards == 1:
+        want = sp._fps_plain(pts, m)
+        got = sp.fps_exact(pts.to(cuda), m)
+    else:
+        want = sp._fps_sharded_plain(pts, m, shards)
+        got = sp.fps_sharded(pts.to(cuda), m, shards)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+def _sorted_scene(rng, b, n, m, spread=(1.1, 0.9, 0.3)):
+    """Scenes sorted ascending along x with centroids among their points,
+    sorted the same way (what SA2 and SA3 hand K2f)."""
+    pts = (rng.rand(b, 3, n) * np.array(spread)[None, :, None]
+           ).astype(np.float32)
+    pts = np.take_along_axis(pts, np.argsort(pts[:, 0], axis=1,
+                                             kind="stable")[:, None], axis=2)
+    sel = np.sort(rng.choice(n, m, replace=False))
+    return (torch.from_numpy(np.ascontiguousarray(pts)),
+            torch.from_numpy(np.ascontiguousarray(pts[:, :, sel])))
+
+
+@pytest.mark.parametrize("n,m,radius,k", [
+    (5120, 1024, 0.08, 64),     # SA2's shape
+    (1024, 256, 0.32, 64),      # SA3's shape: overfull balls
+    (25600, 5120, 0.02, 64),    # SA1's overflow fallback
+    (50000, 300, 0.05, 32),     # past 32,768 keys: slabs in one segment
+    (200000, 200, 0.1, 16),     # slabs wider than a segment: two passes
+    (100000, 200, 0.6, 16),     # slabs past a third of the scene: in full
+])
+@pytest.mark.parametrize("stratified", [False, True])
+def test_ball_query_full_kernel_on_sorted_scenes(cuda, n, m, radius, k,
+                                                 stratified):
+    """With the sort promise K2f scans each ball's slab only (where the
+    slab spans at most a third of the scene), and where the promise is
+    broken (scene 1: two keys swapped) the whole scene; both bit for bit
+    the full scan."""
+    pts, cents = _sorted_scene(np.random.RandomState(n + m), 2, n, m)
+    pts[1, 0, [10, n // 2]] = pts[1, 0, [n // 2, 10]]
+    axes = torch.zeros(2, dtype=torch.long)
+    want = nb._ball_query_full(pts, cents, radius * radius, k,
+                               stratified=stratified)
+    got = nb.ball_query_full_scan(pts.to(cuda), cents.to(cuda), radius, k,
+                                  stratified, sorted_axis=axes.to(cuda))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert 2 * int((want[1] > 0).sum()) > want[1].numel()
 
 
 @pytest.mark.parametrize("n,m,radius,k", [
@@ -205,7 +260,36 @@ def test_three_nn_kernel_matches_plain(cuda, b, n1, n2, grid):
     assert torch.equal(one_i, want_i) and torch.equal(one_d, want_d)
 
 
-@pytest.mark.parametrize("g,n", [(1001, 20000), (8, 65536)])
+def test_collision_kernel_on_a_raster_cloud(cuda):
+    """K5 at the main path's shape, 1,024 poses x 65,536 rows, on a cloud
+    in camera raster order (a depth image of a tilted plane with a box,
+    the last rows invalid padding), poses on its points: bit for bit."""
+    rng = np.random.RandomState(5)
+    h, w = 256, 256
+    v, u = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    depth = 0.75 + 0.0004 * v
+    depth[100:150, 80:140] -= 0.08                  # a box on the table
+    x = (u - w / 2) / 300.0 * depth
+    y = (v - h / 2) / 300.0 * depth
+    cloud = np.stack([x, y, depth], -1).reshape(-1, 3).astype(np.float32)
+    cloud += rng.normal(0, 0.001, cloud.shape).astype(np.float32)
+    valid = np.ones(len(cloud), np.float32)
+    valid[-1500:] = 0.0
+    g = 1024
+    poses = np.tile(np.eye(4, dtype=np.float32), (g, 1, 1))
+    poses[:, :3, :3] = np.linalg.qr(rng.randn(g, 3, 3))[0]
+    poses[:, :3, 3] = cloud[rng.choice(len(cloud) - 1500, g)]
+    g2l = torch.from_numpy(np.linalg.inv(poses).astype(np.float32))
+    cv = torch.from_numpy(np.concatenate([cloud, valid[:, None]], axis=1))
+    want = col._collision_counts_plain(g2l, cv)
+    got = col.collision_counts(g2l.to(cuda), cv.to(cuda))
+    torch.cuda.synchronize()
+    for gg, ww in zip(got, want):
+        assert torch.equal(gg.cpu(), ww)
+    assert float(want[0].sum()) > 0 and float(want[1].sum()) > 0
+
+
+@pytest.mark.parametrize("g,n", [(1001, 20000), (8, 65536), (5000, 3001)])
 def test_collision_kernel_matches_plain(cuda, g, n):
     rng = np.random.RandomState(g)
     cloud = ((rng.rand(n, 3) - 0.5) * 0.3).astype(np.float32)
@@ -274,6 +358,44 @@ def test_sa1_fused_kernel_matches_plain(cuda, b, n, m, radius, k, shift, c3):
         assert float((got - want).abs().max()) <= 1e-2 * scale
 
 
+@pytest.mark.parametrize("widths,k,radius", [
+    ((256, 256, 512), 64, 0.03),   # SA1 widths K3 does not hold
+    ((128, 128, 384), 48, 0.2),    # C3 > 256, K padded to 64, overfull
+    ((128, 128, 256), 160, 0.2),   # K > 128
+])
+def test_sa1_fused_wide_stage_matches_plain(cuda, widths, k, radius):
+    """Stages outside K3's range run as K2 + K7 on the card, within K3's
+    tolerance of the twin, zero rows exact, and never as K3."""
+    rng = np.random.RandomState(k)
+    pts = _sorted_cloud(rng, 2, 9000)
+    cents = pts[:, :, np.sort(rng.choice(9000, 1000, replace=False))]
+    cents = cents.contiguous()
+    cents[1, :, -100:] += 10.0                    # empty balls, still sorted
+    lo_tile, _ = sf.sa1_slab_setup(pts[:, 0].contiguous(),
+                                   cents[:, 0].contiguous(), radius, 9000)
+    c1, c2, c3 = widths
+    shapes = ((3, c1), (c1,), (c1, c2), (c2,), (c2, c3), (c3,))
+    w1, b1, w2, b2, w3, b3 = (
+        torch.from_numpy((rng.randn(*sh) * sc).astype(np.float32))
+        for sh, sc in zip(shapes, (0.5, 0.1, 0.1, 0.1, 0.1, 0.1)))
+    want = sf._sa1_fused_plain(pts, cents, lo_tile, radius, k, w1, b1,
+                               (w2, w3), (b2, b3))
+    before = dict(_build.LAUNCHES)
+    got = sf.sa1_fused_slab(
+        pts.to(cuda), cents.to(cuda), lo_tile.to(cuda), radius, k,
+        w1.to(cuda), b1.to(cuda), (w2.to(cuda), w3.to(cuda)),
+        (b2.to(cuda), b3.to(cuda))).cpu()
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sa1_fused"] == before["sa1_fused"]
+    _, cnt = nb._ball_query_slab_plain(pts, cents, lo_tile, radius * radius,
+                                       k, True)
+    empty = cnt == 0
+    assert 0 < int(empty.sum()) < empty.numel()
+    assert torch.all(got[empty] == 0) and torch.all(want[empty] == 0)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-2 * scale
+
+
 def test_sa1_fused_wrapper_checks_its_operands(cuda):
     rng = np.random.RandomState(0)
     pts, cents, lo_tile, (w1, b1, (w2, w3), (b2, b3)) = _k3_operands(
@@ -291,11 +413,14 @@ def test_sa1_fused_wrapper_checks_its_operands(cuda):
                           (w2, w3), (b2, b3))
     with pytest.raises(ValueError, match="K % 8"):
         sf.sa1_fused_slab(p, c, lo, 0.05, 12, w1, b1, (w2, w3), (b2, b3))
-    wide = torch.zeros(128, 256, device=cuda)     # C2 = 256: not held
-    with pytest.raises(ValueError, match="holds"):
-        sf.sa1_fused_slab(p, c, lo, 0.05, 16, w1, b1,
-                          (wide, torch.zeros(256, 256, device=cuda)),
-                          (torch.zeros(256, device=cuda), b3))
+    # C2 = 256 is outside K3: the stage runs as K2 + K7, not K3.
+    wide = torch.zeros(128, 256, device=cuda)
+    before = dict(_build.LAUNCHES)
+    sf.sa1_fused_slab(p, c, lo, 0.05, 16, w1, b1,
+                      (wide, torch.zeros(256, 256, device=cuda)),
+                      (torch.zeros(256, device=cuda), b3))
+    assert [_build.LAUNCHES[x] - before[x] for x in
+            ("sa1_fused", "ball_query_slab", "mlp_chain")] == [0, 1, 1]
     with pytest.raises(ValueError, match="mixed devices"):
         sf.sa1_fused_slab(p, c.cpu(), lo, 0.05, 16, w1, b1, (w2, w3),
                           (b2, b3))
@@ -340,6 +465,13 @@ def _chain(rng, p, widths, zero_rows=False):
     (640, (515, 512, 512, 1024), 64, "bfloat16", True),      # SA3's chain
     (333, (256, 512, 256, 256, 128), None, "bfloat16", True),  # 4 layers
     (96, (20, 48), 16, "float32", False),                     # 1 layer
+    # Split into sub-chains: 6 layers (4 + 2) with pooling, in both dtypes.
+    (1024, (3, 64, 64, 128, 128, 256, 256), 32, "bfloat16", False),
+    (1024, (3, 64, 64, 128, 128, 256, 256), 32, "float32", True),
+    # A 4,096-wide input: one layer at 16-row tiles in bf16; its own
+    # sub-chain in f32 at 16 rows.
+    (200, (4096, 64, 32), None, "bfloat16", False),
+    (200, (1024, 3000, 64), 8, "float32", False),
 ])
 def test_mlp_chain_kernel_matches_plain(cuda, p, widths, pool, dtype,
                                         zero_rows):
@@ -370,18 +502,100 @@ def test_mlp_chain_wrapper_refuses_and_counts(cuda, monkeypatch):
                         lambda *a, **kw: pytest.fail("plain chain on the card"))
     with pytest.raises(ValueError, match="mixed devices"):
         mc.mlp_chain(x.cpu(), params, (True, True))
-    with pytest.raises(ValueError, match="up to 4 layers"):
-        five = [(torch.eye(40, device=cuda), torch.zeros(40, device=cuda))] * 5
-        mc.mlp_chain(x, five, (True,) * 5)
     with pytest.raises(RuntimeError, match="mlp_chain failed to launch"):
         mc.mlp_chain(x[:48], params, (True, True), pool_k=24)  # not 2^k
-    wide = torch.zeros(4096, 16, device=cuda)   # a 32-row tile: 262 KB
-    with pytest.raises(RuntimeError, match="mlp_chain failed to launch"):
-        mc.mlp_chain(torch.zeros(8, 4096, device=cuda),
-                     [(wide, torch.zeros(16, device=cuda))], (True,))
+    # The stated limit (ROADMAP.md §3): a layer whose input is wider than
+    # 7,248 bf16 (3,616 f32) fits no row tile.
+    for width, cd in ((7264, torch.bfloat16), (3632, torch.float32)):
+        wide = torch.zeros(width, 16, device=cuda)
+        with pytest.raises(ValueError, match="does not fit"):
+            mc.mlp_chain(torch.zeros(8, width, device=cuda),
+                         [(wide, torch.zeros(16, device=cuda))], (True,),
+                         compute_dtype=cd)
     before = _build.LAUNCHES["mlp_chain"]
     mc.mlp_chain(x, params, (True, True), pool_k=16)
     assert _build.LAUNCHES["mlp_chain"] == before + 1
+    five = [(torch.eye(40, device=cuda), torch.zeros(40, device=cuda))] * 5
+    mc.mlp_chain(x, five, (True,) * 5)        # 4 + 1 layers: two launches
+    assert _build.LAUNCHES["mlp_chain"] == before + 3
+
+
+def test_sa1_fallback_hands_k2f_the_sort_axis(cuda):
+    """detect_batch's SA1 fallback (K3's windows overflow) on the card:
+    handed the sort axis it is one K2f launch that scans the slabs (no K2,
+    no K3), with the bits of the full scan without the promise."""
+    rng = np.random.RandomState(6)
+    n, m, radius, k = 12288, 512, 0.05, 16
+    x = np.concatenate([rng.rand(2288) * 0.5,
+                        0.25 + 0.01 * rng.rand(10000)])
+    pts = torch.from_numpy(np.stack([np.sort(x), rng.rand(n) * 0.05,
+                                     rng.rand(n) * 0.05])[None]
+                           .astype(np.float32)).to(cuda)
+    sel = torch.from_numpy(np.sort(rng.choice(n, m, False))).to(cuda)
+    cent = pts[:, :, sel].contiguous()
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        mlp = nnl.SharedMLP(3, (128, 128, 256), ndim=2,
+                            dtype=torch.bfloat16).to(cuda).eval()
+    keys = (pts[:, 0].contiguous(), cent[:, 0].contiguous())
+    fallbacks = sf.SA1_FALLBACKS["overflow"]
+    with torch.no_grad():
+        want = mlp.sa1_fused_eval(pts, cent, *keys, radius, k)
+        before = dict(_build.LAUNCHES)
+        got = mlp.sa1_fused_eval(pts, cent, *keys, radius, k,
+                                 sorted_axis=torch.zeros(1, dtype=torch.long,
+                                                         device=cuda))
+        torch.cuda.synchronize()
+    launched = {key: _build.LAUNCHES[key] - before[key] for key in before}
+    assert sf.SA1_FALLBACKS["overflow"] == fallbacks + 2
+    assert launched["ball_query_full"] == 1
+    assert launched["ball_query_slab"] == launched["sa1_fused"] == 0
+    assert torch.equal(got, want)
+    assert float(want.float().abs().max()) > 0
+
+
+@pytest.mark.parametrize("dtype,pool,widths", [
+    ("bfloat16", None, lambda w: (w, 16)),          # one layer, 16-row tile
+    ("bfloat16", None, lambda w: (16, w, 16)),      # both buffers
+    ("bfloat16", 64, lambda w: (16, 2048, w)),      # the pooled maxima
+    ("float32", None, lambda w: (w, 16)),
+    ("float32", 8, lambda w: (16, 1024, w)),
+])
+def test_mlp_chain_planner_agrees_with_the_launcher(cuda, dtype, pool,
+                                                    widths):
+    """`chain_pieces` plans from a copy of the launcher's shared-memory sum
+    (`mlp_chain._tile_smem`): at the widest width it plans as one piece the
+    launcher must launch it, and the next width up it must plan apart and
+    the launcher refuse as one piece."""
+    cd = getattr(torch, dtype)
+
+    def one_piece(w):
+        try:
+            pieces = mc.chain_pieces(widths(w), pool, cd)
+        except ValueError:   # a layer that fits no tile alone
+            return False
+        return pieces == [(0, len(widths(w)) - 1)]
+
+    w = 16
+    while one_piece(w + 16):
+        w += 16
+    rows = pool or 16
+    for width, fits in ((w, True), (w + 16, False)):
+        chain = widths(width)
+        params = [(torch.full((a, b), 1e-3, device=cuda),
+                   torch.zeros(b, device=cuda))
+                  for a, b in zip(chain, chain[1:])]
+        packed, kpad0 = mc._pack(params, chain[0], cd)
+        x = torch.ones(rows, chain[0], dtype=cd, device=cuda)
+        relu = (True,) * len(params)
+        if fits:
+            out = mc._launch(x, packed, kpad0, chain[-1], relu, pool)
+            torch.cuda.synchronize()
+            assert bool(torch.isfinite(out).all())
+        else:
+            assert not one_piece(width)
+            with pytest.raises(RuntimeError, match="mlp_chain failed"):
+                mc._launch(x, packed, kpad0, chain[-1], relu, pool)
 
 
 NARROW_DEPLOYED = {

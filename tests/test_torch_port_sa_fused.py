@@ -234,6 +234,16 @@ def test_overflow_branch_matches_jax_full_scan():
         got = tmlp.sa1_fused_eval(_t(pts), _t(cent), _t(pts[:, 0]),
                                   _t(cent[:, 0]), radius, k)
     assert sf.SA1_FALLBACKS["overflow"] == before + 1
+    # Handed the sort axis, the fallback's full scan gives the same bits
+    # (it stays off the slab route).
+    slab_before = nb.SLAB_FALLBACKS["overflow"]
+    with torch.no_grad():
+        promised = tmlp.sa1_fused_eval(
+            _t(pts), _t(cent), _t(pts[:, 0]), _t(cent[:, 0]), radius, k,
+            sorted_axis=torch.zeros(1, dtype=torch.long))
+    assert sf.SA1_FALLBACKS["overflow"] == before + 2
+    assert nb.SLAB_FALLBACKS["overflow"] == slab_before
+    assert torch.equal(promised, got)
     assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
     got, want = got.float().numpy(), np.asarray(want, np.float32)
     # bf16 outputs; f32 sums in another order may flip an odd bf16
