@@ -16,7 +16,12 @@ run, but the run then exits non-zero without printing a result:
    seeded synthetic scene, held against its plain PyTorch twin on the card
    (bit for bit: indices, counts and distances), and timed with CUDA
    events (CUDA-graph replays of back-to-back launches, so host launch cost
-   is excluded), beside its plain twin's time and its bound; then K3 (the
+   is excluded), beside its plain twin's time and its bound — K1 nested
+   (the three SA stages in one launch, against the per-stage twin chained,
+   with its chain floor beside the bound) and per stage (the same stages,
+   and 320-point shards that do not nest), K2 on the sorted scene (each
+   ball scans its slab) and on the same keys shuffled inside each key
+   tile (no coordinate ascends: whole windows); then K3 (the
    fused SA1 stage of detect_batch) at b = 2 on a tabletop and a clutter
    scene, held against its twin (zero rows exact, the rest within 1e-2 of
    the output's max: f32 sums in another order flip an odd bf16 rounding
@@ -218,6 +223,14 @@ def _check_grasps(label, results) -> float:
     return ortho
 
 
+def _max_sm_clock_mhz() -> int:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return int(out.stdout.strip().splitlines()[0])
+
+
 def _nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -351,47 +364,105 @@ def _kernel_phase(inp, torch, extras):
     n_pts = [s.shape[2] for s in st]
     report = []
 
-    # K1: the three FPS stages of the path.
+    # K1: the three FPS stages of the path in one nested launch, against
+    # the per-stage twin chained (sort_local, then the picks' coordinates
+    # as the next stage's cloud); then the per-stage kernel, at the same
+    # three stages and at a shape that does not nest (320-point shards).
+    ms_c = n_pts[1:]
+    got = sp.fps_lane_nested(st[0], ms_c)
+    err = _compare("fps_lane nested", got, sp._fps_nested_plain(st[0], ms_c),
+                   True)
+    ms = _graph_ms(lambda: sp.fps_lane_nested(st[0], ms_c))
+    plain = _event_ms(lambda: sp._fps_nested_plain(st[0], ms_c), reps=5)
     fps_calls = [(st[i], n_pts[i + 1]) for i in range(3)]
-    err = max(_compare("fps_lane", [sp.fps_lane_sharded(p, m)],
-                       [sp._fps_sharded_plain(p, m)], True)
-              for p, m in fps_calls)
-    ms = sum(_graph_ms(lambda p=p, m=m: sp.fps_lane_sharded(p, m))
-             for p, m in fps_calls)
-    plain = sum(_event_ms(lambda p=p, m=m: sp._fps_sharded_plain(p, m),
-                          reps=5) for p, m in fps_calls)
+    stage_err = max(_compare("fps_lane", [sp.fps_lane_sharded(p, m)],
+                             [sp._fps_sharded_plain(p, m)], True)
+                    for p, m in fps_calls)
+    stage_ms = sum(_graph_ms(lambda p=p, m=m: sp.fps_lane_sharded(p, m))
+                   for p, m in fps_calls)
+    wide = torch.rand(1, 3, 128 * 320, generator=torch.Generator(
+        device=st[0].device).manual_seed(3), device=st[0].device)
+    wide = wide[:, :, torch.argsort(wide[0, 0])].contiguous()
+    wide_m = 128 * 64
+    if sp.fps_nesting_applies(wide.shape[2], [wide_m], 128):
+        raise AssertionError("the per-stage shape must not nest")
+    stage_err = max(stage_err, _compare(
+        "fps_lane per stage, 320-point shards",
+        [sp.fps_lane_sharded(wide, wide_m)],
+        [sp._fps_sharded_plain(wide, wide_m)], True))
+    wide_ms = _graph_ms(lambda: sp.fps_lane_sharded(wide, wide_m))
     # ~10 f32 operations (3 sub, 3 mul, 2 add, min, compare) per point per
     # FPS step; each point read once, each index written once.
     ops = sum(10.0 * n * (m // 128 - 1) for n, m in
               ((n_pts[i], n_pts[i + 1]) for i in range(3)))
-    nbytes = sum(12 * n_pts[i] + 4 * n_pts[i + 1] for i in range(3))
+    nbytes = 12 * n_pts[0] + sum(4 * m for m in ms_c)
+    bound, by = _bound_ms(ops, nbytes)
+    # The chain floor: a shard's argmax steps run one after another.  A step
+    # issues ~15 instructions per register slot (3 sub, 3 mul, 2 add, min,
+    # compare, 5 selects) on one warp, at most one a clock, then waits on
+    # two warp reductions and the winner's coordinate shuffle (~30 clocks
+    # each, dependent): 15 x slots + 90 clocks, at the card's top SM clock.
+    clock_mhz = _max_sm_clock_mhz()
+    cycles = sum((m // 128 - 1) * (15 * -(-(n // 128) // 32) + 90)
+                 for n, m in zip(n_pts, ms_c))
+    steps = sum(m // 128 - 1 for m in ms_c)
+    floor = 1e3 * cycles / (clock_mhz * 1e6)
+    extras["fps_lane"] = {
+        "chain_floor_ms": floor, "chain_floor_cycles": cycles,
+        "argmax_steps": steps, "sm_clock_max_mhz": clock_mhz,
+        "per_stage_ms": stage_ms, "per_stage_max_abs_err": stage_err,
+        "per_stage_320_point_shards_ms": wide_ms}
+    print(f"kernel fps_lane: nested, {len(ms_c)} stages {n_pts} in one launch"
+          f" {ms:.4f} ms, bound {bound:.6f} ms ({by}), chain floor {floor:.5f}"
+          f" ms ({steps} argmax steps, {cycles} clocks at {clock_mhz} MHz); "
+          f"per-stage kernel at the same stages {stage_ms:.4f} ms (3 "
+          f"launches), at {wide.shape[2]} -> {wide_m} (320-point shards, "
+          f"not nested) {wide_ms:.4f} ms", flush=True)
     report.append(("fps_lane", "s4g_tpu_torch/csrc/fps_lane.cu",
-                   "s4g_tpu/ops/sampling.py:287", err, ms, plain,
-                   *_bound_ms(ops, nbytes)))
+                   "s4g_tpu/ops/sampling.py:287", max(err, stage_err), ms,
+                   plain, bound, by))
 
-    # K2: the SA1 slab ball query.
+    # K2: the SA1 slab ball query, on the sorted scene (the windows ascend
+    # along the sort axis: each ball scans its slab) and on the same keys
+    # shuffled inside each 2,048-key tile (every window holds the same keys,
+    # out of order: no coordinate ascends, so the whole window is scanned).
     pts, cents, lo = st[0], st[1], inp["lo_tile"]
     r, k = inp["radius"], inp["k"]
-    err = _compare("ball_query_slab",
-                   nb.ball_query_fused_slab(pts, cents, lo, r, k, True),
-                   nb._ball_query_slab_plain(pts, cents, lo, r * r, k, True),
-                   True)
-    ms = _graph_ms(lambda: nb.ball_query_fused_slab(pts, cents, lo, r, k,
-                                                    True))
+    n1, m1 = pts.shape[2], cents.shape[2]
+    perm = torch.cat([t0 + torch.randperm(
+        min(nb.BQ_K_TILE, n1 - t0), generator=torch.Generator().manual_seed(t0))
+        for t0 in range(0, n1, nb.BQ_K_TILE)]).to(pts.device)
+    shuffled = pts[:, :, perm].contiguous()
+    nbytes = 12 * (n1 + m1) + 4 * lo.numel() + 4 * m1 * (k + 1)
+    k2 = {}
+    for name, p in (("restricted", pts), ("unrestricted", shuffled)):
+        err = _compare(f"ball_query_slab {name}",
+                       nb.ball_query_fused_slab(p, cents, lo, r, k, True),
+                       nb._ball_query_slab_plain(p, cents, lo, r * r, k,
+                                                 True), True)
+        ms = _graph_ms(lambda p=p: nb.ball_query_fused_slab(p, cents, lo, r,
+                                                            k, True))
+        # 9 f32 operations (3 sub, 3 mul, 2 add, compare) per (centroid,
+        # key) that this data needs tested (`_slab_keys`).
+        tested = _slab_keys(p, cents, lo, r * r)
+        k2[name] = (err, ms, tested, *_bound_ms(9.0 * tested, nbytes))
+        print(f"kernel ball_query_slab {name}: distance tests needed "
+              f"{int(tested)} of {m1 * nb.BQ_WINDOW} in the windows; kernel "
+              f"{ms:.4f} ms, bound {k2[name][3]:.6f} ms ({k2[name][4]})",
+              flush=True)
     plain = _event_ms(lambda: nb._ball_query_slab_plain(pts, cents, lo,
                                                         r * r, k, True),
                       reps=5)
-    # 9 f32 operations (3 sub, 3 mul, 2 add, compare) per (centroid, key)
-    # that this data needs tested (`_slab_keys`).
-    m1 = cents.shape[2]
-    tested = _slab_keys(pts, cents, lo, r * r)
-    ops = 9.0 * tested
-    print(f"kernel ball_query_slab: distance tests needed {int(tested)} of "
-          f"{m1 * nb.BQ_WINDOW} in the windows", flush=True)
-    nbytes = 12 * (pts.shape[2] + m1) + 4 * lo.numel() + 4 * m1 * (k + 1)
+    err, ms, _, bound, by = k2["restricted"]
+    u_err, u_ms, u_tested, u_bound, u_by = k2["unrestricted"]
+    extras["ball_query_slab"] = {
+        "unrestricted_ms": u_ms, "unrestricted_bound_ms": u_bound,
+        "unrestricted_bound_by": u_by,
+        "distance_tests_needed": k2["restricted"][2],
+        "unrestricted_distance_tests": u_tested}
     report.append(("ball_query_slab", "s4g_tpu_torch/csrc/ball_query_slab.cu",
-                   "s4g_tpu/ops/pallas/neighbor_kernels.py:145", err, ms,
-                   plain, *_bound_ms(ops, nbytes)))
+                   "s4g_tpu/ops/pallas/neighbor_kernels.py:145",
+                   max(err, u_err), ms, plain, bound, by))
 
     # K4: the two FP stages above the 2^22-pair threshold.
     nn_calls = [(st[1], st[2]), (st[0], st[1])]
@@ -1018,7 +1089,9 @@ def _fault_phase(binp, torch, np, extras):
     twins: the fused SA1 stage at widths 256/256/512 (K2 + K7, on
     detect_batch's b = 2 tabletop inputs; zero rows exact, the rest within
     1e-2 of the output's max), a 6-layer pooled K7 chain (two launches;
-    bf16 within 1e-2, f32 within 1e-5), K2f at 50,000 and 100,000 keys
+    bf16 within 1e-2, f32 within 1e-5), one K7 layer wider than any row
+    tile (7,300 bf16 / 3,700 f32 input channels, pooled and not; same
+    tolerances), K2f at 50,000 and 100,000 keys
     with and without the sort promise and K6 at 40,000 points per chain
     (both bit for bit).  Prints each case's max |kernel - twin| against its
     tolerance; raises if one fails."""
@@ -1078,6 +1151,24 @@ def _fault_phase(binp, torch, np, extras):
                float((got - want).abs().max()),
                tol * float(want.abs().max()),
                pieces=mc.chain_pieces(widths, 64, cd))
+
+    # K7: one layer wider than any row tile (its input channels split in
+    # the kernel), pooled and not.
+    for width, cd, tol in ((7300, torch.bfloat16, 1e-2),
+                           (3700, torch.float32, 1e-5)):
+        x = rand(4096, width, scale=1.0)
+        params = [(rand(width, 256, scale=1 / np.sqrt(width)), rand(256))]
+        for pool in (None, 32):
+            with torch.no_grad():
+                got = mc.mlp_chain(x, params, (True,), pool, cd)
+                torch.cuda.synchronize()
+                want = mc._mlp_chain_plain(x, params, (True,), pool, cd)
+                ms = _graph_ms(lambda: mc.mlp_chain(x, params, (True,), pool,
+                                                    cd))
+            record("mlp_chain", f"wide_{width}_{str(cd)[6:]}_pool{pool or 0}",
+                   float((got - want).abs().max()),
+                   tol * float(want.abs().max()), ms=round(ms, 5),
+                   pieces=mc.chain_pieces((width, 256), pool, cd))
 
     # K2f past 41,568 keys, sorted (the promise kept and broken) and not.
     for n, m, rad, kk in ((50000, 1024, 0.05, 64), (100000, 512, 0.3, 64)):
@@ -1326,15 +1417,21 @@ def _parity_launches(det, **changes):
 def _deployed_launches(det, b: int, overflow: bool = False,
                        mlp_chain: int = 0):
     """Launches per deployed forward of `det` (SORT_POINTS, FPS_SHARDS 128)
-    at batch `b`: K1 for each SA stage; SA1 through K2 at b = 1 and K3 at
-    b >= 2, or, when its key windows `overflow`, through the full-scan
-    fallback (K2f); K2f for every other SA stage (inputs below the slab
-    capacity); K4 for each FP stage at or above its pair threshold; K5 once
-    per scene post-processed; `mlp_chain` K7 chains."""
+    at batch `b`: K1 once for all SA stages where they nest
+    (`fps_nesting_applies`), else once per stage; SA1 through K2 at b = 1
+    and K3 at b >= 2, or, when its key windows `overflow`, through the
+    full-scan fallback (K2f); K2f for every other SA stage (inputs below
+    the slab capacity); K4 for each FP stage at or above its pair
+    threshold; K5 once per scene post-processed; `mlp_chain` K7 chains."""
     from s4g_tpu_torch import _build
-    sizes = (det.num_input, *det.cfg.MODEL.PN2.NUM_CENTROIDS)
+    from s4g_tpu_torch.ops.sampling import fps_nesting_applies
+    pn2 = det.cfg.MODEL.PN2
+    sizes = (det.num_input, *pn2.NUM_CENTROIDS)
+    nested = fps_nesting_applies(det.num_input, pn2.NUM_CENTROIDS,
+                                 pn2.FPS_SHARDS)
     out = {k: 0 for k in _build.LAUNCHES}
-    out.update(fps_lane=len(sizes) - 1, three_nn=_fp_kernel_stages(det),
+    out.update(fps_lane=1 if nested else len(sizes) - 1,
+               three_nn=_fp_kernel_stages(det),
                collision_counts=b, mlp_chain=mlp_chain,
                ball_query_full=sum(n <= SLAB_CAPACITY for n in sizes[:-1]))
     if overflow:

@@ -38,8 +38,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 # C entry point -> argtypes (pointers, ints, floats, then the stream).
 _SIGNATURES = {
-    # pts (B,3,N), b, n, m, out (B,M)
-    "s4g_fps_lane": (_P, _I, _I, _I, _P, _P),
+    # pts (B,3,N), b, n, nested (0: one stage, per-stage kernel; S: S
+    # stages, nested kernel), m0..m2, out0..out2 (B,M_s) or NULL
+    "s4g_fps_lane": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     # pts (B,3,N), b, n, shards, m_g, spill (f32 scratch past 32,768 points
     # per chain, or NULL), out (B, shards*m_g)
     "s4g_fps_exact": (_P, _I, _I, _I, _I, _P, _P, _P),

@@ -69,12 +69,13 @@ __device__ __forceinline__ float zero_t<float>() {
 }
 
 // One unit's product, bf16: c[mt][nt] += act rows (mt*16..+15) x W^T rows
-// (col0 + nt*8..+7), over the layer's kpad inputs.
+// (col0 + nt*8..+7), over `depth` inputs; W^T rows are `kpad` long and `w`
+// points at the first input taken.
 template <int kMT>
 __device__ __forceinline__ void unit_product(const __nv_bfloat16* act,
                                              int stride, const void* w,
-                                             int kpad, int, int col0,
-                                             float (&c)[kMT][2][4]) {
+                                             int kpad, int depth, int,
+                                             int col0, float (&c)[kMT][2][4]) {
   const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
   const unsigned* aw = reinterpret_cast<const unsigned*>(act);
   const int sw = stride / 2;   // words per activation row
@@ -83,7 +84,7 @@ __device__ __forceinline__ void unit_product(const __nv_bfloat16* act,
       static_cast<const unsigned*>(w) + static_cast<size_t>(col0 + g) * kw + t;
   const unsigned* w1 = w0 + static_cast<size_t>(8) * kw;
 #pragma unroll 2
-  for (int ks = 0; ks < kpad / 16; ++ks) {
+  for (int ks = 0; ks < depth / 16; ++ks) {
     const unsigned b00 = __ldg(w0 + ks * 8), b01 = __ldg(w0 + ks * 8 + 4);
     const unsigned b10 = __ldg(w1 + ks * 8), b11 = __ldg(w1 + ks * 8 + 4);
 #pragma unroll
@@ -100,13 +101,13 @@ __device__ __forceinline__ void unit_product(const __nv_bfloat16* act,
 // rows g and g + 8 of each m-tile, columns 2t and 2t + 1 of each n-tile.
 template <int kMT>
 __device__ __forceinline__ void unit_product(const float* act, int stride,
-                                             const void* w, int kpad,
+                                             const void* w, int, int depth,
                                              int npad, int col0,
                                              float (&c)[kMT][2][4]) {
   const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
   const float* wc = static_cast<const float*>(w) + col0 + 2 * t;
 #pragma unroll 4
-  for (int k = 0; k < kpad; ++k) {
+  for (int k = 0; k < depth; ++k) {
     const float2 b0 =
         __ldg(reinterpret_cast<const float2*>(wc + static_cast<size_t>(k) * npad));
     const float2 b1 = __ldg(
@@ -123,6 +124,51 @@ __device__ __forceinline__ void unit_product(const float* act, int stride,
       c[mt][1][1] = fmaf(lo, b1.y, c[mt][1][1]);
       c[mt][1][2] = fmaf(hi, b1.x, c[mt][1][2]);
       c[mt][1][3] = fmaf(hi, b1.y, c[mt][1][3]);
+    }
+  }
+}
+
+// Layer weights from input `k0` on (as unit_product takes them).
+__device__ __forceinline__ const void* weights_from(const __nv_bfloat16*,
+                                                    const void* w, int k0,
+                                                    int) {
+  return static_cast<const __nv_bfloat16*>(w) + k0;
+}
+__device__ __forceinline__ const void* weights_from(const float*,
+                                                    const void* w, int k0,
+                                                    int npad) {
+  return static_cast<const float*>(w) + static_cast<size_t>(k0) * npad;
+}
+
+// The last layer's columns (col, col + 1) of sub-tile row r = mt*16 + h*8 +
+// g: with pool_k, into the running max of its group (`pool` row group,
+// column pool_col; one lane per group after shuffles over min(pool_k, 8)
+// rows); else straight out.  Every lane of the warp calls it.
+__device__ __forceinline__ void emit_last(float v0, float v1, int r, int col,
+                                          int sub, int row0, int pool_k,
+                                          int p, int c_out, int span,
+                                          float* pool, int pool_stride,
+                                          int pool_col,
+                                          float* __restrict__ out) {
+  const int g = (threadIdx.x % 32) >> 2;
+  if (pool_k) {
+    for (int off = 1; off < span; off <<= 1) {
+      v0 = fmaxf(v0, __shfl_xor_sync(S4G_FULL_MASK, v0, 4 * off));
+      v1 = fmaxf(v1, __shfl_xor_sync(S4G_FULL_MASK, v1, 4 * off));
+    }
+    // One lane per group holds the max of its rows; the warp owns these
+    // columns, so no other thread writes them.
+    if (g % span == 0) {
+      float* pr = pool + ((sub + r) / pool_k) * pool_stride + pool_col;
+      pr[0] = fmaxf(pr[0], v0);
+      pr[1] = fmaxf(pr[1], v1);
+    }
+  } else {
+    const int row = row0 + r;
+    if (row < p) {
+      float* o = out + static_cast<size_t>(row) * c_out;
+      if (col < c_out) o[col] = v0;
+      if (col + 1 < c_out) o[col + 1] = v1;
     }
   }
 }
@@ -185,7 +231,8 @@ mlp_chain_kernel(const T* __restrict__ x, Chain ch, float* __restrict__ out) {
       for (int u = warp; u < npad / kUnitCols; u += kWarps) {
         const int col0 = u * kUnitCols;
         float c[kMT][2][4] = {};
-        unit_product<kMT>(in, stride_in, ch.w[l], ch.kpad[l], npad, col0, c);
+        unit_product<kMT>(in, stride_in, ch.w[l], ch.kpad[l], ch.kpad[l],
+                          npad, col0, c);
 #pragma unroll
         for (int mt = 0; mt < kMT; ++mt) {
 #pragma unroll
@@ -201,28 +248,11 @@ mlp_chain_kernel(const T* __restrict__ x, Chain ch, float* __restrict__ out) {
                 v0 = fmaxf(v0, 0.f);
                 v1 = fmaxf(v1, 0.f);
               }
-              if (l < last) {
+              if (l < last)
                 store_pair(nxt, r * stride_out + col, v0, v1);
-              } else if (pool_k) {
-                for (int off = 1; off < span; off <<= 1) {
-                  v0 = fmaxf(v0, __shfl_xor_sync(S4G_FULL_MASK, v0, 4 * off));
-                  v1 = fmaxf(v1, __shfl_xor_sync(S4G_FULL_MASK, v1, 4 * off));
-                }
-                // One lane per group holds the max of its rows; the warp
-                // owns these columns, so no other thread writes them.
-                if (g % span == 0) {
-                  float* pr = pool + ((sub + r) / pool_k) * n_last + col;
-                  pr[0] = fmaxf(pr[0], v0);
-                  pr[1] = fmaxf(pr[1], v1);
-                }
-              } else {
-                const int row = row0 + r;
-                if (row < ch.p) {
-                  float* o = out + static_cast<size_t>(row) * ch.c_out;
-                  if (col < ch.c_out) o[col] = v0;
-                  if (col + 1 < ch.c_out) o[col + 1] = v1;
-                }
-              }
+              else
+                emit_last(v0, v1, r, col, sub, row0, pool_k, ch.p, ch.c_out,
+                          span, pool, n_last, col, out);
             }
           }
         }
@@ -239,6 +269,96 @@ mlp_chain_kernel(const T* __restrict__ x, Chain ch, float* __restrict__ out) {
       if (group0 + gl < num_groups)
         out[static_cast<size_t>(group0 + gl) * ch.c_out + col] =
             pool[gl * n_last + col];
+    }
+  }
+}
+
+// One layer whose row tile does not fit shared memory whole (its input is
+// wider than ~7,250 bf16 / ~3,620 f32 channels, or its pooled maxima too
+// wide): the same function as mlp_chain_kernel on that one layer.  A block
+// owns max(TM, pool_k) rows and walks the output columns in passes of
+// kPassCols (a unit of 16 per warp); per pass and TM-row sub-tile it stages
+// the input kWideChunk channels at a time and every warp adds the chunk's
+// products to its unit's f32 sums in registers, in the order the whole-
+// layer product takes them.  After the last chunk the bias, the ReLU and
+// the output or the running group max are applied once, as emit_last does
+// for the last layer of a chain.
+constexpr int kWideChunk = 512;
+constexpr int kPassCols = kWarps * kUnitCols;
+
+template <typename T, int kMT>
+__global__ void __launch_bounds__(kThreads)
+mlp_wide_kernel(const T* __restrict__ x, Chain ch, float* __restrict__ out) {
+  constexpr int kTileRows = 16 * kMT;
+  constexpr int kStride = kWideChunk + kPadElems;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* buf = reinterpret_cast<T*>(smem);
+  float* pool = reinterpret_cast<float*>(buf + kTileRows * kStride);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int block_row0 = blockIdx.x * ch.rows_per_block;
+  const int kpad = ch.kpad[0], npad = ch.npad[0];
+  const int pool_k = ch.pool_k;
+  const int groups = pool_k ? ch.rows_per_block / pool_k : 0;
+  const int span = pool_k < 8 ? pool_k : 8;
+  const bool relu = ch.relu_mask & 1;
+
+  for (int pc0 = 0; pc0 < npad; pc0 += kPassCols) {
+    for (int i = threadIdx.x; i < groups * kPassCols; i += kThreads)
+      pool[i] = -INFINITY;
+    const int col0 = pc0 + warp * kUnitCols;
+    const bool mine = col0 < npad;   // uniform over the warp
+    for (int sub = 0; sub < ch.rows_per_block; sub += kTileRows) {
+      const int row0 = block_row0 + sub;
+      float c[kMT][2][4] = {};
+      for (int k0 = 0; k0 < kpad; k0 += kWideChunk) {
+        const int depth = min(kWideChunk, kpad - k0);
+        for (int i = threadIdx.x; i < kTileRows * depth; i += kThreads) {
+          const int r = i / depth, col = i - r * depth;
+          const int row = row0 + r, kc = k0 + col;
+          buf[r * kStride + col] =
+              (row < ch.p && kc < ch.c_in)
+                  ? x[static_cast<size_t>(row) * ch.c_in + kc]
+                  : zero_t<T>();
+        }
+        __syncthreads();
+        if (mine)
+          unit_product<kMT>(buf, kStride, weights_from(buf, ch.w[0], k0, npad),
+                            kpad, depth, npad, col0, c);
+        __syncthreads();
+      }
+      if (!mine) continue;
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const int col = col0 + nt * 8 + 2 * t;
+          const float bias0 = ch.b[0][col], bias1 = ch.b[0][col + 1];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float v0 = c[mt][nt][2 * h] + bias0;
+            float v1 = c[mt][nt][2 * h + 1] + bias1;
+            if (relu) {
+              v0 = fmaxf(v0, 0.f);
+              v1 = fmaxf(v1, 0.f);
+            }
+            emit_last(v0, v1, mt * 16 + h * 8 + g, col, sub, row0, pool_k,
+                      ch.p, ch.c_out, span, pool, kPassCols, col - pc0, out);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    if (pool_k) {
+      const int group0 = block_row0 / pool_k;
+      const int num_groups = ch.p / pool_k;
+      for (int i = threadIdx.x; i < groups * kPassCols; i += kThreads) {
+        const int gl = i / kPassCols, col = pc0 + i % kPassCols;
+        if (group0 + gl < num_groups && col < ch.c_out)
+          out[static_cast<size_t>(group0 + gl) * ch.c_out + col] = pool[i];
+      }
+      __syncthreads();
     }
   }
 }
@@ -275,16 +395,38 @@ cudaError_t launch(const void* x, Chain ch, float* out, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <typename T, int kMT>
+cudaError_t launch_wide(const void* x, Chain ch, float* out,
+                        cudaStream_t stream) {
+  constexpr int kTileRows = 16 * kMT;
+  ch.rows_per_block = ch.pool_k > kTileRows ? ch.pool_k : kTileRows;
+  const int groups = ch.pool_k ? ch.rows_per_block / ch.pool_k : 0;
+  const size_t smem = sizeof(T) * kTileRows * (kWideChunk + kPadElems) +
+                      sizeof(float) * groups * kPassCols;
+  static size_t granted = 0;
+  const cudaError_t err =
+      s4g_allow_smem(mlp_wide_kernel<T, kMT>, smem, &granted);
+  if (err != cudaSuccess) return err;
+  const long long blocks =
+      (static_cast<long long>(ch.p) + ch.rows_per_block - 1) /
+      ch.rows_per_block;
+  mlp_wide_kernel<T, kMT><<<static_cast<unsigned>(blocks), kThreads, smem,
+                            stream>>>(static_cast<const T*>(x), ch, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x (P, c_in) in the compute type; per layer i < layers: w_i packed as in
 // Chain (bf16 or f32), b_i (npad_i,) f32; kpad0 the padded input width,
 // n0..n3 the padded output widths (multiples of 16); relu_mask bit i for
 // layer i; pool_k 0 or a power of two dividing P; bf16 1 or 0 (f32).
-// out (P or P / pool_k, c_out) f32.  Refuses (cudaErrorInvalidValue)
-// shapes it does not hold, among them tiles whose buffers exceed a block's
-// shared memory even at 16 rows (`ops/mlp_chain.py` splits longer and wider
-// chains into sub-chains that fit).
+// out (P or P / pool_k, c_out) f32.  One layer whose tile does not fit
+// even at 16 rows runs on mlp_wide_kernel.  Refuses (cudaErrorInvalidValue)
+// shapes it does not hold, among them chains of several layers whose tiles
+// exceed a block's shared memory even at 16 rows (`ops/mlp_chain.py`
+// splits longer and wider chains into sub-chains that fit, or into single
+// layers).
 extern "C" int s4g_mlp_chain(const void* x, const void* w0, const float* b0,
                              const void* w1, const float* b1, const void* w2,
                              const float* b2, const void* w3, const float* b3,
@@ -319,8 +461,14 @@ extern "C" int s4g_mlp_chain(const void* x, const void* w0, const float* b0,
   if (bf16 == 1) {   // 32-row tiles, or 16 where 32 rows do not fit
     if (tile_smem<__nv_bfloat16>(ch, 32) <= kS4gMaxSmem)
       return launch<__nv_bfloat16, 2>(x, ch, out, stream);
+    if (layers == 1 && tile_smem<__nv_bfloat16>(ch, 16) > kS4gMaxSmem)
+      return launch_wide<__nv_bfloat16, 2>(x, ch, out, stream);
     return launch<__nv_bfloat16, 1>(x, ch, out, stream);
   }
-  if (bf16 == 0) return launch<float, 1>(x, ch, out, stream);
+  if (bf16 == 0) {
+    if (layers == 1 && tile_smem<float>(ch, 16) > kS4gMaxSmem)
+      return launch_wide<float, 1>(x, ch, out, stream);
+    return launch<float, 1>(x, ch, out, stream);
+  }
   return cudaErrorInvalidValue;
 }

@@ -1,6 +1,6 @@
 // Neighbour selection shared by K2 (ball_query_slab.cu), K3 (sa1_fused.cu)
 // and K2f (ball_query_full.cu), so that all three select the same keys bit
-// for bit, and the slab bounds K3 and K2f scan on keys that ascend.
+// for bit, and the slab bounds the three scan on keys that ascend.
 //
 // A key is in range when its f32 difference-form squared distance is < r2
 // (strict); each 32-key chunk becomes one ballot word.  Slot s takes the
@@ -8,7 +8,7 @@
 // (total > K), of rank floor(s*total/K)+1.  The slab kernels scan the
 // 8,192-key window that starts at key lo_tile * 2048 (keys past N are
 // padding, 1e9, never in range); K2f scans all N keys.  Where the keys
-// ascend along a coordinate, K3 and K2f scan only the words that hold keys
+// ascend along a coordinate, the three scan only the words that hold keys
 // within `margin` of the centroid along it (`bound`): every other key is
 // out of range, so ranks, totals and slots are the full scan's.
 #pragma once
@@ -22,20 +22,6 @@ constexpr int kKeyTile = 2048;        // BQ_K_TILE / SA_K_TILE
 constexpr int kWindow = 4 * kKeyTile; // (BQ|SA)_SLAB_TILES * key tile keys
 constexpr int kWords = kWindow / 32;  // one ballot word per 32 keys
 static_assert(kWords == 32 * 8, "the word scan gives each lane 8 words");
-
-// Stage scene P's key window [base, base + kWindow) in shared memory (all
-// threads of the block take part; the caller synchronises after).
-__device__ __forceinline__ void load_window(const float* __restrict__ P,
-                                            int n, int base, float* kx,
-                                            float* ky, float* kz) {
-  for (int j = threadIdx.x; j < kWindow; j += blockDim.x) {
-    const int g = base + j;
-    const bool real = g < n;  // keys past N are padding, never in range
-    kx[j] = real ? P[g] : 1e9f;
-    ky[j] = real ? P[n + g] : 1e9f;
-    kz[j] = real ? P[2 * n + g] : 1e9f;
-  }
-}
 
 // One warp: inclusive prefix counts of `nwords` ballot words (each lane
 // counts a run of consecutive words, then a warp scan).  Returns the total.
@@ -63,13 +49,12 @@ __device__ __forceinline__ int prefix_counts(const unsigned* words,
 }
 
 // One warp: the in-range ballot words of centroid (cx, cy, cz) over the
-// window's words [w_lo, w_lo + nw), into words[0 .. nw), and their inclusive
-// prefix counts.  Returns the number of in-range keys among them.
-__device__ __forceinline__ int scan_words(const float* kx, const float* ky,
-                                          const float* kz, float cx, float cy,
-                                          float cz, float r2, unsigned* words,
-                                          int* prefix, int w_lo, int nw,
-                                          int lane) {
+// keys' words [w_lo, w_lo + nw), into words[0 .. nw).
+__device__ __forceinline__ void ballot_words(const float* kx, const float* ky,
+                                             const float* kz, float cx,
+                                             float cy, float cz, float r2,
+                                             unsigned* words, int w_lo, int nw,
+                                             int lane) {
   // One in-range ballot word per 32-key chunk.  Lane i keeps word w0 + i of
   // each run of 32 in a register and stores it after the run, so the loop
   // body holds no store and the key loads of several words are in flight.
@@ -85,18 +70,18 @@ __device__ __forceinline__ int scan_words(const float* kx, const float* ky,
     }
     if (lane < len) words[w0 + lane] = mine;
   }
-  __syncwarp();
-  return prefix_counts(words, prefix, nw, lane);
 }
 
-// The same over the whole window.
-__device__ __forceinline__ int scan_window(const float* kx, const float* ky,
-                                           const float* kz, float cx,
-                                           float cy, float cz, float r2,
-                                           unsigned* words, int* prefix,
-                                           int lane) {
-  return scan_words(kx, ky, kz, cx, cy, cz, r2, words, prefix, 0, kWords,
-                    lane);
+// The same, then the words' inclusive prefix counts.  Returns the number of
+// in-range keys among them.
+__device__ __forceinline__ int scan_words(const float* kx, const float* ky,
+                                          const float* kz, float cx, float cy,
+                                          float cz, float r2, unsigned* words,
+                                          int* prefix, int w_lo, int nw,
+                                          int lane) {
+  ballot_words(kx, ky, kz, cx, cy, cz, r2, words, w_lo, nw, lane);
+  __syncwarp();
+  return prefix_counts(words, prefix, nw, lane);
 }
 
 // Half-width of a ball's slab along an ascending coordinate: a key farther

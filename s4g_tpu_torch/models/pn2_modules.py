@@ -71,26 +71,33 @@ class PointNetSAModule(nn.Module):
                 and self.num_neighbours % 8 == 0)
 
     def forward(self, xyz: torch.Tensor, feature: Optional[torch.Tensor],
-                sorted_axis: Optional[torch.Tensor] = None
+                sorted_axis: Optional[torch.Tensor] = None,
+                fps_index: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """`sorted_axis`: (B,) tensor promising that `xyz` is sorted
         ascending along that coordinate.  Then this stage keeps the
         sortedness invariant (its centroids come out sorted too), promises
         sorted centroids to the ball query and selects rank-stratified
-        neighbours (`ops/neighbors.py`)."""
-        sharded = (sorted_axis is not None and fps_sharding_applies(
-            xyz.shape[1], self.num_centroids, self.fps_shards))
-        index = ops.farthest_point_sample(
-            _cf(xyz).contiguous(), self.num_centroids,
-            num_shards=self.fps_shards if sharded else 1,
-            sort_local=sharded)
-        if sorted_axis is not None and not sharded:
-            # Exact FPS emits centroids in pick order: re-sort them along
-            # the sort axis (stable, as jnp.argsort).
-            ckeys = torch.gather(_axis_keys(_cf(xyz), sorted_axis), 1,
-                                 index.long())
-            index = torch.gather(index, 1,
-                                 torch.argsort(ckeys, dim=1, stable=True))
+        neighbours (`ops/neighbors.py`).  `fps_index`: this stage's
+        centroid indices (B, M) into `xyz`, computed by the backbone for
+        every stage at once (`ops.sampling.fps_lane_nested`), in place of
+        this stage's FPS."""
+        if fps_index is not None:
+            index = fps_index
+        else:
+            sharded = (sorted_axis is not None and fps_sharding_applies(
+                xyz.shape[1], self.num_centroids, self.fps_shards))
+            index = ops.farthest_point_sample(
+                _cf(xyz).contiguous(), self.num_centroids,
+                num_shards=self.fps_shards if sharded else 1,
+                sort_local=sharded)
+            if sorted_axis is not None and not sharded:
+                # Exact FPS emits centroids in pick order: re-sort them
+                # along the sort axis (stable, as jnp.argsort).
+                ckeys = torch.gather(_axis_keys(_cf(xyz), sorted_axis), 1,
+                                     index.long())
+                index = torch.gather(index, 1,
+                                     torch.argsort(ckeys, dim=1, stable=True))
         new_xyz = gather_cl(xyz, index)
 
         csorted = sorted_axis is not None

@@ -18,6 +18,7 @@ from torch import nn
 from .nn_layers import SharedMLP
 from .pn2_modules import PointnetFPModule, PointNetSAModule, gather_cl
 from ..ops.neighbors import invert_permutation
+from ..ops.sampling import fps_lane_nested, fps_nesting_applies
 
 
 class PointNet2Backbone(nn.Module):
@@ -35,6 +36,7 @@ class PointNet2Backbone(nn.Module):
                 == num_layers)
         assert len(fp_channels) == len(num_fp_neighbours) == num_layers
         self.sort_points = sort_points
+        self.fps_shards = fps_shards
         widths = [0] + [c[-1] for c in sa_channels]
         self.sa_modules = nn.ModuleList(
             PointNetSAModule(widths[i], sa_channels[i], num_centroids[i],
@@ -67,12 +69,22 @@ class PointNet2Backbone(nn.Module):
             order = torch.argsort(keys, dim=1, stable=True)
             xyz = gather_cl(xyz, order)
 
+        # A sorted forward whose SA stages all take 128-shard FPS nests
+        # them: every stage's indices in one K1 launch.
+        centroids = [sa.num_centroids for sa in self.sa_modules]
+        fps_index = [None] * len(centroids)
+        if self.sort_points and fps_nesting_applies(
+                xyz.shape[1], centroids, self.fps_shards):
+            fps_index = fps_lane_nested(xyz.transpose(1, 2).contiguous(),
+                                        centroids)
+
         inter_xyz = [xyz]
         inter_feature: list[Optional[torch.Tensor]] = [None]
         feature = None
         cur_xyz = xyz
-        for sa in self.sa_modules:
-            cur_xyz, feature = sa(cur_xyz, feature, sorted_axis=sorted_axis)
+        for sa, index in zip(self.sa_modules, fps_index):
+            cur_xyz, feature = sa(cur_xyz, feature, sorted_axis=sorted_axis,
+                                  fps_index=index)
             inter_xyz.append(cur_xyz)
             inter_feature.append(feature)
 

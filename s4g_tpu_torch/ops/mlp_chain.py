@@ -20,7 +20,10 @@ holds up to 4 layers whose row tile fits a block's shared memory; a longer
 or wider chain runs as consecutive sub-chains that do (`chain_pieces`), one
 launch each, only the last one pooling.  The split changes no number: a
 sub-chain's output is f32 after its bias and ReLU, and the next one casts
-it to the compute dtype, the rounding the kernel gives a hidden layer.
+it to the compute dtype, the rounding the kernel gives a hidden layer.  A
+single layer whose tile does not fit is a sub-chain of its own; the kernel
+then splits its input channels into chunks and sums their products in f32
+before the bias, ReLU and pooling, so any width runs.
 """
 
 from __future__ import annotations
@@ -31,11 +34,12 @@ import torch
 
 from .. import _build
 
-# What the CUDA kernel takes: up to 4 layers, widths padded to multiples of
-# 16 (mma tiles), and a tile whose activation buffers (rows x the widest
-# even and odd layer inputs, + 8 elements of row padding each) and pooled
-# maxima fit a block's shared memory.  Its tiles: 32 rows in bf16, 16 where
-# 32 do not fit; 16 in f32.  The C launcher refuses the rest.  `_tile_smem`
+# What the CUDA kernel takes in one piece: up to 4 layers, widths padded to
+# multiples of 16 (mma tiles), and a tile whose activation buffers (rows x
+# the widest even and odd layer inputs, + 8 elements of row padding each)
+# and pooled maxima fit a block's shared memory; or any single layer.  Its
+# tiles: 32 rows in bf16, 16 where 32 do not fit; 16 in f32.  The C
+# launcher refuses longer pieces that do not fit.  `_tile_smem`
 # copies the launcher's sum; a GPU test
 # (`test_mlp_chain_planner_agrees_with_the_launcher`) holds the two equal
 # at the widest chains they take.
@@ -94,7 +98,8 @@ def chain_pieces(widths: Sequence[int], pool_k: Optional[int],
     """Consecutive sub-chains [a, b) of a chain with layer widths `widths`
     (input first) that the kernel holds: each of at most 4 layers and with
     a tile that fits, taken greedily from the first layer; only the last
-    one pools.  Raises ValueError for a layer that fits no tile alone."""
+    one pools.  A layer that fits no tile alone is a piece of its own (the
+    kernel splits its input channels)."""
     kpads = [_round_up(w, _PAD) for w in widths]
     layers = len(widths) - 1
     pieces, a = [], 0
@@ -104,11 +109,7 @@ def chain_pieces(widths: Sequence[int], pool_k: Optional[int],
                 kpads[a:b + 1], kpads[b + 1],
                 pool_k if b + 1 == layers else None, compute_dtype):
             b += 1
-        if b == a:
-            raise ValueError(
-                f"layer {a} ({widths[a]} -> {widths[a + 1]}) does not fit "
-                f"the K7 kernel's shared memory at any row tile in "
-                f"{compute_dtype}")
+        b = max(b, a + 1)
         pieces.append((a, b))
         a = b
     return pieces

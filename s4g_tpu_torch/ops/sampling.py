@@ -12,10 +12,15 @@ Port of s4g_tpu/ops/sampling.py.  Semantics:
 Routes: on a CUDA tensor every FPS is a kernel — the 128-shard case
 `csrc/fps_lane.cu` (K1), exact FPS and every other shard count
 `csrc/fps_exact.cu` (K6).  On a CPU tensor they take the plain twins
-`_fps_sharded_plain` and `_fps_plain`.
+`_fps_sharded_plain` and `_fps_plain`.  A sorted forward whose SA stages
+all take 128-shard FPS computes every stage's indices at once
+(`fps_lane_nested`: one K1 launch on the card, `_fps_nested_plain` on the
+CPU).
 """
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 
@@ -77,8 +82,73 @@ def fps_lane_sharded(points: torch.Tensor,
     _build.check(points, "points", torch.float32, (b, 3, n))
     out = torch.empty((b, num_centroids), dtype=torch.int32,
                       device=points.device)
-    _build.launch("fps_lane", points, b, n, num_centroids, out)
+    _build.launch("fps_lane", points, b, n, 0, num_centroids, 0, 0, out,
+                  None, None)
     return out
+
+
+# The nested K1 kernel keeps a shard's points in registers, 8 per lane of a
+# warp, and runs up to 3 stages in one launch.
+FPS_NESTED_MAX_SHARD = 256
+FPS_NESTED_MAX_STAGES = 3
+
+
+def fps_nesting_applies(n: int, centroids: Sequence[int],
+                        num_shards: int) -> bool:
+    """True iff `fps_lane_nested` computes the FPS of SA stages taking
+    `centroids` from an N-point cloud: 128 shards at every stage
+    (`fps_sharding_applies` for each stage's input and M), at most 3
+    stages, and shards of at most FPS_NESTED_MAX_SHARD points."""
+    sizes = (n, *centroids)
+    return (num_shards == _LANES
+            and 1 <= len(centroids) <= FPS_NESTED_MAX_STAGES
+            and n // num_shards <= FPS_NESTED_MAX_SHARD
+            and all(fps_sharding_applies(a, m, num_shards)
+                    for a, m in zip(sizes, sizes[1:])))
+
+
+def _sort_shards(index: torch.Tensor, num_shards: int) -> torch.Tensor:
+    """sort_local: each shard's picks in ascending order."""
+    b, m = index.shape
+    return torch.sort(index.reshape(b, num_shards, m // num_shards),
+                      dim=2)[0].reshape(b, m)
+
+
+def _fps_nested_plain(points: torch.Tensor,
+                      centroids: Sequence[int]) -> list:
+    """Plain twin of nested K1: the per-stage route chained — 128-shard FPS
+    with sort_local, then the picks' coordinates gathered as the next
+    stage's cloud."""
+    b = points.shape[0]
+    out, cur = [], points
+    for m in centroids:
+        index = _sort_shards(_fps_sharded_plain(cur, m), _LANES)
+        out.append(index)
+        cur = torch.gather(cur, 2, index.long()[:, None, :].expand(b, 3, m))
+    return out
+
+
+def fps_lane_nested(points: torch.Tensor, centroids: Sequence[int]) -> list:
+    """Nested 128-shard FPS (K1) of the SA stages of a sorted forward:
+    (B, 3, N) f32 -> one (B, M_s) int32 index per stage, each what
+    `farthest_point_sample(..., num_shards=128, sort_local=True)` gives on
+    the previous stage's picks (stage 1: on `points`).  Requires
+    `fps_nesting_applies(N, centroids, 128)`.  CUDA tensors launch
+    `csrc/fps_lane.cu` once for every stage; CPU tensors take
+    `_fps_nested_plain`."""
+    b, _, n = points.shape
+    if not fps_nesting_applies(n, centroids, _LANES):
+        raise ValueError(f"nested 128-shard FPS does not apply to N={n}, "
+                         f"M={tuple(centroids)}")
+    if not _build.on_cuda(points):
+        return _fps_nested_plain(points, centroids)
+    _build.check(points, "points", torch.float32, (b, 3, n))
+    outs = [torch.empty((b, m), dtype=torch.int32, device=points.device)
+            for m in centroids]
+    pad = FPS_NESTED_MAX_STAGES - len(centroids)
+    _build.launch("fps_lane", points, b, n, len(centroids),
+                  *centroids, *([0] * pad), *outs, *([None] * pad))
+    return outs
 
 
 # K6 keeps a chain's min-distances in registers up to this many points
@@ -168,9 +238,5 @@ def farthest_point_sample(points: torch.Tensor, num_centroids: int,
             out = fps_lane_sharded(points, num_centroids)
         else:
             out = fps_sharded(points, num_centroids, num_shards)
-        if sort_local:
-            m_g = num_centroids // num_shards
-            out = torch.sort(out.reshape(-1, num_shards, m_g), dim=2)[0] \
-                .reshape(-1, num_centroids)
-        return out
+        return _sort_shards(out, num_shards) if sort_local else out
     return fps_exact(points, num_centroids)

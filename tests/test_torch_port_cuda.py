@@ -89,6 +89,30 @@ def test_fps_sharded_kernel_matches_plain(cuda, b, g, n, m):
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("b,n,centroids,grid", [
+    (1, 25600, (5120, 1024, 256), None),   # the deployed stages
+    (4, 25600, (5120, 1024, 256), 0.05),   # b = 4, ties on a lattice
+    (2, 32768, (4096, 1024, 256), None),   # 256-point shards: every slot
+    (2, 8192, (1024, 256, 128), 0.1),      # one pick a shard at stage 3
+    (1, 4096, (4096, 512), None),          # two stages; every row picked
+])
+def test_fps_nested_kernel_matches_plain(cuda, b, n, centroids, grid):
+    """Nested K1 (every SA stage in one launch) against the chained
+    per-stage twin, bit for bit.  With `grid`, shard 5 of each scene is one
+    repeated point, so its picks after the first are row 0 again."""
+    pts = _sorted_cloud(np.random.RandomState(n + b), b, n, grid)
+    if grid is not None:
+        ns = n // 128
+        pts[:, :, 5 * ns:6 * ns] = pts[:, :, 5 * ns:5 * ns + 1]
+    want = sp._fps_nested_plain(pts, centroids)
+    before = _build.LAUNCHES["fps_lane"]
+    got = sp.fps_lane_nested(pts.to(cuda), centroids)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fps_lane"] == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
 def test_fps_on_cuda_launches_a_kernel(cuda, monkeypatch):
     """farthest_point_sample never hands a CUDA tensor to the plain loop:
     exact FPS and G-shard FPS launch K6, 128 shards K1."""
@@ -233,6 +257,39 @@ def test_ball_query_slab_kernel_matches_plain(cuda, n, m, radius, k,
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("b,n,m,radius,k", [
+    (1, 25600, 5120, 0.02, 64),    # SA1 at b = 1
+    (4, 25600, 5120, 0.02, 128),   # b = 4, K = 128
+    (1, 9000, 1000, 0.2, 128),     # overfull balls, slabs past one chunk
+    (4, 9000, 1000, 0.05, 64),
+])
+@pytest.mark.parametrize("ascending", [True, False])
+@pytest.mark.parametrize("stratified", [False, True])
+def test_ball_query_slab_kernel_restricted_and_not(cuda, b, n, m, radius, k,
+                                                   ascending, stratified):
+    """K2 where x ascends over every window (each ball scans its slab
+    only) and where no coordinate does (keys shuffled inside each 2,048-key
+    tile, so each window holds the same keys out of order: the whole window
+    is scanned), bit for bit its twin either way."""
+    rng = np.random.RandomState(n + m + b)
+    pts, cents = _sorted_scene(rng, b, n, m, spread=(1.1, 0.9, 0.05))
+    lo_tile, _ = nb.slab_windows(pts[:, 0].contiguous(),
+                                 cents[:, 0].contiguous(), radius * radius, n)
+    if not ascending:
+        for s in range(b):
+            for t0 in range(0, n, nb.BQ_K_TILE):
+                perm = t0 + rng.permutation(min(nb.BQ_K_TILE, n - t0))
+                pts[s, :, t0:t0 + len(perm)] = pts[s][:, perm]
+    want = nb._ball_query_slab_plain(pts, cents, lo_tile, radius * radius, k,
+                                     stratified)
+    got = nb.ball_query_fused_slab(pts.to(cuda), cents.to(cuda),
+                                   lo_tile.to(cuda), radius, k, stratified)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert int((want[1] > 1).sum()) > m // 2
 
 
 @pytest.mark.parametrize("b,n1,n2,grid", [
@@ -472,6 +529,12 @@ def _chain(rng, p, widths, zero_rows=False):
     # sub-chain in f32 at 16 rows.
     (200, (4096, 64, 32), None, "bfloat16", False),
     (200, (1024, 3000, 64), 8, "float32", False),
+    # one layer wider than any tile: its input channels split in the kernel
+    (100, (7300, 48), None, "bfloat16", False),
+    (128, (7300, 48), 16, "bfloat16", True),
+    (100, (3700, 48), None, "float32", False),
+    (128, (3700, 300), 4, "float32", True),
+    (128, (32, 7300, 48), 64, "bfloat16", False),   # a wide hidden layer
 ])
 def test_mlp_chain_kernel_matches_plain(cuda, p, widths, pool, dtype,
                                         zero_rows):
@@ -498,26 +561,32 @@ def test_mlp_chain_wrapper_refuses_and_counts(cuda, monkeypatch):
     x, params = _chain(rng, 64, (40, 32, 16))
     x = x.to(cuda)
     params = [(w.to(cuda), b.to(cuda)) for w, b in params]
+    plain = mc._mlp_chain_plain
     monkeypatch.setattr(mc, "_mlp_chain_plain",
                         lambda *a, **kw: pytest.fail("plain chain on the card"))
     with pytest.raises(ValueError, match="mixed devices"):
         mc.mlp_chain(x.cpu(), params, (True, True))
     with pytest.raises(RuntimeError, match="mlp_chain failed to launch"):
         mc.mlp_chain(x[:48], params, (True, True), pool_k=24)  # not 2^k
-    # The stated limit (ROADMAP.md §3): a layer whose input is wider than
-    # 7,248 bf16 (3,616 f32) fits no row tile.
-    for width, cd in ((7264, torch.bfloat16), (3632, torch.float32)):
-        wide = torch.zeros(width, 16, device=cuda)
-        with pytest.raises(ValueError, match="does not fit"):
-            mc.mlp_chain(torch.zeros(8, width, device=cuda),
-                         [(wide, torch.zeros(16, device=cuda))], (True,),
-                         compute_dtype=cd)
     before = _build.LAUNCHES["mlp_chain"]
     mc.mlp_chain(x, params, (True, True), pool_k=16)
     assert _build.LAUNCHES["mlp_chain"] == before + 1
     five = [(torch.eye(40, device=cuda), torch.zeros(40, device=cuda))] * 5
     mc.mlp_chain(x, five, (True,) * 5)        # 4 + 1 layers: two launches
     assert _build.LAUNCHES["mlp_chain"] == before + 3
+    # A layer whose input is wider than any row tile takes (7,264 bf16,
+    # 3,632 f32) splits its input channels: one launch, the twin's result.
+    for width, cd, tol in ((7264, torch.bfloat16, 1e-2),
+                           (3632, torch.float32, 1e-5)):
+        xw, wide = _chain(rng, 8, (width, 16))
+        wide = [(w.to(cuda), b.to(cuda)) for w, b in wide]
+        got = mc.mlp_chain(xw.to(cuda), wide, (True,), compute_dtype=cd)
+        torch.cuda.synchronize()
+        want = plain(xw, [(w.cpu(), b.cpu()) for w, b in wide], (True,),
+                     None, cd)
+        assert float((got.cpu() - want).abs().max()) <= \
+            tol * float(want.abs().max())
+    assert _build.LAUNCHES["mlp_chain"] == before + 5
 
 
 def test_sa1_fallback_hands_k2f_the_sort_axis(cuda):
@@ -564,36 +633,37 @@ def test_sa1_fallback_hands_k2f_the_sort_axis(cuda):
 def test_mlp_chain_planner_agrees_with_the_launcher(cuda, dtype, pool,
                                                     widths):
     """`chain_pieces` plans from a copy of the launcher's shared-memory sum
-    (`mlp_chain._tile_smem`): at the widest width it plans as one piece the
-    launcher must launch it, and the next width up it must plan apart and
-    the launcher refuse as one piece."""
+    (`mlp_chain._tile_smem`): at the widest width whose tile fits, the
+    launcher must launch the chain as one piece; the next width up a chain
+    of several layers must be planned apart and refused by the launcher as
+    one piece, while a single layer stays one piece that the launcher runs
+    by splitting its input channels."""
     cd = getattr(torch, dtype)
 
-    def one_piece(w):
-        try:
-            pieces = mc.chain_pieces(widths(w), pool, cd)
-        except ValueError:   # a layer that fits no tile alone
-            return False
-        return pieces == [(0, len(widths(w)) - 1)]
+    def fits(w):
+        kpads = [-(-x // 16) * 16 for x in widths(w)]
+        return mc._fits(kpads[:-1], kpads[-1], pool, cd)
 
     w = 16
-    while one_piece(w + 16):
+    while fits(w + 16):
         w += 16
     rows = pool or 16
-    for width, fits in ((w, True), (w + 16, False)):
+    for width, fit in ((w, True), (w + 16, False)):
         chain = widths(width)
+        single = len(chain) == 2
+        one_piece = mc.chain_pieces(chain, pool, cd) == [(0, len(chain) - 1)]
+        assert one_piece is (fit or single)
         params = [(torch.full((a, b), 1e-3, device=cuda),
                    torch.zeros(b, device=cuda))
                   for a, b in zip(chain, chain[1:])]
         packed, kpad0 = mc._pack(params, chain[0], cd)
         x = torch.ones(rows, chain[0], dtype=cd, device=cuda)
         relu = (True,) * len(params)
-        if fits:
+        if one_piece:
             out = mc._launch(x, packed, kpad0, chain[-1], relu, pool)
             torch.cuda.synchronize()
             assert bool(torch.isfinite(out).all())
         else:
-            assert not one_piece(width)
             with pytest.raises(RuntimeError, match="mlp_chain failed"):
                 mc._launch(x, packed, kpad0, chain[-1], relu, pool)
 
@@ -610,18 +680,23 @@ NARROW_DEPLOYED = {
 }
 
 
-def _narrow_forward(cuda, dense_column):
+def _narrow_forward(cuda, dense_column, centroids=None):
     """One b = 1 forward of a narrow deployed PN2_CLS (sorted cloud, SA1
     above the slab capacity) on a seeded cloud; with `dense_column`, most
     points share one sliver along the sort axis, so SA1's slab windows
-    overflow."""
+    overflow; `centroids` replaces the SA stages' centroid counts."""
     rng = np.random.RandomState(1)
     pts = (rng.rand(1, 3, 16384) * [[[0.6], [0.4], [0.3]]]).astype(np.float32)
     if dense_column:
         pts[0, 0, :13000] = 0.3 + 0.001 * rng.rand(13000)
+    spec = NARROW_DEPLOYED
+    if centroids is not None:
+        model = spec["MODEL"]
+        spec = {**spec, "MODEL": {**model, "PN2": {
+            **model["PN2"], "NUM_CENTROIDS": centroids}}}
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
-        net = build_model(load_cfg_from_dict(NARROW_DEPLOYED)).to(cuda)
+        net = build_model(load_cfg_from_dict(spec)).to(cuda)
     out = net({"scene_points": torch.from_numpy(pts).to(cuda)})
     torch.cuda.synchronize()
     return out
@@ -642,6 +717,22 @@ def test_deployed_forward_scans_in_full_through_k2f(cuda, monkeypatch,
     assert launched["ball_query_slab"] == 3 - full
     assert nb.SLAB_FALLBACKS["overflow"] - fallbacks == full - 2
     assert launched["mlp_chain"] == 0
+    assert bool(torch.isfinite(out["score"]).all())
+
+
+@pytest.mark.parametrize("centroids,fps_lane,fps_exact", [
+    ((4096, 256, 128), 1, 0),   # every stage 128-shard: nested, one launch
+    ((4096, 256, 64), 2, 1),    # SA3 exact FPS: per stage, K1 twice, K6
+])
+def test_deployed_forward_launches_k1_once_where_the_stages_nest(
+        cuda, monkeypatch, centroids, fps_lane, fps_exact):
+    monkeypatch.setattr(sp, "_fps_nested_plain",
+                        lambda *a: pytest.fail("plain FPS on the card"))
+    before = dict(_build.LAUNCHES)
+    out = _narrow_forward(cuda, False, centroids)
+    launched = {k: _build.LAUNCHES[k] - before[k] for k in before}
+    assert launched["fps_lane"] == fps_lane
+    assert launched["fps_exact"] == fps_exact
     assert bool(torch.isfinite(out["score"]).all())
 
 

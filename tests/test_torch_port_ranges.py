@@ -6,8 +6,8 @@ the functions the card computes through other routes:
 
 * the fused SA1 stage outside K3's range (`sa_fused._sa1_wide`: K2's
   selection feeding K7) against `sa1_fused_slab_pallas(interpret=True)`;
-* a K7 chain split into sub-chains (`mlp_chain.chain_pieces`) against
-  `mlp_chain_pallas(interpret=True)`;
+* a K7 chain split into sub-chains (`mlp_chain.chain_pieces`), and a
+  layer wider than any row tile, against `mlp_chain_pallas(interpret=True)`;
 * K2f's full scan on sorted scenes, and the selection K2f makes there
   when it scans only each ball's slab (`_slab_scan`, a plain model of the
   kernel's restriction kept here), against the JAX full scan
@@ -131,12 +131,72 @@ def test_chain_pieces(widths, pool, dtype, pieces):
     assert mc.chain_pieces(widths, pool, dtype) == pieces
 
 
-def test_chain_pieces_refuses_past_the_stated_width():
-    assert mc.chain_pieces((7248, 16), None, torch.bfloat16) == [(0, 1)]
-    assert mc.chain_pieces((3616, 16), None, torch.float32) == [(0, 1)]
-    for width, cd in ((7249, torch.bfloat16), (3617, torch.float32)):
-        with pytest.raises(ValueError, match="does not fit"):
-            mc.chain_pieces((width, 16), None, cd)
+@pytest.mark.parametrize("widths,pool,dtype,pieces,whole", [
+    ((7248, 16), None, torch.bfloat16, [(0, 1)], True),   # widest whole tile
+    ((7264, 16), None, torch.bfloat16, [(0, 1)], False),  # channels split
+    ((3616, 16), None, torch.float32, [(0, 1)], True),
+    ((3632, 16), None, torch.float32, [(0, 1)], False),
+    ((64, 7300, 32, 16), 8, torch.bfloat16, [(0, 1), (1, 2), (2, 3)], False),
+])
+def test_chain_pieces_splits_the_input_channels(widths, pool, dtype, pieces,
+                                                whole):
+    """Past the widest tile a layer is a piece of its own, which the kernel
+    runs by splitting its input channels (no width is refused)."""
+    assert mc.chain_pieces(widths, pool, dtype) == pieces
+    a, b = next(p for p in pieces if widths[p[0]] > 1024)
+    kpads = [-(-w // 16) * 16 for w in widths]
+    last = pool if b == len(widths) - 1 else None
+    assert mc._fits(kpads[a:b], kpads[b], last, dtype) is whole
+
+
+@pytest.mark.parametrize("pool", [None, 16])
+@pytest.mark.parametrize("dtype,width", [("bfloat16", 7300),
+                                         ("float32", 3700)])
+def test_wide_layer_matches_jax_kernel(dtype, width, pool):
+    """A layer wider than any row tile (the kernel sums its input channels
+    in chunks): the twin against `mlp_chain_pallas`, with and without the
+    group max, within K7's tolerances."""
+    rng = np.random.RandomState(width)
+    p, c_out = 64, 48
+    x = rng.randn(p, width).astype(np.float32)
+    w = (rng.randn(width, c_out) / np.sqrt(width)).astype(np.float32)
+    b = (rng.randn(c_out) * 0.1).astype(np.float32)
+    cd = getattr(torch, dtype)
+    assert mc.chain_pieces((width, c_out), pool, cd) == [(0, 1)]
+    want = np.asarray(mlp_chain_pallas(
+        jnp.asarray(x), ((jnp.asarray(w), jnp.asarray(b)),), (True,), pool,
+        getattr(jnp, dtype), interpret=True))
+    got = mc.mlp_chain(_t(x), [(_t(w), _t(b))], (True,), pool, cd)
+    assert got.shape == want.shape == (p // (pool or 1), c_out)
+    scale = float(np.abs(want).max())
+    assert scale > 0.1
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    assert float(np.abs(got.numpy() - want).max()) <= tol * scale
+
+
+def test_wide_hidden_layer_matches_jax_kernel():
+    """A wide hidden layer: the chain splits before and after it (the
+    split rounds where the kernel rounds a hidden layer) and, composed
+    through the twin, is `mlp_chain_pallas`'s chain."""
+    rng = np.random.RandomState(7)
+    widths, p, pool = (32, 7300, 48), 64, 16
+    x = rng.randn(p, widths[0]).astype(np.float32)
+    params = [((rng.randn(a, b) / np.sqrt(a)).astype(np.float32),
+               (rng.randn(b) * 0.1).astype(np.float32))
+              for a, b in zip(widths, widths[1:])]
+    pieces = mc.chain_pieces(widths, pool, torch.bfloat16)
+    assert pieces == [(0, 1), (1, 2)]
+    want = np.asarray(mlp_chain_pallas(
+        jnp.asarray(x), tuple((jnp.asarray(w), jnp.asarray(b))
+                              for w, b in params), (True, True), pool,
+        jnp.bfloat16, interpret=True))
+    tparams = [(_t(w), _t(b)) for w, b in params]
+    got = mc.run_pieces(_t(x), tparams, (True, True), pool, torch.bfloat16,
+                        pieces, mc._mlp_chain_plain)
+    scale = float(np.abs(want).max())
+    assert float(np.abs(got.numpy() - want).max()) <= 1e-2 * scale
+    assert torch.equal(got, mc._mlp_chain_plain(_t(x), tparams, (True, True),
+                                                pool, torch.bfloat16))
 
 
 # -- K2f on sorted scenes, and past its old size --------------------------------
