@@ -18,8 +18,8 @@ run, but the run then exits non-zero without printing a result:
    events (CUDA-graph replays of back-to-back launches, so host launch cost
    is excluded), beside its plain twin's time and its bound — K1 nested
    (the three SA stages in one launch, against the per-stage twin chained,
-   with its chain floor beside the bound) and per stage (the same stages,
-   and 320-point shards that do not nest), K2 on the sorted scene (each
+   with its chain floor, a model estimate, beside the bound) and per
+   stage (the same stages, and 320-point shards that do not nest), K2 on the sorted scene (each
    ball scans its slab) and on the same keys shuffled inside each key
    tile (no coordinate ascends: whole windows); then K3 (the
    fused SA1 stage of detect_batch) at b = 2 on a tabletop and a clutter
@@ -31,7 +31,10 @@ run, but the run then exits non-zero without printing a result:
    (full-scan ball query) at the reference-parity configuration's shapes
    (`curvature_model.yaml` with SORT_POINTS false and FPS_SHARDS 1) at
    b = 1 and 2, bit for bit (K6 also with 8 shards), timed beside their
-   twins, and K2f again at the deployed path's SA2 and SA3 (sorted
+   twins (K6 with the cluster size its launcher picks per stage, its chain
+   floor, a model estimate, and its push exchange timed against the
+   cluster-barrier one),
+   and K2f again at the deployed path's SA2 and SA3 (sorted
    scenes, the sort promise handed on; kept and broken), bit for bit,
    timed per scene against a bound of the distance tests the data needs,
    and at detect_batch's SA1 full-scan fallback (b = 2, tabletop and
@@ -41,14 +44,16 @@ run, but the run then exits non-zero without printing a result:
    (every pair in full, and that pruned count); then the inputs past the
    kernels' old ranges
    (`_fault_phase`: the fused SA1 stage at 256/256/512 through K2 + K7, a
-   6-layer K7 chain, K2f at 50,000 and 100,000 keys, K6 at 40,000 points
-   per chain), each printed with its max |kernel - twin| against its
+   6-layer K7 chain, K2f at 50,000 and 100,000 keys, K6 at 40,000 and
+   400,000 points per chain), each printed with its max |kernel - twin|
+   against its
    tolerance; then K7 (the SharedMLP chain) at each of the ten chains of a
    b = 1 fused-chain forward, their inputs captured from a seeded tabletop,
    held against its twin (bf16 within 1e-2 of the output's max, as K3;
    f32 within 1e-5) plus one f32 case at SA2's shape, timed per forward
-   beside its twin, its bound, the fused route as the model calls it (BN
-   folding and weight packing included) and the unfused route;
+   beside its twin, its bound, the fused route as the model calls it (the
+   packed-operand cache, casts and kernel launches) and the unfused route,
+   with each chain's launches (FP1 and FP2 run one layer a launch);
 3. reference: the detect stages at a narrow width that still takes every
    kernel route, on the GPU and on the CPU (plain twins), each stage fed
    the same inputs on both devices (see `_reference_phase`); then the
@@ -74,7 +79,9 @@ run, but the run then exits non-zero without printing a result:
    on in turns at b = 1 and 2 (uncounted, timed).  Each run's launch
    counters are zeroed before it and read after it, and every kernel must
    launch exactly its count per forward (`_deployed_launches`,
-   `_parity_launches`), given the SA1 overflows the run reported;
+   `_parity_launches`, `FUSED_K7_LAUNCHES`), given the SA1 overflows the
+   run reported; over the counted fused-chain runs the packed-operand
+   cache must hit on every chain and pack none;
 5. profile: one detect, one detect_batch at b = 2, one parity detect and
    one fused-chain detect under torch.profiler — device time by kernel and
    the device's idle share.
@@ -105,6 +112,13 @@ PEAK_BYTES = 3.35e12
 
 NUM_DETECT = 3
 NUM_BATCH = 3
+
+# K7 launches per fused-chain forward at full width: every SharedMLP chain
+# once, but FP1 and FP2 one layer a launch (their two layers' bf16 tiles do
+# not fit one block's shared memory together): 10 chains in 12 launches at
+# b = 1; 9 in 11 at b >= 2, where K3 takes SA1; the pooled scope fuses the
+# three SA chains only.
+FUSED_K7_LAUNCHES = {"detect": 12, "batch": 11, "pooled": 3}
 
 # The ball query's slab capacity (`ops.neighbors.ball_query`): a sorted SA
 # input above it takes K2, every other one K2f.
@@ -402,19 +416,21 @@ def _kernel_phase(inp, torch, extras):
     # compare, 5 selects) on one warp, at most one a clock, then waits on
     # two warp reductions and the winner's coordinate shuffle (~30 clocks
     # each, dependent): 15 x slots + 90 clocks, at the card's top SM clock.
+    # A model estimate from assumed latencies: printed, not in the kernels
+    # line.
     clock_mhz = _max_sm_clock_mhz()
     cycles = sum((m // 128 - 1) * (15 * -(-(n // 128) // 32) + 90)
                  for n, m in zip(n_pts, ms_c))
     steps = sum(m // 128 - 1 for m in ms_c)
     floor = 1e3 * cycles / (clock_mhz * 1e6)
     extras["fps_lane"] = {
-        "chain_floor_ms": floor, "chain_floor_cycles": cycles,
         "argmax_steps": steps, "sm_clock_max_mhz": clock_mhz,
         "per_stage_ms": stage_ms, "per_stage_max_abs_err": stage_err,
         "per_stage_320_point_shards_ms": wide_ms}
     print(f"kernel fps_lane: nested, {len(ms_c)} stages {n_pts} in one launch"
-          f" {ms:.4f} ms, bound {bound:.6f} ms ({by}), chain floor {floor:.5f}"
-          f" ms ({steps} argmax steps, {cycles} clocks at {clock_mhz} MHz); "
+          f" {ms:.4f} ms, bound {bound:.6f} ms ({by}), chain floor (model "
+          f"estimate, not measured) {floor:.5f} ms ({steps} argmax steps, "
+          f"{cycles} clocks at {clock_mhz} MHz); "
           f"per-stage kernel at the same stages {stage_ms:.4f} ms (3 "
           f"launches), at {wide.shape[2]} -> {wide_m} (320-point shards, "
           f"not nested) {wide_ms:.4f} ms", flush=True)
@@ -943,11 +959,36 @@ def _parity_inputs(det, torch, np):
             "k": cfg.NUM_NEIGHBOURS}
 
 
-def _k6_phase(inp, torch):
+# K6's critical path per argmax step, in clocks: a model estimate from
+# assumed latencies, measured by nothing in this script, so it is printed
+# but kept out of the kernels line (PERF.md, section 6).  The relax, ~15
+# issue clocks a register slot (3 sub, 3 mul, 2 add, min, compare,
+# selects), then a fixed chain: the warp argmax (2 redux, ~60),
+# the warp winners' meeting in shared memory with a block barrier and 2
+# more redux (~150), the winner's coordinates (~60), the st.async push to
+# the peers' mbarriers (~200), the wait's wake-up (~40) and the argmax of
+# the C messages (~130).
+K6_SLOT_CLOCKS = 15
+K6_STEP_CLOCKS = 640
+
+
+def _k6_slots(ns: int, blocks: int) -> int:
+    """Register slots a K6 thread relaxes per step (the launcher's PPT)."""
+    per_block, slots = -(-ns // blocks), 1
+    while slots < 16 and per_block > slots * 512:
+        slots *= 2
+    return slots
+
+
+def _k6_phase(inp, torch, extras):
     """K6 against its plain twin, bit for bit: the parity path's three FPS
     stages at b = 1 and b = 2, and the 8-shard case at SA1's shape; then
     timed (CUDA-graph replays) beside the plain loop, timed once per stage:
-    it is thousands of steps of a few launches each."""
+    it is thousands of steps of a few launches each.  Prints the cluster
+    size chosen per stage, the times per stage at b = 1 and 2, the chain
+    floor (a model estimate, `K6_STEP_CLOCKS`) beside the bound, and the
+    two exchanges timed against each other (push, the default; cluster
+    barrier)."""
     from s4g_tpu_torch.ops import sampling as sp
 
     st = inp["stages"]
@@ -963,23 +1004,45 @@ def _k6_phase(inp, torch):
     err = max(err, _compare("fps_exact 8 shards",
                             [sp.fps_sharded(p8, m8, 8)],
                             [sp._fps_sharded_plain(p8, m8, 8)], True))
-    stage_ms = [_graph_ms(lambda p=p, m=m: sp.fps_exact(p, m), reps=5,
-                          per_graph=3) for p, m in calls[1]]
-    ms = sum(stage_ms)
-    ms_b2 = sum(_graph_ms(lambda p=p, m=m: sp.fps_exact(p, m), reps=5,
-                          per_graph=3) for p, m in calls[2])
+    ns = [p.shape[2] for p, _ in calls[1]] + [calls[1][-1][1]]
+    blocks = [sp.fps_exact_plan(n)[0] for n in ns[:3]]
+    stage_ms = {b: [_graph_ms(lambda p=p, m=m: sp.fps_exact(p, m), reps=5,
+                              per_graph=3) for p, m in cs]
+                for b, cs in calls.items()}
+    ms, ms_b2 = sum(stage_ms[1]), sum(stage_ms[2])
+    exchange_ms = {"push": ms}
+    for ex in sp.FPS_EXCHANGES[1:]:
+        exchange_ms[ex] = sum(_graph_ms(
+            lambda p=p, m=m, ex=ex: sp._fps_exact_launch(p, m, 1, ex),
+            reps=5, per_graph=3) for p, m in calls[1])
     ms_g8 = _graph_ms(lambda: sp.fps_sharded(p8, m8, 8), reps=5)
     plain = sum(_event_ms(lambda p=p, m=m: sp._fps_plain(p, m), reps=1,
                           warmup=0) for p, m in calls[1])
     # 9 f32 operations (3 sub, 3 mul, 2 add, min) per point per step; each
     # point read once, each index written once.
-    ns = [p.shape[2] for p, _ in calls[1]] + [calls[1][-1][1]]
     ops = sum(9.0 * ns[i] * (ns[i + 1] - 1) for i in range(3))
     nbytes = sum(12 * ns[i] + 4 * ns[i + 1] for i in range(3))
-    print(f"kernel fps_exact: per stage at b=1 "
-          f"{', '.join(f'{t:.4f}' for t in stage_ms)} ms; per forward "
-          f"b=1 {ms:.4f} ms, b=2 {ms_b2:.4f} ms; 8 shards at SA1 "
-          f"{ms_g8:.4f} ms", flush=True)
+    clock_mhz = _max_sm_clock_mhz()
+    cycles = sum((ns[i + 1] - 1) * (K6_SLOT_CLOCKS * _k6_slots(ns[i],
+                                                                blocks[i])
+                                    + K6_STEP_CLOCKS) for i in range(3))
+    steps = sum(ns[i + 1] - 1 for i in range(3))
+    floor = 1e3 * cycles / (clock_mhz * 1e6)
+    extras["fps_exact"] = {
+        "cluster_blocks_per_stage": blocks, "per_stage_ms_b1": stage_ms[1],
+        "per_stage_ms_b2": stage_ms[2], "per_forward_ms_b2": ms_b2,
+        "exchange_ms": exchange_ms, "eight_shards_ms": ms_g8,
+        "argmax_steps": steps, "sm_clock_max_mhz": clock_mhz}
+    print(f"kernel fps_exact: cluster blocks per stage {blocks} for "
+          f"{ns[:3]}-point chains; per stage at b=1 "
+          f"{', '.join(f'{t:.4f}' for t in stage_ms[1])} ms, at b=2 "
+          f"{', '.join(f'{t:.4f}' for t in stage_ms[2])} ms; per forward "
+          f"b=1 {ms:.4f} ms, b=2 {ms_b2:.4f} ms; chain floor (model "
+          f"estimate, not measured) {floor:.4f} ms ({steps} argmax steps, "
+          f"{cycles} clocks at {clock_mhz} MHz); "
+          f"exchange at b=1: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in exchange_ms.items())
+          + f"; 8 shards at SA1 {ms_g8:.4f} ms", flush=True)
     return ("fps_exact", "s4g_tpu_torch/csrc/fps_exact.cu",
             "s4g_tpu/ops/sampling.py:81", err, ms, plain,
             *_bound_ms(ops, nbytes))
@@ -1187,11 +1250,15 @@ def _fault_phase(binp, torch, np, extras):
                                         sorted_axis=promise), want, True))
         record("ball_query_full", f"n{n}", err, 0.0)
 
-    # K6 past 32,768 points per chain.
-    p = torch.from_numpy(rng.rand(1, 3, 40000).astype(np.float32)).to(dev)
-    err = _compare("fps_exact N=40000", [sp.fps_exact(p, 256)],
-                   [sp._fps_plain(p, 256)], True)
-    record("fps_exact", "n40000", err, 0.0)
+    # K6 past 32,768 points per chain, and past what its cluster's shared
+    # memory holds (the rest of the coordinates from L2, min-distances in
+    # the scratch buffer).
+    for n, m in ((40000, 256), (400000, 24)):
+        p = torch.from_numpy(rng.rand(1, 3, n).astype(np.float32)).to(dev)
+        err = _compare(f"fps_exact N={n}", [sp.fps_exact(p, m)],
+                       [sp._fps_plain(p, m)], True)
+        record("fps_exact", f"n{n}", err, 0.0,
+               plan=sp.fps_exact_plan(n))
 
     for kernel, named in cases.items():
         extras.setdefault(kernel, {})["fault_cases"] = named
@@ -1228,10 +1295,11 @@ def _chain_inputs(det, torch, np):
 
 def _k7_case(name, mlp, x, k, cd, torch):
     """K7 on one chain against its twin on the card, then timed: the kernel
-    alone (packed weights), the twin and, at the module's own compute
-    dtype, the fused route as the model runs it (`fused_eval`: BN folding,
-    packing, casts, kernel) and the unfused route (`SharedMLP.forward` with
-    the route off).  Returns the numbers."""
+    alone (packed weights, one launch a piece), the twin and, at the
+    module's own compute dtype, the fused route as the model runs it
+    (`fused_eval`: the packed-operand cache, casts, kernel) and the unfused
+    route (`SharedMLP.forward` with the route off).  Returns the
+    numbers."""
     from s4g_tpu_torch.ops import mlp_chain as mc
 
     with torch.no_grad():
@@ -1250,11 +1318,21 @@ def _k7_case(name, mlp, x, k, cd, torch):
         raise AssertionError(f"mlp_chain {name} ({cd}): max |kernel - plain| "
                              f"= {err} > {tol} x max |plain| = {scale}")
     equal = float((got == want).double().mean())
-    packed, kpad0 = mc._pack(params, flat.shape[1], cd)
-    xc = flat.to(cd).contiguous()
-    c_out = params[-1][0].shape[1]
+    packed = mc._pack(params, flat.shape[1], cd)
+    widths = [flat.shape[1]] + [w.shape[1] for w, _ in params]
+    pieces = mc.chain_pieces(widths, k, cd)
+    # The kernel alone: one launch a piece, each on its input as the route
+    # hands it over (made here, outside the timing).
+    runs, h = [], flat
     with torch.no_grad():
-        ms = _graph_ms(lambda: mc._launch(xc, packed, kpad0, c_out, relu, k))
+        for a, b in pieces:
+            pool = k if b == len(params) else None
+            inp = mc._kernel_input(h, packed[a:b], pool)
+            runs.append((inp, packed[a:b], relu[a:b], pool))
+            h = mc._launch(*runs[-1])
+    launches = len(runs)
+    with torch.no_grad():
+        ms = _graph_ms(lambda: [mc._launch(*r) for r in runs])
         plain = _event_ms(lambda: mc._mlp_chain_plain(flat, params, relu, k,
                                                       cd), reps=5)
         route = unfused = float("nan")
@@ -1262,18 +1340,20 @@ def _k7_case(name, mlp, x, k, cd, torch):
             route = _graph_ms(lambda: mlp.fused_eval(x, k))
             with _mlp_route(MLP_IMPL="unfused"):
                 unfused = _graph_ms(lambda: mlp(x, max_pool_k=k))
-    widths = [flat.shape[1]] + [w.shape[1] for w, _ in params]
     flop = 2.0 * flat.shape[0] * sum(a * b for a, b in zip(widths, widths[1:]))
-    nbytes = (xc.numel() * xc.element_size() + 4 * got.numel()
+    xc = runs[0][0]
+    nbytes = (flat.shape[0] * flat.shape[1] * xc.element_size()
+              + 4 * got.numel()
               + sum(w.numel() * xc.element_size() + 4 * b.numel()
                     for w, b in params))
     print(f"kernel mlp_chain {name} ({str(cd)[6:]}): rows {flat.shape[0]}, "
-          f"widths {widths}, pool {k}; max|kernel-plain|={err:.3g} (max|plain|"
-          f" {scale:.3g}), bit-equal share {equal:.4f}; kernel {ms:.4f} ms, "
-          f"fused route {route:.4f}, unfused route {unfused:.4f}, plain "
-          f"{plain:.4f}", flush=True)
+          f"widths {widths}, pool {k}, {launches} launches; max|kernel-"
+          f"plain|={err:.3g} (max|plain| {scale:.3g}), bit-equal share "
+          f"{equal:.4f}; kernel {ms:.4f} ms, fused route {route:.4f}, "
+          f"unfused route {unfused:.4f}, plain {plain:.4f}", flush=True)
     return {"err": err, "ms": ms, "plain": plain, "route": route,
-            "unfused": unfused, "flop": flop, "bytes": nbytes}
+            "unfused": unfused, "flop": flop, "bytes": nbytes,
+            "launches": launches}
 
 
 def _k7_phase(chains, torch):
@@ -1285,9 +1365,13 @@ def _k7_phase(chains, torch):
     name, mlp, x, k = next(c for c in chains if c[0] == "sa_modules.1.mlp")
     f32 = _k7_case(name, mlp, x, k, torch.float32, torch)
     tot = {key: sum(c[key] for c in cases) for key in cases[0]}
+    per_chain = {n: {key: c[key] for key in ("ms", "route", "unfused",
+                                             "launches")}
+                 for (n, _, _, _), c in zip(chains, cases)}
     t_ops = tot["flop"] / PEAK_BF16_FLOPS
     t_bytes = tot["bytes"] / PEAK_BYTES
-    print(f"kernel mlp_chain: {len(cases)} chains per b=1 forward, "
+    print(f"kernel mlp_chain: {len(cases)} chains per b=1 forward in "
+          f"{tot['launches']} launches, "
           f"{tot['flop']:.3e} FLOP, {tot['bytes'] / 1e6:.1f} MB; kernel "
           f"{tot['ms']:.4f} ms, fused route {tot['route']:.4f} ms, unfused "
           f"route {tot['unfused']:.4f} ms, plain {tot['plain']:.4f} ms; f32 "
@@ -1298,7 +1382,9 @@ def _k7_phase(chains, torch):
               tot["ms"], tot["plain"], 1e3 * max(t_ops, t_bytes),
               "operations" if t_ops >= t_bytes else "bytes")
     return report, {"unfused_ms": tot["unfused"],
-                    "fused_route_ms": tot["route"]}
+                    "fused_route_ms": tot["route"],
+                    "launches_per_b1_forward": tot["launches"],
+                    "f32_sa2_ms": f32["ms"], "per_chain": per_chain}
 
 
 def _fused_reference_phase(torch, np, devices=("cpu", "cuda")):
@@ -1307,40 +1393,74 @@ def _fused_reference_phase(torch, np, devices=("cpu", "cuda")):
     takes SA1), on the CPU its twin; checked as those phases check."""
     from s4g_tpu_torch import _build
 
-    with _mlp_route(MLP_IMPL="fused"):
+    with _mlp_route(MLP_IMPL="fused"), _k7_plans() as plans:
         before = _build.LAUNCHES["mlp_chain"]
         one = _reference_phase(torch, np, devices)
         mid = _build.LAUNCHES["mlp_chain"]
+        n_one = len(plans)
         two = _batch_reference_phase(torch, np, devices)
     counts = (mid - before, _build.LAUNCHES["mlp_chain"] - mid)
-    if devices[1] != "cpu" and counts != (10, 9):
-        raise AssertionError(f"fused-chain forwards launched K7 {counts} "
-                             "times, expected (10, 9)")
-    return {"b1": one, "b2": two}
+    chains = tuple(sum(cuda for cuda, _ in part)
+                   for part in (plans[:n_one], plans[n_one:]))
+    planned = tuple(sum(n for cuda, n in part if cuda)
+                    for part in (plans[:n_one], plans[n_one:]))
+    if devices[1] != "cpu" and (chains != (10, 9) or counts != planned):
+        raise AssertionError(f"fused-chain forwards ran {chains} chains on "
+                             f"the card, expected (10, 9), in {counts} K7 "
+                             f"launches, planned {planned}")
+    return {"b1": one, "b2": two, "k7_launches": counts}
+
+
+@contextlib.contextmanager
+def _k7_plans():
+    """Record every fused chain run inside as (on the card, the launches
+    `mlp_chain.chain_pieces` plans for it there: one a piece)."""
+    from s4g_tpu_torch.models import nn_layers
+    from s4g_tpu_torch.ops import mlp_chain as mc
+
+    plans = []
+    orig = nn_layers.SharedMLP.fused_eval
+
+    def spy(self, x, max_pool_k=None):
+        widths = [x.shape[-1]] + [layer.conv.out_channels for layer in self]
+        plans.append((x.is_cuda, len(mc.chain_pieces(
+            widths, max_pool_k, self[0].dtype))))
+        return orig(self, x, max_pool_k)
+
+    nn_layers.SharedMLP.fused_eval = spy
+    try:
+        yield plans
+    finally:
+        nn_layers.SharedMLP.fused_eval = orig
 
 
 def _fused_phase(det, torch, np):
     """The fused-chain configuration at full width (the deployed detector
-    with `MLP_IMPL` "fused"): detect x3 on a tabletop (K7 10 times per
-    forward), detect_batch at b = 2 x3 (9: K3 takes SA1), then one detect
-    with the route on "auto", MLP_FUSE_MIN_ROWS 1 and MLP_FUSE_SCOPE
-    "pooled" (the three SA chains).  Each run is warmed up, then counted on
-    its own, every kernel exactly (`_deployed_launches`).  Then the
-    route off and on in turns at b = 1 and 2, for the end-to-end
-    comparison.  Returns each run's launches and stage medians."""
+    with `MLP_IMPL` "fused"): detect x3 on a tabletop (K7 12 times per
+    forward: `FUSED_K7_LAUNCHES`), detect_batch at b = 2 x3 (11: K3 takes
+    SA1), then one detect with the route on "auto", MLP_FUSE_MIN_ROWS 1
+    and MLP_FUSE_SCOPE "pooled" (the three SA chains).  Each run is warmed
+    up, then counted on its own, every kernel exactly
+    (`_deployed_launches`); the packed-operand cache must hit on every
+    chain of the counted detects and pack none.  Then the route off and on
+    in turns at b = 1 and 2, for the end-to-end comparison.  Returns each
+    run's launches, stage medians and the cache's counts."""
     from s4g_tpu_torch import _build
+    from s4g_tpu_torch.models import nn_layers
 
     scenes = _scenes(np)
     kw = {"score_threshold": 0.0, "verticalness_threshold": -1e9}
     pair = [scenes["tabletop0"], scenes["tabletop2"]]
     paths, medians = {}, {}
-    runs = [("fused_detect", "fused-chain detect", 1, NUM_DETECT, 10,
-             {"MLP_IMPL": "fused"}),
-            ("fused_batch", "fused-chain detect_batch b=2", 2, NUM_BATCH, 9,
-             {"MLP_IMPL": "fused"}),
-            ("fused_pooled_detect", "pooled-scope detect", 1, 1, 3,
+    runs = [("fused_detect", "fused-chain detect", 1, NUM_DETECT,
+             FUSED_K7_LAUNCHES["detect"], {"MLP_IMPL": "fused"}),
+            ("fused_batch", "fused-chain detect_batch b=2", 2, NUM_BATCH,
+             FUSED_K7_LAUNCHES["batch"], {"MLP_IMPL": "fused"}),
+            ("fused_pooled_detect", "pooled-scope detect", 1, 1,
+             FUSED_K7_LAUNCHES["pooled"],
              {"MLP_IMPL": "auto", "MLP_FUSE_MIN_ROWS": 1,
               "MLP_FUSE_SCOPE": "pooled"})]
+    cache = {}
     for path, label, b, reps, chains, settings in runs:
         def call():
             if b == 1:
@@ -1350,12 +1470,20 @@ def _fused_phase(det, torch, np):
             call()
             _build.reset_launches()
             timings, expected = [], {}
+            before = dict(nn_layers.PACK_CACHE)
             for _ in range(reps):
                 results, want = _counted(det, call, b, chains)
                 expected = _add(expected, want)
                 _check_grasps(label, results)
                 timings.append(dict(det.timings))
+            cache[path] = {k: nn_layers.PACK_CACHE[k] - before[k]
+                           for k in before}
         paths[path] = dict(_build.LAUNCHES)
+        print(f"{label}: packed-operand cache over {reps} counted forwards "
+              f"{cache[path]}", flush=True)
+        if cache[path]["packs"] or not cache[path]["hits"]:
+            raise AssertionError(f"{label}: the packed-operand cache "
+                                 f"re-packed: {cache[path]}")
         _expect(label, paths[path], 1, expected)
         medians[label] = _stage_medians(label, timings)
         print(f"{label}: num_valid {det.last_num_valid}", flush=True)
@@ -1374,7 +1502,7 @@ def _fused_phase(det, torch, np):
         for impl, runs in turns.items():
             medians[f"{name} in turns, {impl}"] = _stage_medians(
                 f"{name} in turns, MLP_IMPL {impl}", runs)
-    return paths, medians
+    return paths, medians, cache
 
 
 def _expect(label, launches, forwards, per_forward):
@@ -1773,7 +1901,7 @@ def main() -> int:
         extras["sa1_fused"] = {"tabletop_pair_ms": pair[4],
                                "tabletop_pair_max_abs_err": pair[3]}
         pinp = _parity_inputs(pdet, torch, np)
-        rep.append(_k6_phase(pinp, torch))
+        rep.append(_k6_phase(pinp, torch, extras))
         rep.append(_k2f_phase(pinp, torch, inp, cinp, extras))
         _fault_phase(binp, torch, np, extras)
         k7, k7_extras = _k7_phase(_chain_inputs(det, torch, np), torch)
@@ -1820,6 +1948,7 @@ def main() -> int:
     # launches: over every main path's counted runs, and by path.
     paths = {"detect": launches, "detect_batch": batch[0], **parity[0],
              "sort_only_batch": sort_only[0], **fused[0]}
+    extras.setdefault("mlp_chain", {})["pack_cache"] = fused[2]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": sum(p[name] for p in paths.values()),

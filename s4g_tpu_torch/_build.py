@@ -41,9 +41,10 @@ _SIGNATURES = {
     # pts (B,3,N), b, n, nested (0: one stage, per-stage kernel; S: S
     # stages, nested kernel), m0..m2, out0..out2 (B,M_s) or NULL
     "s4g_fps_lane": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
-    # pts (B,3,N), b, n, shards, m_g, spill (f32 scratch past 32,768 points
-    # per chain, or NULL), out (B, shards*m_g)
-    "s4g_fps_exact": (_P, _I, _I, _I, _I, _P, _P, _P),
+    # pts (B,3,N), b, n, shards, m_g, exchange (0: push, 1: cluster
+    # barrier), spill (f32 scratch past each block's registers, or NULL),
+    # out (B, shards*m_g)
+    "s4g_fps_exact": (_P, _I, _I, _I, _I, _I, _P, _P, _P),
     # pts (B,3,N), cents (B,3,M), axes ((B,) int32 promised sort axes, or
     # NULL), b, n, m, r2, k, stratified, idx (B,M,K), cnt (B,M)
     "s4g_ball_query_full": (_P, _P, _P, _I, _I, _I, _F, _I, _I, _P, _P, _P),
@@ -67,6 +68,14 @@ _SIGNATURES = {
     # relu_mask, pool_k, bf16, out (P or P/pool_k, C_out)
     "s4g_mlp_chain": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _I, _I, _I, _I, _I, _I, _I, _P, _P),
+}
+
+# C entry points that launch nothing (argtypes, no stream): a launcher's
+# plan for given sizes.
+_QUERIES = {
+    # ns, exchange, plan (2 int32: blocks per chain, scratch floats per
+    # block)
+    "s4g_fps_exact_plan": (_I, _I, _P),
 }
 
 # Launch counts per kernel (plain integers; chip_smoke.py zeroes them before
@@ -160,7 +169,7 @@ def load_library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            for name, argtypes in _SIGNATURES.items():
+            for name, argtypes in {**_SIGNATURES, **_QUERIES}.items():
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
@@ -181,6 +190,14 @@ def launch(kernel: str, *args) -> None:
         raise RuntimeError(f"CUDA kernel {kernel} failed to launch: "
                            f"cudaError {err}")
     LAUNCHES[kernel] += 1
+
+
+def query(name: str, *args) -> None:
+    """Call the C entry point `s4g_<name>`, which launches nothing (not
+    counted), and raise if it returns an error."""
+    err = getattr(load_library(), "s4g_" + name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} failed: cudaError {err}")
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:

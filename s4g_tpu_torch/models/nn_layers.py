@@ -21,7 +21,9 @@ SA1 at batch >= 2.
 SA stages' max over the neighbours, as one kernel (K7, `ops/mlp_chain.py`)
 with BatchNorm folded in, hidden activations rounded to the compute dtype
 and the result cast to it (so the next stage gets bf16 features where the
-unfused route hands it f32), as JAX's `_fused_eval`.  `fuses_chain` is
+unfused route hands it f32), as JAX's `_fused_eval`.  Its folded and
+packed operands are made once per weights (`SharedMLP.packed_operands`,
+counted in `PACK_CACHE`).  `fuses_chain` is
 JAX's rule for taking it (`nn_layers.py:201-224`), read from three module
 settings, the counterparts of JAX's S4G_MLP_* flags (the port reads no
 environment variable; set the attributes, as the tests do):
@@ -43,7 +45,7 @@ import torch
 from torch import nn
 
 from ..ops import sa_fused
-from ..ops.mlp_chain import mlp_chain
+from ..ops.mlp_chain import _pack, mlp_chain
 from ..ops.neighbors import ball_query_grouped
 
 BN_EPS = 1e-5
@@ -53,6 +55,10 @@ MLP_FUSE_MIN_ROWS = 1 << 60
 MLP_FUSE_SCOPE = "all"
 _MLP_IMPLS = ("auto", "unfused", "fused")
 _MLP_SCOPES = ("all", "pooled")
+
+# Lookups of SharedMLP.packed_operands: "hits" reused a module's packed
+# operands, "packs" folded and packed anew (read by chip_smoke.py).
+PACK_CACHE = {"hits": 0, "packs": 0}
 
 
 def fuses_chain(impl: str, min_rows: int, scope: str, shape: Sequence[int],
@@ -146,17 +152,47 @@ class SharedMLP(nn.ModuleList):
                            .contiguous()))
         return params
 
+    def _weight_key(self) -> tuple:
+        """What the folded operands depend on: the version and storage of
+        every conv weight and BatchNorm tensor."""
+        return tuple((t._version, t.data_ptr())
+                     for layer in self
+                     for t in (layer.conv.weight, layer.bn.weight,
+                               layer.bn.bias, layer.bn.running_mean,
+                               layer.bn.running_var))
+
+    def packed_operands(self, compute_dtype: torch.dtype) -> tuple:
+        """(folded_params(), K7's packed operands `_pack`) for
+        `compute_dtype`, made once per weights: kept while every conv
+        weight and BatchNorm tensor keeps its version and storage (any
+        in-place change, `load_state_dict` included, or a move to another
+        device re-packs).  Nothing is kept in training mode."""
+        key = (self._weight_key(), compute_dtype,
+               self[0].conv.weight.device)
+        cached = getattr(self, "_packed", None)
+        if not self.training and cached is not None and cached[0] == key:
+            PACK_CACHE["hits"] += 1
+            return cached[1], cached[2]
+        PACK_CACHE["packs"] += 1
+        with torch.no_grad():
+            params = self.folded_params()
+            packed = _pack(params, params[0][0].shape[0], compute_dtype)
+        self._packed = None if self.training else (key, params, packed)
+        return params, packed
+
     def fused_eval(self, x: torch.Tensor,
                    max_pool_k: Optional[int] = None) -> torch.Tensor:
         """The whole chain (and the max over the second-to-last axis when
-        `max_pool_k` is set) as one kernel, K7 (port of `_fused_eval`).
+        `max_pool_k` is set) as one kernel, K7 (port of `_fused_eval`), on
+        operands packed once per weights (`packed_operands`).
 
         Returns the chain's output cast to the compute dtype, (..., C_out),
         without the pooled axis when pooling."""
-        params = self.folded_params()
+        params, packed = self.packed_operands(self[0].dtype)
         lead = x.shape[:-1]
         out = mlp_chain(x.reshape(-1, x.shape[-1]), params,
-                        (True,) * len(params), max_pool_k, self[0].dtype)
+                        (True,) * len(params), max_pool_k, self[0].dtype,
+                        packed=packed)
         if max_pool_k is not None:
             lead = lead[:-1]
         return out.to(self[0].dtype).reshape(*lead, out.shape[-1])

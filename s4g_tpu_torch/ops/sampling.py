@@ -20,6 +20,7 @@ CPU).
 
 from __future__ import annotations
 
+import ctypes
 from typing import Sequence
 
 import torch
@@ -151,28 +152,46 @@ def fps_lane_nested(points: torch.Tensor, centroids: Sequence[int]) -> list:
     return outs
 
 
-# K6 keeps a chain's min-distances in registers up to this many points
-# (1,024 threads x 32), the rest in a scratch buffer.
-FPS_REG_POINTS = 1024 * 32
+# K6's exchange of each step's winner between the blocks of a chain's
+# cluster: "push" (st.async into every peer's shared memory, completing on
+# its mbarrier) or "barrier" (a cluster barrier, then reads of every peer's
+# slot).  The model takes "push"; "barrier" is kept only for chip_smoke.py
+# to time the two against each other.
+FPS_EXCHANGES = ("push", "barrier")
+
+
+def fps_exact_plan(ns: int, exchange: str = "push") -> tuple:
+    """K6's plan on this card for chains of `ns` points: (blocks per chain,
+    scratch floats each block needs past its registers).  The blocks are
+    the fewest, up to 16, that leave each at most 2,048 points, halved
+    while such a cluster cannot be resident."""
+    plan = (ctypes.c_int * 2)()
+    _build.query("fps_exact_plan", ns, FPS_EXCHANGES.index(exchange),
+                 ctypes.cast(plan, ctypes.c_void_p))
+    return plan[0], plan[1]
 
 
 def _fps_exact_launch(points: torch.Tensor, num_centroids: int,
-                      num_shards: int) -> torch.Tensor:
-    """Launch K6 on B * G chains: exact FPS over each contiguous N/G slice
-    for M/G centroids, shard-major global indices (B, M) int32.  A chain
-    longer than FPS_REG_POINTS keeps the min-distances past them in an f32
-    scratch buffer allocated here."""
+                      num_shards: int, exchange: str = "push"
+                      ) -> torch.Tensor:
+    """Launch K6 on B * G chains, each a cluster of blocks: exact FPS over
+    each contiguous N/G slice for M/G centroids, shard-major global indices
+    (B, M) int32.  A block whose slice is longer than its registers hold
+    keeps the rest of its min-distances in an f32 scratch buffer allocated
+    here."""
     b, _, n = points.shape
     _build.check(points, "points", torch.float32, (b, 3, n))
     ns = n // num_shards
+    blocks, per_block = fps_exact_plan(ns, exchange)
     spill = None
-    if ns > FPS_REG_POINTS:
-        spill = torch.empty(b * num_shards * (ns - FPS_REG_POINTS),
+    if per_block:
+        spill = torch.empty(b * num_shards * blocks * per_block,
                             dtype=torch.float32, device=points.device)
     out = torch.empty((b, num_centroids), dtype=torch.int32,
                       device=points.device)
     _build.launch("fps_exact", points, b, n, num_shards,
-                  num_centroids // num_shards, spill, out)
+                  num_centroids // num_shards, FPS_EXCHANGES.index(exchange),
+                  spill, out)
     return out
 
 

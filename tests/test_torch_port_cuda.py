@@ -178,9 +178,9 @@ def test_k6_and_k2f_wrappers_check_their_operands(cuda):
 
 
 @pytest.mark.parametrize("b,n,m,shards", [
-    (1, 40000, 64, 1),       # 7,232 min-distances past the registers
-    (2, 80000, 96, 2),       # 4 chains of 40,000: each its own scratch
-    (1, 1024 * 32, 40, 1),   # exactly the registers: no scratch
+    (1, 16 * 8192 + 5000, 64, 1),   # 313 min-distances a block past its regs
+    (2, 2 * 140000, 96, 2),         # 4 chains: each block its own scratch
+    (1, 16 * 8192, 40, 1),          # exactly the registers: no scratch
 ])
 def test_fps_exact_kernel_past_the_registers(cuda, b, n, m, shards):
     pts = torch.from_numpy(np.random.RandomState(n).rand(b, 3, n)
@@ -193,6 +193,57 @@ def test_fps_exact_kernel_past_the_registers(cuda, b, n, m, shards):
         got = sp.fps_sharded(pts.to(cuda), m, shards)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("exchange", sp.FPS_EXCHANGES)
+@pytest.mark.parametrize("b,n,m,blocks,case", [
+    (2, 1000, 200, 1, "random"),       # one block a chain
+    (1, 3000, 300, 2, "random"),
+    (2, 6000, 400, 4, "random"),
+    (1, 12000, 500, 8, "random"),
+    (1, 25600, 600, 16, "random"),     # SA1 of the parity configuration
+    (1, 25600, 64, 16, "one point"),   # every distance 0: every pick is 0
+    (1, 25600, 300, 16, "mirrored"),   # each value twice, 8 blocks apart
+    (16, 25600, 96, 16, "random"),     # 256 blocks: clusters in waves
+    (1, 400000, 24, 16, "random"),     # past the cluster's shared memory
+])
+def test_fps_exact_cluster_matches_plain(cuda, b, n, m, blocks, case,
+                                         exchange):
+    """K6 as a cluster of blocks per chain, both exchanges, bit for bit:
+    one chain length per cluster size the launcher picks; identical points
+    (the lowest index wins across blocks); duplicate maxima in different
+    blocks (the second half of the chain mirrors the first); enough chains
+    that clusters run in waves; and a chain whose coordinates do not fit
+    its cluster's shared memory (the rest from L2, min-distances in the
+    scratch buffer)."""
+    rng = np.random.RandomState(n + m + b)
+    pts = rng.rand(b, 3, n).astype(np.float32)
+    if case == "one point":
+        pts[:] = pts[:, :, :1]
+    elif case == "mirrored":
+        pts[:, :, n // 2:] = pts[:, :, :n // 2]
+    pts = torch.from_numpy(np.ascontiguousarray(pts)).to(cuda)
+    assert sp.fps_exact_plan(n, exchange)[0] == blocks
+    want = sp._fps_plain(pts, m)
+    got = sp._fps_exact_launch(pts, m, 1, exchange)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if case == "one point":
+        assert not want.any()
+
+
+@pytest.mark.parametrize("exchange", sp.FPS_EXCHANGES)
+@pytest.mark.parametrize("b,g,n,m", [(2, 8, 25600, 5120), (3, 5, 30000, 600)])
+def test_fps_sharded_cluster_matches_plain(cuda, b, g, n, m, exchange):
+    """G-shard K6 (8 shards at SA1's shape: 2-block clusters) bit for
+    bit."""
+    pts = torch.from_numpy(np.random.RandomState(g).rand(b, 3, n)
+                           .astype(np.float32)).to(cuda)
+    assert sp.fps_exact_plan(n // g, exchange)[0] > 1
+    want = sp._fps_sharded_plain(pts, m, g)
+    got = sp._fps_exact_launch(pts, m, g, exchange)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def _sorted_scene(rng, b, n, m, spread=(1.1, 0.9, 0.3)):
@@ -535,6 +586,22 @@ def _chain(rng, p, widths, zero_rows=False):
     (100, (3700, 48), None, "float32", False),
     (128, (3700, 300), 4, "float32", True),
     (128, (32, 7300, 48), 64, "bfloat16", False),   # a wide hidden layer
+    # wgmma tiles: 128 rows (two warpgroups) and 64 rows (SA3's widths),
+    # ragged; widths that are not multiples of 64.
+    (70 * 64, (3, 128, 128, 256), 64, "bfloat16", False),
+    (70 * 64, (515, 512, 512, 1024), 64, "bfloat16", True),
+    (9000, (100, 200, 72), None, "bfloat16", False),
+    # pooled groups spanning sub-tiles: 256 rows over 128-row tiles, 128
+    # over 64-row ones; and groups of 2 and 4 inside a row half.
+    (512 * 40, (100, 200, 72), 256, "bfloat16", False),
+    (128 * 70, (515, 512, 512, 1024), 128, "bfloat16", False),
+    (384 * 40, (100, 200, 72), 2, "bfloat16", True),
+    (384 * 40, (100, 200, 72), 4, "float32", False),
+    # FP1's and FP2's rows and widths: one layer a launch, output columns
+    # split over blocks; few pooled rows
+    (1000, (1536, 1024, 1024), None, "bfloat16", False),
+    (5120, (1280, 512, 512), None, "bfloat16", True),
+    (300, (130, 1000, 260), 4, "bfloat16", False),
 ])
 def test_mlp_chain_kernel_matches_plain(cuda, p, widths, pool, dtype,
                                         zero_rows):
@@ -571,12 +638,16 @@ def test_mlp_chain_wrapper_refuses_and_counts(cuda, monkeypatch):
     before = _build.LAUNCHES["mlp_chain"]
     mc.mlp_chain(x, params, (True, True), pool_k=16)
     assert _build.LAUNCHES["mlp_chain"] == before + 1
+    mc.mlp_chain(x, params, (True, True), pool_k=16,
+                 compute_dtype=torch.float32)
+    assert _build.LAUNCHES["mlp_chain"] == before + 2
     five = [(torch.eye(40, device=cuda), torch.zeros(40, device=cuda))] * 5
     mc.mlp_chain(x, five, (True,) * 5)        # 4 + 1 layers: two launches
-    assert _build.LAUNCHES["mlp_chain"] == before + 3
-    # A layer whose input is wider than any row tile takes (7,264 bf16,
+    assert _build.LAUNCHES["mlp_chain"] == before + 4
+    before = _build.LAUNCHES["mlp_chain"]
+    # A layer whose input is wider than any row tile takes (1,600 bf16,
     # 3,632 f32) splits its input channels: one launch, the twin's result.
-    for width, cd, tol in ((7264, torch.bfloat16, 1e-2),
+    for width, cd, tol in ((1600, torch.bfloat16, 1e-2),
                            (3632, torch.float32, 1e-5)):
         xw, wide = _chain(rng, 8, (width, 16))
         wide = [(w.to(cuda), b.to(cuda)) for w, b in wide]
@@ -586,7 +657,7 @@ def test_mlp_chain_wrapper_refuses_and_counts(cuda, monkeypatch):
                      None, cd)
         assert float((got.cpu() - want).abs().max()) <= \
             tol * float(want.abs().max())
-    assert _build.LAUNCHES["mlp_chain"] == before + 5
+    assert _build.LAUNCHES["mlp_chain"] == before + 2
 
 
 def test_sa1_fallback_hands_k2f_the_sort_axis(cuda):
@@ -624,31 +695,37 @@ def test_sa1_fallback_hands_k2f_the_sort_axis(cuda):
 
 
 @pytest.mark.parametrize("dtype,pool,widths", [
-    ("bfloat16", None, lambda w: (w, 16)),          # one layer, 16-row tile
+    ("bfloat16", None, lambda w: (w, 16)),          # one layer
     ("bfloat16", None, lambda w: (16, w, 16)),      # both buffers
-    ("bfloat16", 64, lambda w: (16, 2048, w)),      # the pooled maxima
+    ("bfloat16", 64, lambda w: (16, 512, w)),       # the pooled maxima
     ("float32", None, lambda w: (w, 16)),
     ("float32", 8, lambda w: (16, 1024, w)),
 ])
 def test_mlp_chain_planner_agrees_with_the_launcher(cuda, dtype, pool,
                                                     widths):
-    """`chain_pieces` plans from a copy of the launcher's shared-memory sum
-    (`mlp_chain._tile_smem`): at the widest width whose tile fits, the
-    launcher must launch the chain as one piece; the next width up a chain
-    of several layers must be planned apart and refused by the launcher as
-    one piece, while a single layer stays one piece that the launcher runs
-    by splitting its input channels."""
+    """`chain_pieces` plans from copies of the launcher's shared-memory
+    sums (`mlp_chain._wg_smem` in bf16, `_tile_smem` in f32): at the
+    widest width whose tile fits, the launcher must launch the chain as
+    one piece; one padding step wider, a chain of several layers must be
+    planned apart and refused by the launcher as one piece, while a single
+    layer stays one piece that the launcher runs by splitting its input
+    channels."""
     cd = getattr(torch, dtype)
+    # Widths grow by whole padding steps of the widened width: 16 in f32;
+    # in bf16 64 for the chain's input, 128 for a layer's output.
+    at = next(i for i, (a, b) in enumerate(zip(widths(1), widths(2)))
+              if a != b)
+    step = 16 if cd == torch.float32 else (64 if at == 0 else 128)
 
     def fits(w):
-        kpads = [-(-x // 16) * 16 for x in widths(w)]
+        kpads = mc.padded_widths(widths(w), cd)
         return mc._fits(kpads[:-1], kpads[-1], pool, cd)
 
-    w = 16
-    while fits(w + 16):
-        w += 16
+    w = step
+    while fits(w + step):
+        w += step
     rows = pool or 16
-    for width, fit in ((w, True), (w + 16, False)):
+    for width, fit in ((w, True), (w + step, False)):
         chain = widths(width)
         single = len(chain) == 2
         one_piece = mc.chain_pieces(chain, pool, cd) == [(0, len(chain) - 1)]
@@ -656,16 +733,64 @@ def test_mlp_chain_planner_agrees_with_the_launcher(cuda, dtype, pool,
         params = [(torch.full((a, b), 1e-3, device=cuda),
                    torch.zeros(b, device=cuda))
                   for a, b in zip(chain, chain[1:])]
-        packed, kpad0 = mc._pack(params, chain[0], cd)
+        packed = mc._pack(params, chain[0], cd)
         x = torch.ones(rows, chain[0], dtype=cd, device=cuda)
         relu = (True,) * len(params)
         if one_piece:
-            out = mc._launch(x, packed, kpad0, chain[-1], relu, pool)
+            out = mc._launch(mc._kernel_input(x, packed, pool), packed,
+                             relu, pool)
             torch.cuda.synchronize()
             assert bool(torch.isfinite(out).all())
         else:
             with pytest.raises(RuntimeError, match="mlp_chain failed"):
-                mc._launch(x, packed, kpad0, chain[-1], relu, pool)
+                mc._launch(mc._kernel_input(x, packed, pool), packed, relu,
+                           pool)
+
+
+def test_fused_forward_packs_once_per_weights(cuda, monkeypatch):
+    """The fused route packs a SharedMLP's operands once: a second forward
+    with unchanged weights packs nothing; after `load_state_dict` the
+    next forward re-packs every chain and matches the twin."""
+    monkeypatch.setattr(nnl, "MLP_IMPL", "fused")
+    rng = np.random.RandomState(4)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(4)
+        mlp = nnl.SharedMLP(67, (128, 96, 200), ndim=2,
+                            dtype=torch.bfloat16).to(cuda).eval()
+        other = nnl.SharedMLP(67, (128, 96, 200), ndim=2,
+                              dtype=torch.bfloat16).to(cuda)
+    with torch.no_grad():
+        for layer in other:
+            layer.bn.running_var.uniform_(0.5, 2.0)
+    x = torch.from_numpy(rng.randn(3, 700, 32, 67).astype(np.float32)
+                         ).to(cuda)
+
+    def forward():
+        before = dict(nnl.PACK_CACHE)
+        with torch.no_grad():
+            out = mlp(x, max_pool_k=32)
+        torch.cuda.synchronize()
+        return out, {k: nnl.PACK_CACHE[k] - before[k] for k in before}
+
+    def twin():
+        with torch.no_grad():
+            params = mlp.folded_params()
+            return mc._mlp_chain_plain(x.reshape(-1, 67), params,
+                                       (True,) * 3, 32, torch.bfloat16)
+
+    _, counts = forward()
+    assert counts["packs"] <= 1
+    first, counts = forward()
+    assert counts == {"hits": 1, "packs": 0}
+    mlp.load_state_dict(other.state_dict())
+    got, counts = forward()
+    assert counts == {"hits": 0, "packs": 1}
+    want = twin()
+    scale = float(want.abs().max())
+    assert scale > 0.1
+    assert float((got.float().reshape(want.shape) - want).abs().max()) \
+        <= 1e-2 * scale
+    assert not torch.equal(got, first)
 
 
 NARROW_DEPLOYED = {
@@ -743,11 +868,23 @@ def test_deployed_forward_launches_k1_once_where_the_stages_nest(
      3),
 ])
 def test_fused_chain_route_launches_k7(cuda, monkeypatch, settings, chains):
+    """Every eligible chain is fused, and K7 launches once per piece the
+    planner makes of it (a narrow forward's chains are one piece each)."""
     for name, value in settings.items():
         monkeypatch.setattr(nnl, name, value)
     monkeypatch.setattr(mc, "_mlp_chain_plain",
                         lambda *a, **kw: pytest.fail("plain chain on the card"))
+    planned = []
+    pieces = mc.chain_pieces
+
+    def spy(widths, pool_k, compute_dtype):
+        out = pieces(widths, pool_k, compute_dtype)
+        planned.append(len(out))
+        return out
+
+    monkeypatch.setattr(mc, "chain_pieces", spy)
     before = _build.LAUNCHES["mlp_chain"]
     out = _narrow_forward(cuda, False)
-    assert _build.LAUNCHES["mlp_chain"] - before == chains
+    assert len(planned) == chains
+    assert _build.LAUNCHES["mlp_chain"] - before == sum(planned) == chains
     assert bool(torch.isfinite(out["score"]).all())

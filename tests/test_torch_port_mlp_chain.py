@@ -101,6 +101,64 @@ def test_mlp_chain_checks_its_operands():
                      compute_dtype=torch.float16)
 
 
+def _same_operands(got, want):
+    (gp, gk), (wp, wk) = got, want
+    assert len(gp) == len(wp) and len(gk) == len(wk)
+    for (gw, gb), (ww, wb) in zip(gp, wp):
+        assert torch.equal(gw, ww) and torch.equal(gb, wb)
+    for (gw, gb, gn), (ww, wb, wn) in zip(gk, wk):
+        assert torch.equal(gw, ww) and torch.equal(gb, wb) and gn == wn
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_packed_operands_are_kept_until_the_weights_change(dtype):
+    """`SharedMLP.packed_operands` folds and packs once per weights: an
+    unchanged module is a hit; a BatchNorm running_var changed in place,
+    a conv weight changed in place and a `load_state_dict` each re-fold,
+    and the result equals a fresh `folded_params()` and `_pack`; training
+    mode keeps nothing."""
+    cd = DTYPES[dtype][0]
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(3)
+        mlp = tnn.SharedMLP(20, (48, 40), ndim=2, dtype=cd).eval()
+        other = tnn.SharedMLP(20, (48, 40), ndim=2, dtype=cd)
+    with torch.no_grad():
+        for layer in other:
+            layer.bn.running_var.uniform_(0.5, 2.0)
+            layer.bn.running_mean.normal_()
+
+    def fresh():
+        params = mlp.folded_params()
+        return params, mc._pack(params, 20, cd)
+
+    def lookup():
+        before = dict(tnn.PACK_CACHE)
+        got = mlp.packed_operands(cd)
+        return got, {k: tnn.PACK_CACHE[k] - before[k] for k in before}
+
+    first, counts = lookup()
+    assert counts == {"hits": 0, "packs": 1}
+    _same_operands(first, fresh())
+    again, counts = lookup()
+    assert counts == {"hits": 1, "packs": 0}
+    assert again[1] is first[1]
+    for change in (lambda: mlp[1].bn.running_var.mul_(3.0),
+                   lambda: mlp[0].conv.weight.add_(0.25),
+                   lambda: mlp.load_state_dict(other.state_dict())):
+        with torch.no_grad():
+            change()
+        got, counts = lookup()
+        assert counts == {"hits": 0, "packs": 1}
+        _same_operands(got, fresh())
+        assert any(not torch.equal(a, b) for g, f in zip(got[0], first[0])
+                   for a, b in zip(g, f))
+        first = got
+    mlp.train()
+    for _ in range(2):
+        _, counts = lookup()
+        assert counts == {"hits": 0, "packs": 1}
+
+
 # -- SharedMLP.fused_eval vs the JAX SharedMLP on its fused route -------------
 
 def _mlp_pair(seed, c_in, widths, dtype, ndim):

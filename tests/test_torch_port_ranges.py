@@ -121,19 +121,55 @@ def test_split_chain_matches_jax_kernel(dtype):
 
 
 @pytest.mark.parametrize("widths,pool,dtype,pieces", [
-    ((1536, 1024, 1024), None, torch.bfloat16, [(0, 2)]),   # FP1: one launch
+    # FP1: two 64-row bf16 buffers of 1,536 + 1,024 do not fit, one layer a
+    # launch
+    ((1536, 1024, 1024), None, torch.bfloat16, [(0, 1), (1, 2)]),
     ((515, 512, 512, 1024), 64, torch.bfloat16, [(0, 3)]),  # SA3
     ((40,) * 6, None, torch.bfloat16, [(0, 4), (4, 5)]),    # 5 layers
-    ((4096, 64, 32), None, torch.bfloat16, [(0, 2)]),       # 16-row tiles
+    ((4096, 64, 32), None, torch.bfloat16, [(0, 1), (1, 2)]),   # wide input
     ((1024, 3000, 64), 8, torch.float32, [(0, 1), (1, 2)]),
 ])
 def test_chain_pieces(widths, pool, dtype, pieces):
     assert mc.chain_pieces(widths, pool, dtype) == pieces
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("widths,pool", [((1536, 1024, 1024), None),
+                                         ((1280, 512, 512), 16)])
+def test_per_layer_pieces_match_jax(widths, pool, dtype):
+    """FP1's and FP2's widths, which the planner runs one layer a launch in
+    bf16 (two activation buffers do not fit), composed through the twin
+    are `mlp_chain_pallas`'s chain, and equal the unsplit twin bit for bit
+    (in f32 too, run through the same pieces)."""
+    rng = np.random.RandomState(len(widths) + (pool or 0))
+    p = 256
+    x = rng.randn(p, widths[0]).astype(np.float32)
+    params = [((rng.randn(a, b) / np.sqrt(a)).astype(np.float32),
+               (rng.randn(b) * 0.1).astype(np.float32))
+              for a, b in zip(widths, widths[1:])]
+    relu = (False, True)
+    per_layer = [(0, 1), (1, 2)]
+    assert mc.chain_pieces(widths, pool, torch.bfloat16) == per_layer
+    cd = getattr(torch, dtype)
+    want = np.asarray(mlp_chain_pallas(
+        jnp.asarray(x), tuple((jnp.asarray(w), jnp.asarray(b))
+                              for w, b in params), relu, pool,
+        getattr(jnp, dtype), interpret=True))
+    tparams = [(_t(w), _t(b)) for w, b in params]
+    got = mc.run_pieces(_t(x), tparams, relu, pool, cd, per_layer,
+                        mc._mlp_chain_plain)
+    assert got.shape == want.shape == (p // (pool or 1), widths[-1])
+    scale = float(np.abs(want).max())
+    assert scale > 0.1
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    assert float(np.abs(got.numpy() - want).max()) <= tol * scale
+    assert torch.equal(got, mc._mlp_chain_plain(_t(x), tparams, relu, pool,
+                                                cd))
+
+
 @pytest.mark.parametrize("widths,pool,dtype,pieces,whole", [
-    ((7248, 16), None, torch.bfloat16, [(0, 1)], True),   # widest whole tile
-    ((7264, 16), None, torch.bfloat16, [(0, 1)], False),  # channels split
+    ((1536, 16), None, torch.bfloat16, [(0, 1)], True),   # widest whole tile
+    ((1537, 16), None, torch.bfloat16, [(0, 1)], False),  # channels split
     ((3616, 16), None, torch.float32, [(0, 1)], True),
     ((3632, 16), None, torch.float32, [(0, 1)], False),
     ((64, 7300, 32, 16), 8, torch.bfloat16, [(0, 1), (1, 2), (2, 3)], False),
@@ -144,7 +180,7 @@ def test_chain_pieces_splits_the_input_channels(widths, pool, dtype, pieces,
     runs by splitting its input channels (no width is refused)."""
     assert mc.chain_pieces(widths, pool, dtype) == pieces
     a, b = next(p for p in pieces if widths[p[0]] > 1024)
-    kpads = [-(-w // 16) * 16 for w in widths]
+    kpads = mc.padded_widths(widths, dtype)
     last = pool if b == len(widths) - 1 else None
     assert mc._fits(kpads[a:b], kpads[b], last, dtype) is whole
 
