@@ -27,13 +27,15 @@ run, but the run then exits non-zero without printing a result:
    the output's max: f32 sums in another order flip an odd bf16 rounding
    of a hidden activation), timed beside its twin, its bound and the
    unfused SA1 route at the same b = 2, and again on two tabletops (the
-   windows fit: the input detect_batch hands K3); then K6 (exact FPS) and K2f
+   windows fit: the input detect_batch hands K3), and on that pair's SA1
+   inputs the launch shapes of the SA1_FUSE setting (K3 at b = 1 on its
+   first scene, K2 at b = 2 bit for bit, `_setting_kernel_phase`); then K6
+   (exact FPS) and K2f
    (full-scan ball query) at the reference-parity configuration's shapes
    (`curvature_model.yaml` with SORT_POINTS false and FPS_SHARDS 1) at
    b = 1 and 2, bit for bit (K6 also with 8 shards), timed beside their
-   twins (K6 with the cluster size its launcher picks per stage, its chain
-   floor, a model estimate, and its push exchange timed against the
-   cluster-barrier one),
+   twins (K6 with the cluster size its launcher picks per stage and its
+   chain floor, a model estimate),
    and K2f again at the deployed path's SA2 and SA3 (sorted
    scenes, the sort promise handed on; kept and broken), bit for bit,
    timed per scene against a bound of the distance tests the data needs,
@@ -61,7 +63,10 @@ run, but the run then exits non-zero without printing a result:
    the fused stage takes (`_batch_reference_phase`); then the detect
    stages at the narrow width of the parity configuration (K6 and K2f,
    `_parity_reference_phase`); then the first two again on the fused-chain
-   route (K7 on the GPU, `_fused_reference_phase`);
+   route (K7 on the GPU, `_fused_reference_phase`); then the contact
+   model's detect stages (`_contact_reference_phase`) and, on a bf16
+   backbone, the detect stages with `CAST_ACTIVATIONS` on
+   (`_cast_reference_phase`);
 4. main paths: `GraspDetector(model="curvature_model").detect` at full width
    with seeded random weights on a synthetic camera-frame tabletop (a plane
    plus boxes), a few times, then a clutter scene; per-stage and total ms,
@@ -76,11 +81,22 @@ run, but the run then exits non-zero without printing a result:
    (`_fused_phase`, the deployed detector with `nn_layers.MLP_IMPL`
    "fused"): detect x3, detect_batch at b = 2 x3, and one detect with the
    route on "auto" over the pooled SA chains only, then the route off and
-   on in turns at b = 1 and 2 (uncounted, timed).  Each run's launch
-   counters are zeroed before it and read after it, and every kernel must
+   on in turns at b = 1 and 2 (uncounted, timed); then the contact model
+   (`GraspDetector(model="contact_model")`, `_contact_phase`): detect x3
+   on a tabletop and once on clutter, detect_batch at b = 2, one eval
+   (a fresh model's grasp origins are its points, exactly), one
+   fused-chain detect, and a checkpoint round trip through
+   `last_checkpoint`; then the two model settings (`_settings_phase`):
+   `SA1_FUSE` "1" (detect x3: K3 at b = 1), "0" (detect_batch b = 2: K2
+   at b = 2) and `CAST_ACTIVATIONS` (one detect); then `detect_stream`
+   (`_stream_phase`): 8 tabletop frames at depth 1, 2 and 3, each equal
+   bit for bit to sequential `detect` on a detector with the same seed,
+   frames/s of both and the host synchronizations of one frame's submit.
+   Each run's launch counters are zeroed before it and read after it, and
+   every kernel must
    launch exactly its count per forward (`_deployed_launches`,
    `_parity_launches`, `FUSED_K7_LAUNCHES`), given the SA1 overflows the
-   run reported; over the counted fused-chain runs the packed-operand
+   run reported (the stream: per frame); over the counted fused-chain runs the packed-operand
    cache must hit on every chain and pack none;
 5. profile: one detect, one detect_batch at b = 2, one parity detect and
    one fused-chain detect under torch.profiler — device time by kernel and
@@ -679,6 +695,47 @@ def _k3_phase(inp, torch):
             by)
 
 
+def _setting_kernel_phase(binp, torch, extras):
+    """The two launch shapes the SA1_FUSE setting adds, on SA1's inputs of
+    a detect_batch on two tabletops (`_batch_sa1_inputs(..., clutter=
+    False)`): K3 at b = 1 on the first scene (SA1_FUSE "1"), held as
+    `_k3_phase` holds it, and K2 at b = 2 on both (SA1_FUSE "0"), bit for
+    bit against its twin; each timed beside its twin and its bound, into
+    `extras`."""
+    from s4g_tpu_torch.ops import neighbors as nb
+
+    one = {**binp, **{key: binp[key][:1].contiguous()
+                      for key in ("pts", "cents", "lo_tile", "lo_k2")}}
+    _, _, _, err, ms, plain, bound, by = _k3_phase(one, torch)
+    extras.setdefault("sa1_fused", {}).update(
+        b1_ms=ms, b1_max_abs_err=err, b1_plain_ms=plain, b1_bound_ms=bound,
+        b1_bound_by=by)
+    pts, cents, lo = binp["pts"], binp["cents"], binp["lo_k2"]
+    r, k = binp["radius"], binp["k"]
+    b, _, n = pts.shape
+    m = cents.shape[2]
+    err = _compare("ball_query_slab b=2",
+                   nb.ball_query_fused_slab(pts, cents, lo, r, k, True),
+                   nb._ball_query_slab_plain(pts, cents, lo, r * r, k, True),
+                   True)
+    ms = _graph_ms(lambda: nb.ball_query_fused_slab(pts, cents, lo, r, k,
+                                                    True))
+    plain = _event_ms(lambda: nb._ball_query_slab_plain(pts, cents, lo,
+                                                        r * r, k, True),
+                      reps=5)
+    # As at b = 1: 9 f32 operations per distance test this data needs.
+    tested = _slab_keys(pts, cents, lo, r * r)
+    bound, by = _bound_ms(9.0 * tested, b * (12 * (n + m) + 4 * m * (k + 1))
+                          + 4 * lo.numel())
+    extras.setdefault("ball_query_slab", {}).update(
+        b2_ms=ms, b2_max_abs_err=err, b2_plain_ms=plain, b2_bound_ms=bound,
+        b2_bound_by=by)
+    print(f"kernel ball_query_slab b=2 (SA1_FUSE 0): distance tests needed "
+          f"{int(tested)} of {b * m * nb.BQ_WINDOW} in the windows; kernel "
+          f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.6f} ms ({by})",
+          flush=True)
+
+
 NARROW = {
     "MODEL": {"TYPE": "PN2_CLS", "COMPUTE_DTYPE": "float32", "PN2": {
         "NUM_INPUT": 8192, "NUM_CENTROIDS": (1024, 256, 128),
@@ -691,7 +748,8 @@ NARROW = {
 }
 
 
-def _reference_phase(torch, np, devices=("cpu", "cuda"), config=NARROW):
+def _reference_phase(torch, np, devices=("cpu", "cuda"), config=NARROW,
+                     prepare=None, tol=(1e-4, None)):
     """Detect stages at a narrow width that still takes every kernel route
     (by default: slab SA1 at N = 8192, 3-NN 8192 <- 1024, collision 8192 x
     16384), on a clutter scene, on the GPU (kernels) and on the CPU (plain
@@ -700,7 +758,8 @@ def _reference_phase(torch, np, devices=("cpu", "cuda"), config=NARROW):
     * preprocessing: the voxel means must match exactly; the radius outlier
       mask (matmul-form distances, summed differently by cuBLAS and the CPU
       BLAS) within 0.1 % of the points;
-    * model, on the same sampled points: predictions within 1e-4;
+    * model, on the same sampled points: predictions within `tol` (max,
+      and mean where given; 1e-4 by default, an f32 config);
     * post-processing, collision check and importance sampling, both fed
       the GPU's predictions, with every sampled point a candidate: the
       score-sorted scores within 1e-6 relative, and 99 % of the candidates
@@ -713,7 +772,8 @@ def _reference_phase(torch, np, devices=("cpu", "cuda"), config=NARROW):
     importance draws land on other candidates.  And with random weights
     the raw rotation columns can be short, so normalising them turns the
     model's ~1e-6 device differences into large pose differences: hence
-    post-processing gets the same predictions on both devices."""
+    post-processing gets the same predictions on both devices.
+    `prepare(net)` adjusts the seeded weights before the runs."""
     from s4g_tpu_torch.configs import processing_config as proc
     from s4g_tpu_torch.configs.config import load_cfg_from_dict
     from s4g_tpu_torch.models import build_model
@@ -726,6 +786,8 @@ def _reference_phase(torch, np, devices=("cpu", "cuda"), config=NARROW):
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(3)
         net = build_model(load_cfg_from_dict(config))
+    if prepare is not None:
+        prepare(net)
     cap, n_in = 16384, 8192
     n_cand = n_in
     cloud = clutter_cloud(rng)
@@ -760,10 +822,12 @@ def _reference_phase(torch, np, devices=("cpu", "cuda"), config=NARROW):
     keep_diff = int((cpu["keep"] != gpu["keep"]).sum())
     if keep_diff > 1e-3 * cap:
         raise AssertionError(f"outlier masks differ at {keep_diff} points")
-    pred_err = max(float((cpu["preds"][k] - gpu["preds"][k]).abs().max())
-                   for k in gpu["preds"])
-    if not pred_err <= 1e-4:
-        raise AssertionError(f"predictions differ by {pred_err}")
+    diffs = [(cpu["preds"][k] - gpu["preds"][k]).abs() for k in gpu["preds"]]
+    pred_err = max(float(d.max()) for d in diffs)
+    pred_mean = max(float(d.mean()) for d in diffs)
+    if not (pred_err <= tol[0] and (tol[1] is None or pred_mean <= tol[1])):
+        raise AssertionError(f"predictions differ by {pred_err} (max), "
+                             f"{pred_mean} (mean); tolerance {tol}")
 
     res = {}
     for dev in devices:
@@ -776,7 +840,8 @@ def _reference_phase(torch, np, devices=("cpu", "cuda"), config=NARROW):
         res[dev] = {k: p.cpu().numpy() for k, p in r.items()}
     stats = _compare_grasps(res[devices[0]], res[devices[1]], n_cand, torch,
                             np)
-    return {"keep_mismatch": keep_diff, "max_pred_err": pred_err, **stats}
+    return {"keep_mismatch": keep_diff, "max_pred_err": pred_err,
+            "max_mean_pred_err": pred_mean, **stats}
 
 
 def _compare_grasps(cpu, gpu, n_cand, torch, np):
@@ -917,6 +982,51 @@ def _parity_reference_phase(torch, np, devices=("cpu", "cuda")):
     return out
 
 
+# NARROW as the contact model (PN2: regression translation, 6-D rotation).
+NARROW_CONTACT = {**NARROW, "MODEL": {**NARROW["MODEL"], "TYPE": "PN2"}}
+# NARROW with a bf16 backbone, where CAST_ACTIVATIONS changes the numbers.
+NARROW_BF16 = {**NARROW, "MODEL": {**NARROW["MODEL"],
+                                   "COMPUTE_DTYPE": "bfloat16"}}
+
+
+def _small_t_logit(net):
+    """Seeded translation residuals of a few millimetres for a contact
+    model (a fresh one's are zero), so that grasp origins leave their
+    points but stay on the cloud."""
+    import torch
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        net.t_logit.weight.normal_(0.0, 0.01, generator=gen)
+        net.t_logit.bias.normal_(0.0, 0.002, generator=gen)
+
+
+def _contact_reference_phase(torch, np, devices=("cpu", "cuda")):
+    """`_reference_phase` at NARROW_CONTACT: the contact model's detect
+    stages (its regression post-processing included) on the GPU and on the
+    CPU, with small translation residuals (`_small_t_logit`)."""
+    return _reference_phase(torch, np, devices, config=NARROW_CONTACT,
+                            prepare=_small_t_logit)
+
+
+def _cast_reference_phase(torch, np, devices=("cpu", "cuda")):
+    """`_reference_phase` at NARROW_BF16 with `CAST_ACTIVATIONS` on (every
+    PointConv hands on bf16): predictions within the bf16 tolerances of
+    the JAX package's own tests (max 5e-2, mean 5e-3)."""
+    with _layer_settings(CAST_ACTIVATIONS=True):
+        return _reference_phase(torch, np, devices, config=NARROW_BF16,
+                                tol=(5e-2, 5e-3))
+
+
+def _output_dir(name: str) -> str:
+    """An empty detector output directory (checkpoints, debug dumps) inside
+    the (gitignored) build directory."""
+    import shutil
+    from s4g_tpu_torch import _build
+    path = os.path.join(_build.BUILD_DIR, "output", name)
+    shutil.rmtree(path, ignore_errors=True)
+    return path
+
+
 def _config_file(name: str, model=None, **pn2) -> str:
     """A variant of the port's curvature_model.yaml: MODEL keys `model` and
     PN2 keys `pn2` replaced, written as `name`.yaml into the (gitignored)
@@ -986,9 +1096,7 @@ def _k6_phase(inp, torch, extras):
     timed (CUDA-graph replays) beside the plain loop, timed once per stage:
     it is thousands of steps of a few launches each.  Prints the cluster
     size chosen per stage, the times per stage at b = 1 and 2, the chain
-    floor (a model estimate, `K6_STEP_CLOCKS`) beside the bound, and the
-    two exchanges timed against each other (push, the default; cluster
-    barrier)."""
+    floor (a model estimate, `K6_STEP_CLOCKS`) beside the bound."""
     from s4g_tpu_torch.ops import sampling as sp
 
     st = inp["stages"]
@@ -1010,11 +1118,6 @@ def _k6_phase(inp, torch, extras):
                               per_graph=3) for p, m in cs]
                 for b, cs in calls.items()}
     ms, ms_b2 = sum(stage_ms[1]), sum(stage_ms[2])
-    exchange_ms = {"push": ms}
-    for ex in sp.FPS_EXCHANGES[1:]:
-        exchange_ms[ex] = sum(_graph_ms(
-            lambda p=p, m=m, ex=ex: sp._fps_exact_launch(p, m, 1, ex),
-            reps=5, per_graph=3) for p, m in calls[1])
     ms_g8 = _graph_ms(lambda: sp.fps_sharded(p8, m8, 8), reps=5)
     plain = sum(_event_ms(lambda p=p, m=m: sp._fps_plain(p, m), reps=1,
                           warmup=0) for p, m in calls[1])
@@ -1031,7 +1134,7 @@ def _k6_phase(inp, torch, extras):
     extras["fps_exact"] = {
         "cluster_blocks_per_stage": blocks, "per_stage_ms_b1": stage_ms[1],
         "per_stage_ms_b2": stage_ms[2], "per_forward_ms_b2": ms_b2,
-        "exchange_ms": exchange_ms, "eight_shards_ms": ms_g8,
+        "eight_shards_ms": ms_g8,
         "argmax_steps": steps, "sm_clock_max_mhz": clock_mhz}
     print(f"kernel fps_exact: cluster blocks per stage {blocks} for "
           f"{ns[:3]}-point chains; per stage at b=1 "
@@ -1039,10 +1142,8 @@ def _k6_phase(inp, torch, extras):
           f"{', '.join(f'{t:.4f}' for t in stage_ms[2])} ms; per forward "
           f"b=1 {ms:.4f} ms, b=2 {ms_b2:.4f} ms; chain floor (model "
           f"estimate, not measured) {floor:.4f} ms ({steps} argmax steps, "
-          f"{cycles} clocks at {clock_mhz} MHz); "
-          f"exchange at b=1: "
-          + ", ".join(f"{k} {v:.4f} ms" for k, v in exchange_ms.items())
-          + f"; 8 shards at SA1 {ms_g8:.4f} ms", flush=True)
+          f"{cycles} clocks at {clock_mhz} MHz); 8 shards at SA1 "
+          f"{ms_g8:.4f} ms", flush=True)
     return ("fps_exact", "s4g_tpu_torch/csrc/fps_exact.cu",
             "s4g_tpu/ops/sampling.py:81", err, ms, plain,
             *_bound_ms(ops, nbytes))
@@ -1284,7 +1385,7 @@ def _chain_inputs(det, torch, np):
     gen = torch.Generator(device=det.device).manual_seed(7)
     nn_layers.SharedMLP.fused_eval = capture
     try:
-        with _mlp_route(MLP_IMPL="fused"), torch.no_grad():
+        with _layer_settings(MLP_IMPL="fused"), torch.no_grad():
             points = prep_one(cloud, valid, det.num_input, generator=gen)
             det.net({"scene_points": points.t()[None].contiguous()})
     finally:
@@ -1338,7 +1439,7 @@ def _k7_case(name, mlp, x, k, cd, torch):
         route = unfused = float("nan")
         if cd == mlp[0].dtype:
             route = _graph_ms(lambda: mlp.fused_eval(x, k))
-            with _mlp_route(MLP_IMPL="unfused"):
+            with _layer_settings(MLP_IMPL="unfused"):
                 unfused = _graph_ms(lambda: mlp(x, max_pool_k=k))
     flop = 2.0 * flat.shape[0] * sum(a * b for a, b in zip(widths, widths[1:]))
     xc = runs[0][0]
@@ -1393,7 +1494,7 @@ def _fused_reference_phase(torch, np, devices=("cpu", "cuda")):
     takes SA1), on the CPU its twin; checked as those phases check."""
     from s4g_tpu_torch import _build
 
-    with _mlp_route(MLP_IMPL="fused"), _k7_plans() as plans:
+    with _layer_settings(MLP_IMPL="fused"), _k7_plans() as plans:
         before = _build.LAUNCHES["mlp_chain"]
         one = _reference_phase(torch, np, devices)
         mid = _build.LAUNCHES["mlp_chain"]
@@ -1466,7 +1567,7 @@ def _fused_phase(det, torch, np):
             if b == 1:
                 return [det.detect(scenes["tabletop0"], **kw)]
             return det.detect_batch(pair, **kw)
-        with _mlp_route(**settings):
+        with _layer_settings(**settings):
             call()
             _build.reset_launches()
             timings, expected = [], {}
@@ -1495,7 +1596,7 @@ def _fused_phase(det, torch, np):
                     (2, lambda: det.detect_batch(pair, **kw))):
         turns = {"auto": [], "fused": []}
         for impl in ("auto", "fused", "fused", "auto") * 2:
-            with _mlp_route(MLP_IMPL=impl):
+            with _layer_settings(MLP_IMPL=impl):
                 call()
             turns[impl].append(dict(det.timings))
         name = "detect" if b == 1 else f"detect_batch b={b}"
@@ -1503,6 +1604,249 @@ def _fused_phase(det, torch, np):
             medians[f"{name} in turns, {impl}"] = _stage_medians(
                 f"{name} in turns, MLP_IMPL {impl}", runs)
     return paths, medians, cache
+
+
+def _contact_phase(det, torch, np, model: str = "contact_model"):
+    """The contact model (`GraspDetector(model="contact_model")`, PN2) at
+    full width with seeded random weights: detect x3 on a tabletop and
+    once on clutter, detect_batch at b = 2 on tabletops, then one eval
+    and one detect on the fused-chain route (K7 as for PN2_CLS: the same
+    ten chains).  Each run warmed up, counted on its own, every kernel
+    exactly (`_deployed_launches`: the backbone is the deployed one).  A
+    fresh model's translation head is zero, so eval's grasp origins are
+    its input points exactly; its rotations must be orthonormal.  Then a
+    checkpoint round trip at full width: the weights saved with
+    `Checkpointer` into the detector's output directory make a second
+    detector of `model` there (its `last_checkpoint`) give the same
+    predictions.
+    Returns each run's launches and stage medians."""
+    from s4g_tpu_torch import _build
+    from s4g_tpu_torch.pipeline.detector import GraspDetector, prep_one
+    from s4g_tpu_torch.utils.checkpoint import Checkpointer
+
+    scenes = _scenes(np)
+    kw = {"score_threshold": 0.0, "verticalness_threshold": -1e9}
+    pair = [scenes["tabletop0"], scenes["tabletop2"]]
+    paths, medians = {}, {}
+    det.detect(scenes["tabletop0"], **kw)
+    det.detect_batch(pair, **kw)
+
+    _build.reset_launches()
+    expected, runs, found = {}, [], {}
+    for name in ["tabletop0"] * NUM_DETECT + ["clutter1"]:
+        (poses, scores), want = _counted(det, lambda: det.detect(
+            scenes[name], **kw), 1)
+        expected = _add(expected, want)
+        if name == "tabletop0":
+            runs.append(dict(det.timings))
+        found[name] = (poses, scores, det.last_num_valid)
+    paths["contact_detect"] = dict(_build.LAUNCHES)
+    _expect("contact detect", paths["contact_detect"], 1, expected)
+    medians["detect"] = _stage_medians("contact detect tabletop", runs)
+    for name, (poses, scores, num_valid) in found.items():
+        ortho = _check_grasps(f"contact {name}", [(poses, scores)])
+        print(f"contact detect {name}: num_valid {num_valid}, {len(poses)} "
+              f"grasps returned, max orthonormality error {ortho:.2e}",
+              flush=True)
+
+    _build.reset_launches()
+    results, want = _counted(det, lambda: det.detect_batch(pair, **kw), 2)
+    _check_grasps("contact detect_batch", results)
+    paths["contact_batch"] = dict(_build.LAUNCHES)
+    _expect("contact detect_batch b=2", paths["contact_batch"], 1, want)
+    medians["detect_batch b=2"] = _stage_medians("contact detect_batch b=2",
+                                                 [det.timings])
+
+    # Without the collision check every candidate is valid: the returned
+    # poses show the regression decoding end to end.
+    poses, scores = det.detect(scenes["clutter1"], collision_check=False,
+                               **kw)
+    ortho = _check_grasps("contact detect without collision",
+                          [(poses, scores)])
+    if not len(poses):
+        raise AssertionError("contact detect without collision: no grasp")
+
+    cloud = scenes["tabletop0"][:det.cloud_capacity]   # padded, not drawn
+    # Sample indices among the first voxels (a tabletop keeps ~26,600 of
+    # the 65,536 capacity rows).
+    idx = torch.randint(0, det.cloud_capacity // 4, (det.num_input,),
+                        generator=torch.Generator().manual_seed(11),
+                        dtype=torch.int32).to(det.device)
+    _build.reset_launches()
+    preds, want = _counted(det, lambda: det.eval(cloud, sample_idx=idx), 1)
+    paths["contact_eval"] = dict(_build.LAUNCHES)
+    _expect("contact eval", paths["contact_eval"], 1,
+            {**want, "collision_counts": 0})
+    padded, valid = det._pad_cloud(cloud)
+    points = prep_one(padded, valid, det.num_input, sample_idx=idx)
+    if not torch.equal(preds["frame_t"][0], points.t()):
+        raise AssertionError("a fresh contact model's grasp origins are not "
+                             "its points")
+    rot = preds["frame_R"][0].t().reshape(-1, 3, 3).double()
+    r_err = float((rot @ rot.transpose(1, 2)
+                   - torch.eye(3, dtype=rot.dtype, device=rot.device)
+                   ).abs().max())
+    if not r_err <= 1e-5:
+        raise AssertionError(f"contact frame_R not orthonormal: {r_err}")
+    print(f"contact eval: frame_t - points exactly 0, frame_R max "
+          f"orthonormality error {r_err:.2e}; detect without collision "
+          f"{len(poses)} grasps, orthonormality error {ortho:.2e}",
+          flush=True)
+
+    with _layer_settings(MLP_IMPL="fused"):
+        det.detect(cloud, **kw)
+        _build.reset_launches()
+        result, want = _counted(det, lambda: det.detect(cloud, **kw), 1,
+                                mlp_chain=FUSED_K7_LAUNCHES["detect"])
+        _check_grasps("contact fused-chain detect", [result])
+        paths["contact_fused_detect"] = dict(_build.LAUNCHES)
+        _expect("contact fused-chain detect", paths["contact_fused_detect"],
+                1, want)
+        medians["fused-chain detect"] = _stage_medians(
+            "contact fused-chain detect", [det.timings])
+
+    Checkpointer(det.output_dir).save(
+        "model_000", {"model": det.net.state_dict(), "extra": {"seed": 0}})
+    again = GraspDetector(model=model, seed=1, output_dir=det.output_dir,
+                          device=det.device.type,
+                          cloud_capacity=det.cloud_capacity,
+                          num_candidates=det.num_candidates)
+    first = det.eval(cloud, sample_idx=idx)
+    second = again.eval(cloud, sample_idx=idx)
+    if not all(torch.equal(first[k], second[k]) for k in first):
+        raise AssertionError("a detector loading the saved checkpoint "
+                             "predicts otherwise")
+    print("contact checkpoint: saved with Checkpointer, loaded through "
+          "last_checkpoint by a seed-1 detector: predictions equal",
+          flush=True)
+    return paths, medians
+
+
+def _settings_phase(det, torch, np):
+    """The two model settings at full width on the deployed detector:
+    `SA1_FUSE` "1" (detect x3 on a tabletop: K3 at b = 1, no K2), "0"
+    (detect_batch at b = 2 on tabletops: K2 at b = 2, no K3), then
+    `CAST_ACTIVATIONS` (one detect).  Each run warmed up, counted on its
+    own, every kernel exactly.  Returns each run's launches and stage
+    medians."""
+    from s4g_tpu_torch import _build
+
+    scenes = _scenes(np)
+    kw = {"score_threshold": 0.0, "verticalness_threshold": -1e9}
+    pair = [scenes["tabletop0"], scenes["tabletop2"]]
+    runs = [("sa1_fuse_1_detect", "SA1_FUSE=1 detect", {"SA1_FUSE": "1"},
+             [scenes["tabletop0"]], NUM_DETECT, True),
+            ("sa1_fuse_0_batch", "SA1_FUSE=0 detect_batch b=2",
+             {"SA1_FUSE": "0"}, pair, 1, False),
+            ("cast_detect", "CAST_ACTIVATIONS detect",
+             {"CAST_ACTIVATIONS": True}, [scenes["tabletop0"]], 1, None)]
+    paths, medians = {}, {}
+    for key, label, settings, clouds, reps, fused in runs:
+        with _layer_settings(**settings):
+            det.detect_batch(clouds, **kw)
+            _build.reset_launches()
+            expected, timings = {}, []
+            for _ in range(reps):
+                results, want = _counted(
+                    det, lambda: det.detect_batch(clouds, **kw), len(clouds),
+                    fused=fused)
+                _check_grasps(label, results)
+                expected = _add(expected, want)
+                timings.append(dict(det.timings))
+            paths[key] = dict(_build.LAUNCHES)
+            _expect(label, paths[key], 1, expected)
+            medians[label] = _stage_medians(label, timings)
+    return paths, medians
+
+
+STREAM_FRAMES = 8
+
+
+def _reseed(det, seed: int = 0) -> None:
+    """Put a detector's random state back to what `seed` gave it."""
+    import numpy as np
+    det.generator.manual_seed(seed)
+    det._np_rng = np.random.RandomState(seed)
+
+
+def _host_syncs(det, cloud, torch):
+    """The host's waits on the device while one frame is submitted (what
+    holds a stream's next submit back): `torch.cuda.set_sync_debug_mode
+    ("warn")` around `GraspDetector._submit`, each warning counted by the
+    line that made it."""
+    import collections
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            job = det._submit([cloud], 5, 0.0, -1e9, True)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    det._materialize(job)
+    where = collections.Counter(
+        f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    return sum(where.values()), dict(where.most_common())
+
+
+def _stream_phase(det, sdet, torch, np):
+    """`detect_stream` on the deployed configuration: STREAM_FRAMES seeded
+    tabletops through `sdet.detect_stream` at depth 1, 2 and 3, each
+    yield equal, bit for bit, to `det.detect` on the same frame (both
+    detectors seed 0, their random state reset before each pass); the
+    depth-2 pass counted (every kernel exactly, per frame).  Prints
+    frames/s of each pass and of the sequential detects, and the host
+    synchronizations of one frame's submit.  Returns the counted pass's
+    launches and the rates."""
+    from s4g_tpu_torch import _build
+    from s4g_tpu_torch.ops import neighbors as nb
+
+    frames = [tabletop_cloud(np.random.RandomState(100 + i))
+              for i in range(STREAM_FRAMES)]
+    kw = {"score_threshold": 0.0, "verticalness_threshold": -1e9}
+    det.detect(frames[0], **kw)
+    list(sdet.detect_stream(frames[:2], depth=2, **kw))
+    _reseed(det)
+    t0 = time.perf_counter()
+    want = [det.detect(f, **kw) for f in frames]
+    seq_fps = STREAM_FRAMES / (time.perf_counter() - t0)
+    rates, launches = {"sequential_detect_fps": seq_fps}, None
+    for depth in (1, 2, 3):
+        _reseed(sdet)
+        if depth == 2:
+            _build.reset_launches()
+            over = nb.SLAB_FALLBACKS["overflow"]
+        t0 = time.perf_counter()
+        got = list(sdet.detect_stream(frames, depth=depth, **kw))
+        rates[f"stream_depth{depth}_fps"] = (STREAM_FRAMES
+                                             / (time.perf_counter() - t0))
+        if depth == 2:
+            launches = dict(_build.LAUNCHES)
+            n_over = nb.SLAB_FALLBACKS["overflow"] - over
+            expected = {k: STREAM_FRAMES * v for k, v in
+                        _deployed_launches(sdet, 1).items()}
+            expected["ball_query_slab"] -= n_over
+            expected["ball_query_full"] += n_over
+            _expect(f"detect_stream depth 2, {STREAM_FRAMES} frames",
+                    launches, 1, expected)
+        bad = [i for i, ((gp, gs), (wp, ws)) in enumerate(zip(got, want))
+               if not (np.array_equal(gp, wp) and np.array_equal(gs, ws))]
+        if len(got) != STREAM_FRAMES or bad:
+            raise AssertionError(f"detect_stream depth {depth}: {len(got)} "
+                                 f"frames, frames {bad} differ from detect")
+        print(f"detect_stream depth {depth}: {STREAM_FRAMES} frames equal "
+              f"detect bit for bit; frame ms "
+              + ", ".join(f"{t:.1f}" for t in sdet.timings["frame_ms"]),
+              flush=True)
+    syncs, where = _host_syncs(sdet, frames[0], torch)
+    rates["host_syncs_per_submit"] = syncs
+    print(f"detect_stream ({_nvidia_smi()}): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in rates.items()
+                      if k.endswith("fps"))
+          + f"; host synchronizations in one frame's submit: {syncs} "
+          f"{where}", flush=True)
+    return launches, rates
 
 
 def _expect(label, launches, forwards, per_forward):
@@ -1543,14 +1887,15 @@ def _parity_launches(det, **changes):
 
 
 def _deployed_launches(det, b: int, overflow: bool = False,
-                       mlp_chain: int = 0):
+                       mlp_chain: int = 0, fused=None):
     """Launches per deployed forward of `det` (SORT_POINTS, FPS_SHARDS 128)
     at batch `b`: K1 once for all SA stages where they nest
-    (`fps_nesting_applies`), else once per stage; SA1 through K2 at b = 1
-    and K3 at b >= 2, or, when its key windows `overflow`, through the
-    full-scan fallback (K2f); K2f for every other SA stage (inputs below
-    the slab capacity); K4 for each FP stage at or above its pair
-    threshold; K5 once per scene post-processed; `mlp_chain` K7 chains."""
+    (`fps_nesting_applies`), else once per stage; SA1 through K3 where it
+    is `fused` (by default at b >= 2, `nn_layers.SA1_FUSE` "auto"), else
+    K2, or, when its key windows `overflow`, through the full-scan
+    fallback (K2f); K2f for every other SA stage (inputs below the slab
+    capacity); K4 for each FP stage at or above its pair threshold; K5
+    once per scene post-processed; `mlp_chain` K7 chains."""
     from s4g_tpu_torch import _build
     from s4g_tpu_torch.ops.sampling import fps_nesting_applies
     pn2 = det.cfg.MODEL.PN2
@@ -1565,7 +1910,8 @@ def _deployed_launches(det, b: int, overflow: bool = False,
     if overflow:
         out["ball_query_full"] += 1
     else:
-        out["ball_query_slab" if b == 1 else "sa1_fused"] = 1
+        out["sa1_fused" if (b >= 2 if fused is None else fused)
+            else "ball_query_slab"] = 1
     return out
 
 
@@ -1573,10 +1919,10 @@ def _add(total: dict, more: dict) -> dict:
     return {k: total.get(k, 0) + v for k, v in more.items()}
 
 
-def _counted(det, call, b: int, mlp_chain: int = 0):
+def _counted(det, call, b: int, mlp_chain: int = 0, fused=None):
     """Run `call()` once; return its result and the launches it should have
     made, `_deployed_launches` with the SA1 overflow that the run reported
-    (the slab route's fallback at b = 1, the fused stage's at b >= 2)."""
+    (the slab route's fallback, the fused stage's)."""
     from s4g_tpu_torch.ops import neighbors as nb
     from s4g_tpu_torch.ops import sa_fused as sf
 
@@ -1584,13 +1930,14 @@ def _counted(det, call, b: int, mlp_chain: int = 0):
     out = call()
     overflow = (nb.SLAB_FALLBACKS["overflow"] + sf.SA1_FALLBACKS["overflow"]
                 > before)
-    return out, _deployed_launches(det, b, overflow, mlp_chain)
+    return out, _deployed_launches(det, b, overflow, mlp_chain, fused)
 
 
 @contextlib.contextmanager
-def _mlp_route(**settings):
-    """Set the fused-chain route's module settings (`nn_layers.MLP_IMPL`,
-    `MLP_FUSE_MIN_ROWS`, `MLP_FUSE_SCOPE`) and restore them after."""
+def _layer_settings(**settings):
+    """Set module settings of `s4g_tpu_torch.models.nn_layers` (the
+    fused-chain route's `MLP_IMPL`, `MLP_FUSE_MIN_ROWS`, `MLP_FUSE_SCOPE`;
+    `SA1_FUSE`, `CAST_ACTIVATIONS`) and restore them after."""
     from s4g_tpu_torch.models import nn_layers
     old = {k: getattr(nn_layers, k) for k in settings}
     for k, v in settings.items():
@@ -1867,12 +2214,19 @@ def main() -> int:
     _build.load_library()
     print(f"build: {time.perf_counter() - t0:.1f} s, {lib}", flush=True)
 
-    det = GraspDetector(model="curvature_model", seed=0)
+    det = GraspDetector(model="curvature_model", seed=0,
+                        output_dir=_output_dir("deployed"))
     pdet = GraspDetector(model=_config_file(
-        "parity_model", SORT_POINTS=False, FPS_SHARDS=1), seed=0)
+        "parity_model", SORT_POINTS=False, FPS_SHARDS=1), seed=0,
+        output_dir=_output_dir("parity"))
     sdet = GraspDetector(model=_config_file(
         "sort_only_model", model={"COMPUTE_DTYPE": "float32"},
-        SORT_POINTS=True, FPS_SHARDS=1), seed=0)
+        SORT_POINTS=True, FPS_SHARDS=1), seed=0,
+        output_dir=_output_dir("sort_only"))
+    cdet = GraspDetector(model="contact_model", seed=0,
+                         output_dir=_output_dir("contact"))
+    qdet = GraspDetector(model="curvature_model", seed=0,
+                         output_dir=_output_dir("stream"))
     failed = []
     extras = {}
 
@@ -1900,6 +2254,7 @@ def main() -> int:
         pair = _k3_phase(binp, torch)
         extras["sa1_fused"] = {"tabletop_pair_ms": pair[4],
                                "tabletop_pair_max_abs_err": pair[3]}
+        _setting_kernel_phase(binp, torch, extras)
         pinp = _parity_inputs(pdet, torch, np)
         rep.append(_k6_phase(pinp, torch, extras))
         rep.append(_k2f_phase(pinp, torch, inp, cinp, extras))
@@ -1925,18 +2280,27 @@ def main() -> int:
     ref_f = phase("fused-chain reference",
                   lambda: _fused_reference_phase(torch, np))
     print(f"fused-chain reference: {ref_f}", flush=True)
+    ref_c = phase("contact reference",
+                  lambda: _contact_reference_phase(torch, np))
+    print(f"contact reference: {ref_c}", flush=True)
+    ref_cast = phase("CAST_ACTIVATIONS reference",
+                     lambda: _cast_reference_phase(torch, np))
+    print(f"CAST_ACTIVATIONS reference: {ref_cast}", flush=True)
     launches = phase("detect", lambda: _detect_phase(det, torch, np))
     batch = phase("detect_batch", lambda: _detect_batch_phase(det, torch, np))
     parity = phase("parity", lambda: _parity_phase(pdet, torch, np))
     sort_only = phase("sort-only", lambda: _sort_only_phase(sdet, torch, np))
     fused = phase("fused-chain", lambda: _fused_phase(det, torch, np))
+    contact = phase("contact", lambda: _contact_phase(cdet, torch, np))
+    settings = phase("settings", lambda: _settings_phase(det, torch, np))
+    stream = phase("stream", lambda: _stream_phase(det, qdet, torch, np))
     phase("profile", lambda: _profile_phase(det, torch, np))
     phase("profile batch", lambda: _profile_phase(det, torch, np,
                                                   batch=BATCHES[2]))
     phase("profile parity", lambda: _profile_phase(pdet, torch, np))
 
     def profile_fused():
-        with _mlp_route(MLP_IMPL="fused"):
+        with _layer_settings(MLP_IMPL="fused"):
             _profile_phase(det, torch, np, name="fused-chain detect")
     phase("profile fused-chain", profile_fused)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s, build included",
@@ -1947,7 +2311,8 @@ def main() -> int:
 
     # launches: over every main path's counted runs, and by path.
     paths = {"detect": launches, "detect_batch": batch[0], **parity[0],
-             "sort_only_batch": sort_only[0], **fused[0]}
+             "sort_only_batch": sort_only[0], **fused[0], **contact[0],
+             **settings[0], "stream": stream[0]}
     extras.setdefault("mlp_chain", {})["pack_cache"] = fused[2]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,

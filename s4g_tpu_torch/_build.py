@@ -41,10 +41,9 @@ _SIGNATURES = {
     # pts (B,3,N), b, n, nested (0: one stage, per-stage kernel; S: S
     # stages, nested kernel), m0..m2, out0..out2 (B,M_s) or NULL
     "s4g_fps_lane": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
-    # pts (B,3,N), b, n, shards, m_g, exchange (0: push, 1: cluster
-    # barrier), spill (f32 scratch past each block's registers, or NULL),
-    # out (B, shards*m_g)
-    "s4g_fps_exact": (_P, _I, _I, _I, _I, _I, _P, _P, _P),
+    # pts (B,3,N), b, n, shards, m_g, spill (f32 scratch past each
+    # block's registers, or NULL), out (B, shards*m_g)
+    "s4g_fps_exact": (_P, _I, _I, _I, _I, _P, _P, _P),
     # pts (B,3,N), cents (B,3,M), axes ((B,) int32 promised sort axes, or
     # NULL), b, n, m, r2, k, stratified, idx (B,M,K), cnt (B,M)
     "s4g_ball_query_full": (_P, _P, _P, _I, _I, _I, _F, _I, _I, _P, _P, _P),
@@ -73,9 +72,8 @@ _SIGNATURES = {
 # C entry points that launch nothing (argtypes, no stream): a launcher's
 # plan for given sizes.
 _QUERIES = {
-    # ns, exchange, plan (2 int32: blocks per chain, scratch floats per
-    # block)
-    "s4g_fps_exact_plan": (_I, _I, _P),
+    # ns, plan (2 int32: blocks per chain, scratch floats per block)
+    "s4g_fps_exact_plan": (_I, _P),
 }
 
 # Launch counts per kernel (plain integers; chip_smoke.py zeroes them before

@@ -37,22 +37,16 @@
 // exactly.  Warps meet in a double-buffered shared array (one barrier).
 // Then the block's winner (value bits, index, coordinates) goes to every
 // block of the cluster, and every block reduces the C messages to the
-// chain's winner, whose coordinates are the next step's centroid.  Two
-// exchanges, a template flag (chip_smoke.py times them against each other;
-// push ran 2.5x faster on the H100):
-// * push (the default): one lane per peer writes the message into the
-//   peer's shared memory with st.async, which completes C x 20 bytes on the
-//   peer's mbarrier; each block waits on its own barrier.  Slots and
-//   barriers are double-buffered by step parity.  Two buffers suffice: a
-//   block sends step s only after it read step s-1's buffer (it needed that
-//   winner), and it read step s-2's buffer before its step s-1 barrier, so
-//   a peer a step ahead never overwrites a buffer still being read.  A
-//   peer's message may land before the block's own arrive.expect_tx for
-//   that phase; the barrier's tx-count then runs negative until it does;
-// * cluster barrier, kept only for that A/B (the model never takes it):
-//   each block writes its winner into its own slot, a barrier.cluster
-//   arrive.release / wait.acquire per step, then every block reads the C
-//   slots through distributed shared memory.
+// chain's winner, whose coordinates are the next step's centroid.  The
+// exchange pushes: one lane per peer writes the message into the peer's
+// shared memory with st.async, which completes C x 20 bytes on the peer's
+// mbarrier; each block waits on its own barrier.  Slots and barriers are
+// double-buffered by step parity.  Two buffers suffice: a block sends step
+// s only after it read step s-1's buffer (it needed that winner), and it
+// read step s-2's buffer before its step s-1 barrier, so a peer a step
+// ahead never overwrites a buffer still being read.  A peer's message may
+// land before the block's own arrive.expect_tx for that phase; the
+// barrier's tx-count then runs negative until it does.
 // What is left: a step is a chain of dependent latencies (warp and block
 // argmax, shared-memory hops, the push, the wait, the messages' argmax)
 // after a relax that at SA1 issues ~50 instructions a thread.
@@ -122,7 +116,7 @@ __device__ __forceinline__ void warp_argmax(unsigned& v, unsigned& j) {
   v = mv;
 }
 
-template <int PPT, bool kPush>
+template <int PPT>
 __global__ void __launch_bounds__(kThreads, 1)
 fps_cluster_kernel(const float* __restrict__ pts, int n, int ns, int shards,
                    int m_g, int csize, int slice, int cached,
@@ -251,63 +245,42 @@ fps_cluster_kernel(const float* __restrict__ pts, int n, int ns, int shards,
       x = __shfl_sync(S4G_FULL_MASK, x, 0);
       y = __shfl_sync(S4G_FULL_MASK, y, 0);
       z = __shfl_sync(S4G_FULL_MASK, z, 0);
-      if (kPush) {
-        const uint32_t bar_local = smem_addr(bar + buf);
-        if (lane == 0)
-          asm volatile(
-              "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                  bar_local),
-              "r"(csize * kMsgBytes)
-              : "memory");
-        if (lane < csize) {   // lane r writes block r's slot `rank`
-          const uint32_t dst =
-              peer_addr(smem_addr(slots + rank * kMsgWords), lane);
-          const uint32_t dbar = peer_addr(bar_local, lane);
-          asm volatile(
-              "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 "
-              "[%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(dst),
-              "r"(v), "r"(jj), "r"(__float_as_uint(x)),
-              "r"(__float_as_uint(y)), "r"(dbar)
-              : "memory");
-          asm volatile(
-              "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 "
-              "[%0], %1, [%2];\n" ::"r"(dst + 16),
-              "r"(__float_as_uint(z)), "r"(dbar)
-              : "memory");
-        }
-      } else if (lane == 0) {   // into the block's own slot
-        uint4* mine = reinterpret_cast<uint4*>(slots);
-        *mine = make_uint4(v, jj, __float_as_uint(x), __float_as_uint(y));
-        slots[4] = __float_as_uint(z);
+      const uint32_t bar_local = smem_addr(bar + buf);
+      if (lane == 0)
+        asm volatile(
+            "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                bar_local),
+            "r"(csize * kMsgBytes)
+            : "memory");
+      if (lane < csize) {   // lane r writes block r's slot `rank`
+        const uint32_t dst =
+            peer_addr(smem_addr(slots + rank * kMsgWords), lane);
+        const uint32_t dbar = peer_addr(bar_local, lane);
+        asm volatile(
+            "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 "
+            "[%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(dst),
+            "r"(v), "r"(jj), "r"(__float_as_uint(x)),
+            "r"(__float_as_uint(y)), "r"(dbar)
+            : "memory");
+        asm volatile(
+            "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 "
+            "[%0], %1, [%2];\n" ::"r"(dst + 16),
+            "r"(__float_as_uint(z)), "r"(dbar)
+            : "memory");
       }
     }
     // The chain's winner from the C messages.
     unsigned mv = 0u, mj = kNoIndex, mx = 0u, my = 0u, mz = 0u;
-    if (kPush) {
-      wait_parity(smem_addr(bar + buf), (phases >> buf) & 1u);
-      phases ^= 1u << buf;
-      if (lane < csize) {
-        const uint4 m = *reinterpret_cast<const uint4*>(slots +
-                                                        lane * kMsgWords);
-        mv = m.x;
-        mj = m.y;
-        mx = m.z;
-        my = m.w;
-        mz = slots[lane * kMsgWords + 4];
-      }
-    } else {
-      cluster_sync();
-      if (lane < csize) {
-        const uint32_t src = peer_addr(smem_addr(slots), lane);
-        asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-                     : "=r"(mv), "=r"(mj), "=r"(mx), "=r"(my)
-                     : "r"(src)
-                     : "memory");
-        asm volatile("ld.shared::cluster.u32 %0, [%1];\n"
-                     : "=r"(mz)
-                     : "r"(src + 16)
-                     : "memory");
-      }
+    wait_parity(smem_addr(bar + buf), (phases >> buf) & 1u);
+    phases ^= 1u << buf;
+    if (lane < csize) {
+      const uint4 m = *reinterpret_cast<const uint4*>(slots +
+                                                      lane * kMsgWords);
+      mv = m.x;
+      mj = m.y;
+      mx = m.z;
+      my = m.w;
+      mz = slots[lane * kMsgWords + 4];
     }
     unsigned wv = mv, wj = mj;
     warp_argmax(wv, wj);
@@ -319,21 +292,20 @@ fps_cluster_kernel(const float* __restrict__ pts, int n, int ns, int shards,
     cz = __uint_as_float(__shfl_sync(S4G_FULL_MASK, mz, src_lane));
     if (rank == 0 && tid == 0) o[step] = off + static_cast<int>(wj);
   }
-  // No block leaves while a peer may still read its shared memory.
+  // No block leaves while a peer's message may still be on its way to it.
   cluster_sync();
 }
 
 using Kernel = void (*)(const float*, int, int, int, int, int, int, int,
                         float*, int, int*);
 
-template <bool kPush>
 Kernel kernel_for(int ppt) {
   switch (ppt) {
-    case 1: return fps_cluster_kernel<1, kPush>;
-    case 2: return fps_cluster_kernel<2, kPush>;
-    case 4: return fps_cluster_kernel<4, kPush>;
-    case 8: return fps_cluster_kernel<8, kPush>;
-    default: return fps_cluster_kernel<16, kPush>;
+    case 1: return fps_cluster_kernel<1>;
+    case 2: return fps_cluster_kernel<2>;
+    case 4: return fps_cluster_kernel<4>;
+    case 8: return fps_cluster_kernel<8>;
+    default: return fps_cluster_kernel<16>;
   }
 }
 
@@ -344,7 +316,7 @@ struct Geometry {
   Kernel kernel;
 };
 
-Geometry geometry(int ns, int csize, bool push) {
+Geometry geometry(int ns, int csize) {
   Geometry g;
   g.csize = csize;
   g.slice = (ns + csize - 1) / csize;
@@ -355,7 +327,7 @@ Geometry geometry(int ns, int csize, bool push) {
   g.cached = g.slice < kMaxCached ? g.slice : kMaxCached;
   g.spill_stride = g.slice > kRegPoints ? g.slice - kRegPoints : 0;
   g.smem = kCacheOff + 3 * sizeof(float) * g.cached;
-  g.kernel = push ? kernel_for<true>(g.ppt) : kernel_for<false>(g.ppt);
+  g.kernel = kernel_for(g.ppt);
   return g;
 }
 
@@ -379,7 +351,7 @@ cudaLaunchConfig_t config_for(const Geometry& g, int clusters,
 // Once per kernel instance: the shared-memory opt-in and the permission
 // for clusters of 16.
 cudaError_t prepare(Kernel k) {
-  static Kernel done[2 * 5] = {};
+  static Kernel done[5] = {};
   for (Kernel& d : done) {
     if (d == k) return cudaSuccess;
     if (d == nullptr) {
@@ -399,11 +371,11 @@ cudaError_t prepare(Kernel k) {
 // The cluster size for chains of ns points: the fewest blocks (a power of
 // two up to 16) that leave each at most kTargetPoints points, halved while
 // such a cluster cannot be resident.
-cudaError_t plan_uncached(int ns, bool push, Geometry* out) {
+cudaError_t plan_uncached(int ns, Geometry* out) {
   int c = 1;
   while (c < kMaxCluster && (ns + c - 1) / c > kTargetPoints) c *= 2;
   for (;; c /= 2) {
-    Geometry g = geometry(ns, c, push);
+    Geometry g = geometry(ns, c);
     cudaError_t err = prepare(g.kernel);
     if (err != cudaSuccess) return err;
     cudaLaunchAttribute attr;
@@ -418,37 +390,35 @@ cudaError_t plan_uncached(int ns, bool push, Geometry* out) {
   }
 }
 
-// plan_uncached, remembered per (ns, push) for the process, so that
-// steady-state launches (and CUDA-graph captures) make no occupancy query.
-cudaError_t plan(int ns, bool push, Geometry* out) {
+// plan_uncached, remembered per ns for the process, so that steady-state
+// launches (and CUDA-graph captures) make no occupancy query.
+cudaError_t plan(int ns, Geometry* out) {
   struct Entry {
     int ns;
-    bool push;
     Geometry g;
   };
   static Entry seen[32];
   static int used = 0;
   for (int i = 0; i < used; ++i) {
-    if (seen[i].ns == ns && seen[i].push == push) {
+    if (seen[i].ns == ns) {
       *out = seen[i].g;
       return cudaSuccess;
     }
   }
-  const cudaError_t err = plan_uncached(ns, push, out);
-  if (err == cudaSuccess && used < 32) seen[used++] = {ns, push, *out};
+  const cudaError_t err = plan_uncached(ns, out);
+  if (err == cudaSuccess && used < 32) seen[used++] = {ns, *out};
   return err;
 }
 
 }  // namespace
 
 // The cluster size and the scratch floats per block K6 takes for chains of
-// ns points (exchange 0: push, 1: cluster barrier): plan[0] = blocks per
-// chain, plan[1] = scratch floats each block needs past its registers (0:
-// no scratch).
-extern "C" int s4g_fps_exact_plan(int ns, int exchange, int* plan_out) {
-  if (ns < 1 || exchange < 0 || exchange > 1) return cudaErrorInvalidValue;
+// ns points: plan[0] = blocks per chain, plan[1] = scratch floats each
+// block needs past its registers (0: no scratch).
+extern "C" int s4g_fps_exact_plan(int ns, int* plan_out) {
+  if (ns < 1) return cudaErrorInvalidValue;
   Geometry g;
-  const cudaError_t err = plan(ns, exchange == 0, &g);
+  const cudaError_t err = plan(ns, &g);
   if (err != cudaSuccess) return err;
   plan_out[0] = g.csize;
   plan_out[1] = g.spill_stride;
@@ -456,17 +426,16 @@ extern "C" int s4g_fps_exact_plan(int ns, int exchange, int* plan_out) {
 }
 
 // pts (B, 3, N) f32; B * shards chains of N/shards points, m_g centroids
-// each; exchange as for s4g_fps_exact_plan; spill (B * shards * blocks per
-// chain * plan[1]) f32 scratch where plan[1] > 0, else NULL; out (B,
-// shards * m_g) int32.
+// each; spill (B * shards * blocks per chain * plan[1]) f32 scratch where
+// plan[1] > 0 (s4g_fps_exact_plan), else NULL; out (B, shards * m_g)
+// int32.
 extern "C" int s4g_fps_exact(const float* pts, int b, int n, int shards,
-                             int m_g, int exchange, float* spill, int* out,
+                             int m_g, float* spill, int* out,
                              cudaStream_t stream) {
   const int ns = n / shards;
-  if (b < 1 || ns < 1 || m_g < 1 || exchange < 0 || exchange > 1)
-    return cudaErrorInvalidValue;
+  if (b < 1 || ns < 1 || m_g < 1) return cudaErrorInvalidValue;
   Geometry g;
-  cudaError_t err = plan(ns, exchange == 0, &g);
+  cudaError_t err = plan(ns, &g);
   if (err != cudaSuccess) return err;
   if ((g.spill_stride > 0) != (spill != nullptr)) return cudaErrorInvalidValue;
   cudaLaunchAttribute attr;

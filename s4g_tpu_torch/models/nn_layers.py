@@ -35,6 +35,15 @@ environment variable; set the attributes, as the tests do):
 * `MLP_FUSE_SCOPE`: "all" or "pooled" (only the SA stages' pooled chains).
 
 Defaults keep the route off, as in the JAX package.
+
+Two more settings, the counterparts of S4G_CAST_ACTIVATIONS and
+S4G_SA1_FUSE (`nn_layers.py:35, 42`):
+
+* `CAST_ACTIVATIONS`: when true, every PointConv casts its output to the
+  compute dtype (bf16 activations between layers and stages);
+* `SA1_FUSE`: when an xyz-only SA stage runs as one kernel (K3,
+  `PointNetSAModule._fuses`): "auto" at batch >= 2, "1" at any batch,
+  "0" never.
 """
 
 from __future__ import annotations
@@ -55,6 +64,19 @@ MLP_FUSE_MIN_ROWS = 1 << 60
 MLP_FUSE_SCOPE = "all"
 _MLP_IMPLS = ("auto", "unfused", "fused")
 _MLP_SCOPES = ("all", "pooled")
+
+CAST_ACTIVATIONS = False
+SA1_FUSE = "auto"
+_SA1_FUSES = ("auto", "0", "1")
+
+
+def sa1_fuse_wanted(batch: int) -> bool:
+    """Whether `SA1_FUSE` asks for the whole-stage kernel at this batch
+    (JAX `pn2_modules.py:176-180`, where "1" also needs a TPU backend; here
+    "1" fuses on any device, as the wrapper takes the twin on the CPU)."""
+    if SA1_FUSE not in _SA1_FUSES:
+        raise ValueError(f"SA1_FUSE {SA1_FUSE!r} is not one of {_SA1_FUSES}")
+    return SA1_FUSE == "1" or (SA1_FUSE == "auto" and batch >= 2)
 
 # Lookups of SharedMLP.packed_operands: "hits" reused a module's packed
 # operands, "packs" folded and packed anew (read by chip_smoke.py).
@@ -103,8 +125,8 @@ class PointConv(nn.Module):
         y = torch.matmul(x.to(self.dtype), w.t().to(self.dtype))
         bn = self.bn
         mul = torch.rsqrt(bn.running_var + BN_EPS) * bn.weight
-        y = (y.float() - bn.running_mean) * mul + bn.bias
-        return torch.relu(y)
+        y = torch.relu((y.float() - bn.running_mean) * mul + bn.bias)
+        return y.to(self.dtype) if CAST_ACTIVATIONS else y
 
 
 class SharedMLP(nn.ModuleList):

@@ -20,6 +20,7 @@ from .. import ops
 from ..ops.interpolate import interpolation_weights
 from ..ops.neighbors import _axis_keys
 from ..ops.sampling import fps_sharding_applies
+from . import nn_layers
 from .nn_layers import SharedMLP
 
 
@@ -61,12 +62,14 @@ class PointNetSAModule(nn.Module):
                              dtype=dtype)
 
     def _fuses(self, batch: int, sorted_axis) -> bool:
-        """The JAX package's `auto` rule for whole-stage fusion of an
-        xyz-only stage (`pn2_modules.py:175-188`): batch >= 2, a sorted
-        cloud, eval mode, max pool (the only pool ported), 3 layers whose
-        widths are multiples of 128, and K a multiple of 8."""
+        """The JAX package's rule for whole-stage fusion of an xyz-only
+        stage (`pn2_modules.py:170-188`): `nn_layers.SA1_FUSE` asks for it
+        at this batch (`sa1_fuse_wanted`), a sorted cloud, eval mode, max
+        pool (the only pool ported), 3 layers whose widths are multiples
+        of 128, and K a multiple of 8."""
         widths = [layer.conv.out_channels for layer in self.mlp]
-        return (batch >= 2 and sorted_axis is not None and not self.training
+        return (nn_layers.sa1_fuse_wanted(batch) and sorted_axis is not None
+                and not self.training
                 and len(widths) == 3 and all(c % 128 == 0 for c in widths)
                 and self.num_neighbours % 8 == 0)
 
@@ -111,8 +114,9 @@ class PointNetSAModule(nn.Module):
             group_xyz = both[..., :3] - new_xyz[:, :, None, :]
             group_feature = torch.cat([group_xyz, both[..., 3:]], dim=-1)
         elif self._fuses(xyz.shape[0], sorted_axis):
-            # xyz-only stage at batch >= 2: the whole stage is one kernel
-            # (K3), as in the JAX package.
+            # xyz-only stage at batch >= 2 (or any batch under SA1_FUSE
+            # "1"): the whole stage is one kernel (K3), as in the JAX
+            # package.
             pts_cf, cent_cf = _cf(xyz).contiguous(), _cf(new_xyz).contiguous()
             new_feature = self.mlp.sa1_fused_eval(
                 pts_cf, cent_cf, _axis_keys(pts_cf, sorted_axis),
@@ -120,7 +124,8 @@ class PointNetSAModule(nn.Module):
                 self.num_neighbours, sorted_axis=sorted_axis)
             return new_xyz, new_feature
         else:
-            # xyz-only stage, unfused (batch 1, or a stage K3 does not take).
+            # xyz-only stage, unfused (batch 1, SA1_FUSE "0", or a stage K3
+            # does not take).
             _, _, group_feature = ops.ball_query_grouped(
                 _cf(xyz), _cf(new_xyz), self.radius, self.num_neighbours,
                 sorted_axis=sorted_axis, centroids_sorted=csorted,

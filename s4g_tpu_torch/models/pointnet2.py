@@ -1,11 +1,13 @@
-"""PointNet++ backbone and the PN2_CLS grasp-proposal model, eval mode
-(port of s4g_tpu/models/pointnet2.py).
+"""PointNet++ backbone and the two grasp-proposal models, eval mode (port
+of s4g_tpu/models/pointnet2.py): PN2_CLS, the curvature model, and PN2,
+the contact model with a regression translation.
 
 Modules keep the reference torch names (`sa_modules.{i}.mlp.{j}.{conv,bn}`,
 `fp_modules.{i}.mlp.{j}.*`, `mlp_{seg,R,t,movable}.{j}.*`,
 `{seg,R,t}_logit.*`, `movable_logit.0.*`), so `state_dict()` is a reference
-PN2_CLS state dict (`utils/weights.py` converts the JAX package's variables
-into it).  Predictions come out channels-first in f32, like the JAX model's.
+PN2_CLS or PN2 state dict (`utils/weights.py` converts the JAX package's
+variables into it).  Predictions come out channels-first in f32, like the
+JAX models'.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from .functional import rot6d_to_mat9
 from .nn_layers import SharedMLP
 from .pn2_modules import PointnetFPModule, PointNetSAModule, gather_cl
 from ..ops.neighbors import invert_permutation
@@ -110,12 +113,13 @@ def _head(mlp: SharedMLP, logit: nn.Conv1d, feature: torch.Tensor,
     return torch.matmul(x.to(dtype), w.t().to(dtype)) + logit.bias.to(dtype)
 
 
-class PointNet2CLS(PointNet2Backbone):
-    """PN2_CLS — the deployed curvature model.  Heads: score logits over
-    score bins, raw 9-D rotation, 4-class translation-offset logits, 5-way
-    sigmoid movability."""
+class _GraspHeads(PointNet2Backbone):
+    """The backbone and the four heads both grasp models share: score
+    logits, rotation (`rot_width` outputs), translation (`trans_width`)
+    and 5-way sigmoid movability, built in the reference's order."""
 
     def __init__(self, score_classes: int, seg_channels: Sequence[int],
+                 rot_width: int, trans_width: int,
                  num_removal_directions: int = 5,
                  dtype: torch.dtype = torch.float32, **backbone_kwargs):
         super().__init__(dtype=dtype, **backbone_kwargs)
@@ -126,24 +130,62 @@ class PointNet2CLS(PointNet2Backbone):
             setattr(self, f"mlp_{name}",
                     SharedMLP(width, seg_channels, ndim=1, dtype=dtype))
         self.seg_logit = nn.Conv1d(seg_out, score_classes, 1)
-        self.R_logit = nn.Conv1d(seg_out, 9, 1)
-        self.t_logit = nn.Conv1d(seg_out, 4, 1)
+        self.R_logit = nn.Conv1d(seg_out, rot_width, 1)
+        self.t_logit = nn.Conv1d(seg_out, trans_width, 1)
         self.movable_logit = nn.Sequential(
             nn.Conv1d(seg_out, num_removal_directions, 1), nn.Sigmoid())
+
+    def heads(self, points: torch.Tensor) -> tuple:
+        """points (B, 3, N) -> the four heads' outputs, channels-first f32:
+        score logits, rotation, translation, movability (the sigmoid taken
+        in the compute dtype, then f32, as the JAX models do)."""
+        feature = self.backbone(points.transpose(1, 2))
+        dt = self.dtype
+        out = (_head(self.mlp_seg, self.seg_logit, feature, dt),
+               _head(self.mlp_R, self.R_logit, feature, dt),
+               _head(self.mlp_t, self.t_logit, feature, dt),
+               torch.sigmoid(_head(self.mlp_movable, self.movable_logit[0],
+                                   feature, dt)))
+        return tuple(x.transpose(1, 2).float() for x in out)
+
+
+class PointNet2CLS(_GraspHeads):
+    """PN2_CLS — the deployed curvature model.  Heads: score logits over
+    score bins, raw 9-D rotation, 4-class translation-offset logits, 5-way
+    sigmoid movability."""
+
+    def __init__(self, score_classes: int, seg_channels: Sequence[int],
+                 num_removal_directions: int = 5,
+                 dtype: torch.dtype = torch.float32, **backbone_kwargs):
+        super().__init__(score_classes, seg_channels, 9, 4,
+                         num_removal_directions, dtype, **backbone_kwargs)
+
+    @torch.no_grad()
+    def forward(self, data_batch: dict) -> dict:
+        logits, r, t, mov = self.heads(data_batch["scene_points"])
+        return {"score": logits, "frame_R": r, "frame_t": t,
+                "movable_logits": mov}
+
+
+class PointNet2Reg(_GraspHeads):
+    """PN2 — the contact model (port of `PointNet2Reg`,
+    `pointnet2.py:213-267`).  Heads: score logits, a 6-D rotation turned
+    into a 3x3 one in the net (`rot6d_to_mat9`), a translation residual
+    added to each input point, whose logit layer starts at zero so a fresh
+    model puts every grasp origin on its point, and 5-way sigmoid
+    movability."""
+
+    def __init__(self, score_classes: int, seg_channels: Sequence[int],
+                 num_removal_directions: int = 5,
+                 dtype: torch.dtype = torch.float32, **backbone_kwargs):
+        super().__init__(score_classes, seg_channels, 6, 3,
+                         num_removal_directions, dtype, **backbone_kwargs)
+        nn.init.zeros_(self.t_logit.weight)
+        nn.init.zeros_(self.t_logit.bias)
 
     @torch.no_grad()
     def forward(self, data_batch: dict) -> dict:
         points = data_batch["scene_points"]            # (B, 3, N)
-        feature = self.backbone(points.transpose(1, 2))
-        dt = self.dtype
-        logits = _head(self.mlp_seg, self.seg_logit, feature, dt)
-        r = _head(self.mlp_R, self.R_logit, feature, dt)
-        t = _head(self.mlp_t, self.t_logit, feature, dt)
-        # Sigmoid in the compute dtype, then f32 (as the JAX model).
-        mov = torch.sigmoid(_head(self.mlp_movable, self.movable_logit[0],
-                                  feature, dt))
-
-        def to_cf(x):
-            return x.transpose(1, 2).float()
-        return {"score": to_cf(logits), "frame_R": to_cf(r),
-                "frame_t": to_cf(t), "movable_logits": to_cf(mov)}
+        logits, r6, dt, mov = self.heads(points)
+        return {"scene_score_logits": logits, "frame_R": rot6d_to_mat9(r6),
+                "frame_t": points.float() + dt, "movable_logits": mov}

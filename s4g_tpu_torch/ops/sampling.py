@@ -152,28 +152,18 @@ def fps_lane_nested(points: torch.Tensor, centroids: Sequence[int]) -> list:
     return outs
 
 
-# K6's exchange of each step's winner between the blocks of a chain's
-# cluster: "push" (st.async into every peer's shared memory, completing on
-# its mbarrier) or "barrier" (a cluster barrier, then reads of every peer's
-# slot).  The model takes "push"; "barrier" is kept only for chip_smoke.py
-# to time the two against each other.
-FPS_EXCHANGES = ("push", "barrier")
-
-
-def fps_exact_plan(ns: int, exchange: str = "push") -> tuple:
+def fps_exact_plan(ns: int) -> tuple:
     """K6's plan on this card for chains of `ns` points: (blocks per chain,
     scratch floats each block needs past its registers).  The blocks are
     the fewest, up to 16, that leave each at most 2,048 points, halved
     while such a cluster cannot be resident."""
     plan = (ctypes.c_int * 2)()
-    _build.query("fps_exact_plan", ns, FPS_EXCHANGES.index(exchange),
-                 ctypes.cast(plan, ctypes.c_void_p))
+    _build.query("fps_exact_plan", ns, ctypes.cast(plan, ctypes.c_void_p))
     return plan[0], plan[1]
 
 
 def _fps_exact_launch(points: torch.Tensor, num_centroids: int,
-                      num_shards: int, exchange: str = "push"
-                      ) -> torch.Tensor:
+                      num_shards: int) -> torch.Tensor:
     """Launch K6 on B * G chains, each a cluster of blocks: exact FPS over
     each contiguous N/G slice for M/G centroids, shard-major global indices
     (B, M) int32.  A block whose slice is longer than its registers hold
@@ -182,7 +172,7 @@ def _fps_exact_launch(points: torch.Tensor, num_centroids: int,
     b, _, n = points.shape
     _build.check(points, "points", torch.float32, (b, 3, n))
     ns = n // num_shards
-    blocks, per_block = fps_exact_plan(ns, exchange)
+    blocks, per_block = fps_exact_plan(ns)
     spill = None
     if per_block:
         spill = torch.empty(b * num_shards * blocks * per_block,
@@ -190,8 +180,7 @@ def _fps_exact_launch(points: torch.Tensor, num_centroids: int,
     out = torch.empty((b, num_centroids), dtype=torch.int32,
                       device=points.device)
     _build.launch("fps_exact", points, b, n, num_shards,
-                  num_centroids // num_shards, FPS_EXCHANGES.index(exchange),
-                  spill, out)
+                  num_centroids // num_shards, spill, out)
     return out
 
 

@@ -1,12 +1,14 @@
-"""Weights across packages: the JAX package's PN2_CLS variables -> this
-port's state_dict.
+"""Weights across packages: the JAX package's PN2_CLS or PN2 variables ->
+this port's state_dict.
 
 The input is the flax variable tree `{"params", "batch_stats"}` with numpy
 leaves.  The output uses the reference torch names that the port's modules
 keep (`sa_modules.{i}.mlp.{j}.{conv,bn}.*`, `fp_modules.{i}.mlp.{j}.*`,
 `mlp_{seg,R,t,movable}.{j}.*`, `{seg,R,t}_logit.*`, `movable_logit.0.*`),
 so this is the inverse of s4g_tpu/utils/checkpoint.py::
-import_pn2_torch_state_dict and a test can round-trip through both.
+import_pn2_torch_state_dict and a test can round-trip through both.  Head
+widths are read from the variables (PN2_CLS's rotation and translation
+logits are 9 and 4 wide, PN2's 6 and 3).
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ def _shared_mlp(params: dict, stats: dict, prefix: str, ndim: int,
 
 
 def state_dict_from_flax(variables: dict) -> dict:
-    """Flax PN2_CLS variables (numpy leaves) -> port state_dict."""
+    """Flax PN2_CLS or PN2 variables (numpy leaves) -> port state_dict."""
     params, stats = variables["params"], variables["batch_stats"]
     out: dict = {}
     for kind, name, ndim in (("sa", "sa_modules", 2), ("fp", "fp_modules", 1)):

@@ -25,6 +25,8 @@ from s4g_tpu_torch.ops import neighbors as nb
 from s4g_tpu_torch.ops import sa_fused as sf
 from s4g_tpu_torch.ops import sampling as sp
 from s4g_tpu_torch.pipeline import collision as col
+from s4g_tpu_torch.pipeline.detector import GraspDetector, prep_one
+from s4g_tpu_torch.utils.checkpoint import Checkpointer
 
 pytestmark = pytest.mark.cuda
 
@@ -195,7 +197,6 @@ def test_fps_exact_kernel_past_the_registers(cuda, b, n, m, shards):
     assert torch.equal(got.cpu(), want)
 
 
-@pytest.mark.parametrize("exchange", sp.FPS_EXCHANGES)
 @pytest.mark.parametrize("b,n,m,blocks,case", [
     (2, 1000, 200, 1, "random"),       # one block a chain
     (1, 3000, 300, 2, "random"),
@@ -207,9 +208,8 @@ def test_fps_exact_kernel_past_the_registers(cuda, b, n, m, shards):
     (16, 25600, 96, 16, "random"),     # 256 blocks: clusters in waves
     (1, 400000, 24, 16, "random"),     # past the cluster's shared memory
 ])
-def test_fps_exact_cluster_matches_plain(cuda, b, n, m, blocks, case,
-                                         exchange):
-    """K6 as a cluster of blocks per chain, both exchanges, bit for bit:
+def test_fps_exact_cluster_matches_plain(cuda, b, n, m, blocks, case):
+    """K6 as a cluster of blocks per chain, bit for bit:
     one chain length per cluster size the launcher picks; identical points
     (the lowest index wins across blocks); duplicate maxima in different
     blocks (the second half of the chain mirrors the first); enough chains
@@ -223,25 +223,24 @@ def test_fps_exact_cluster_matches_plain(cuda, b, n, m, blocks, case,
     elif case == "mirrored":
         pts[:, :, n // 2:] = pts[:, :, :n // 2]
     pts = torch.from_numpy(np.ascontiguousarray(pts)).to(cuda)
-    assert sp.fps_exact_plan(n, exchange)[0] == blocks
+    assert sp.fps_exact_plan(n)[0] == blocks
     want = sp._fps_plain(pts, m)
-    got = sp._fps_exact_launch(pts, m, 1, exchange)
+    got = sp._fps_exact_launch(pts, m, 1)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     if case == "one point":
         assert not want.any()
 
 
-@pytest.mark.parametrize("exchange", sp.FPS_EXCHANGES)
 @pytest.mark.parametrize("b,g,n,m", [(2, 8, 25600, 5120), (3, 5, 30000, 600)])
-def test_fps_sharded_cluster_matches_plain(cuda, b, g, n, m, exchange):
+def test_fps_sharded_cluster_matches_plain(cuda, b, g, n, m):
     """G-shard K6 (8 shards at SA1's shape: 2-block clusters) bit for
     bit."""
     pts = torch.from_numpy(np.random.RandomState(g).rand(b, 3, n)
                            .astype(np.float32)).to(cuda)
-    assert sp.fps_exact_plan(n // g, exchange)[0] > 1
+    assert sp.fps_exact_plan(n // g)[0] > 1
     want = sp._fps_sharded_plain(pts, m, g)
-    got = sp._fps_exact_launch(pts, m, g, exchange)
+    got = sp._fps_exact_launch(pts, m, g)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
 
@@ -312,6 +311,7 @@ def test_ball_query_slab_kernel_matches_plain(cuda, n, m, radius, k,
 
 @pytest.mark.parametrize("b,n,m,radius,k", [
     (1, 25600, 5120, 0.02, 64),    # SA1 at b = 1
+    (2, 25600, 5120, 0.02, 64),    # SA1 at b = 2 (SA1_FUSE "0")
     (4, 25600, 5120, 0.02, 128),   # b = 4, K = 128
     (1, 9000, 1000, 0.2, 128),     # overfull balls, slabs past one chunk
     (4, 9000, 1000, 0.05, 64),
@@ -440,6 +440,7 @@ def _k3_operands(rng, b, n, m, radius, shift=0.0, c3=256):
     # scenes.
     (4, 12000, 5120, 0.03, 16, 0.0, 256),
     (2, 9000, 600, 0.2, 128, 0.0, 256),    # K = 128: two tiles a centroid
+    (1, 25600, 5120, 0.02, 64, 0.0, 256),  # b = 1, SA1 (SA1_FUSE "1")
 ])
 def test_sa1_fused_kernel_matches_plain(cuda, b, n, m, radius, k, shift, c3):
     rng = np.random.RandomState(n + m + k)
@@ -888,3 +889,116 @@ def test_fused_chain_route_launches_k7(cuda, monkeypatch, settings, chains):
     assert len(planned) == chains
     assert _build.LAUNCHES["mlp_chain"] - before == sum(planned) == chains
     assert bool(torch.isfinite(out["score"]).all())
+
+
+@pytest.mark.parametrize("setting,b,k3,k2", [("1", 1, 1, 0), ("0", 2, 0, 1)])
+def test_sa1_fuse_setting_routes_sa1(cuda, monkeypatch, setting, b, k3, k2):
+    """`nn_layers.SA1_FUSE`: "1" runs SA1 through K3 at b = 1, "0" through
+    K2 at b = 2; the card's predictions against the CPU's (plain twins) on
+    the same weights, within the bf16 tolerances of the JAX package's
+    tests."""
+    monkeypatch.setattr(nnl, "SA1_FUSE", setting)
+    rng = np.random.RandomState(2)
+    pts = torch.from_numpy((rng.rand(b, 3, 16384) * [[[0.6], [0.4], [0.3]]]
+                            ).astype(np.float32))
+    model = NARROW_DEPLOYED["MODEL"]
+    spec = {**NARROW_DEPLOYED, "MODEL": {**model, "PN2": {
+        **model["PN2"], "SA_CHANNELS": ((128, 128, 256), (64, 64, 64),
+                                        (64, 64, 128))}}}   # K3's widths
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        net = build_model(load_cfg_from_dict(spec))
+    want = net({"scene_points": pts})
+    net = net.to(cuda)
+    before = dict(_build.LAUNCHES)
+    got = net({"scene_points": pts.to(cuda)})
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sa1_fused"] - before["sa1_fused"] == k3
+    assert _build.LAUNCHES["ball_query_slab"] - before["ball_query_slab"] \
+        == k2
+    for key, w in want.items():
+        d = (got[key].cpu() - w).abs()
+        assert float(d.max()) <= 5e-2 and float(d.mean()) <= 5e-3, key
+
+
+NARROW_CONTACT = {**NARROW_DEPLOYED, "MODEL": {
+    **NARROW_DEPLOYED["MODEL"], "TYPE": "PN2", "COMPUTE_DTYPE": "float32"}}
+
+
+def _table(rng, n=30000):
+    """A camera-frame tabletop ~0.75 m away with a few boxes."""
+    xy = rng.uniform([-0.3, -0.2], [0.3, 0.2], (n, 2))
+    z = np.full(n, 0.75)
+    box = (np.abs(xy[:, 0]) < 0.05) & (np.abs(xy[:, 1]) < 0.05)
+    z[box] -= 0.06
+    return np.column_stack([xy, z]).astype(np.float32)
+
+
+def _narrow_detector(tmp_path, spec, device, seed=0, name="narrow"):
+    import yaml
+    path = tmp_path / f"{name}.yaml"
+    path.write_text(yaml.safe_dump(spec))
+    return GraspDetector(model=str(path), device=device,
+                         output_dir=str(tmp_path / f"{name}_{device}"),
+                         cloud_capacity=32768, num_candidates=256, seed=seed)
+
+
+def test_contact_detect_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """The contact model (PN2, f32) at a narrow width on the card and on
+    the CPU with the same weights and draws: predictions within 1e-4, and
+    a fresh model's grasp origins are its points exactly."""
+    gpu = _narrow_detector(tmp_path, NARROW_CONTACT, "cuda")
+    cpu = _narrow_detector(tmp_path, NARROW_CONTACT, "cpu")
+    cloud = _table(np.random.RandomState(3))
+    idx = torch.from_numpy(np.random.RandomState(4).choice(
+        2000, 16384).astype(np.int32))
+    want = cpu.eval(cloud, sample_idx=idx)
+    got = gpu.eval(cloud, sample_idx=idx.to(cuda))
+    for key, w in want.items():
+        assert float((got[key].cpu() - w).abs().max()) <= 1e-4, key
+    padded, valid = gpu._pad_cloud(cloud)
+    points = prep_one(padded, valid, gpu.num_input, sample_idx=idx.to(cuda))
+    assert torch.equal(got["frame_t"][0], points.t())
+    poses, scores = gpu.detect(cloud, score_threshold=0.0,
+                               verticalness_threshold=-1e9,
+                               collision_check=False)
+    assert len(poses) == len(scores) > 0
+    r = torch.from_numpy(poses[:, :3, :3]).double()
+    assert float((r @ r.transpose(1, 2) - torch.eye(3, dtype=torch.float64)
+                  ).abs().max()) < 1e-4
+
+
+def test_stream_on_the_card_equals_detect(cuda, tmp_path):
+    """detect_stream at depths 1-3 yields, bit for bit, what sequential
+    detect gives on a detector with the same seed."""
+    frames = [_table(np.random.RandomState(s)) for s in range(4)]
+    kw = {"score_threshold": 0.0, "verticalness_threshold": -1e9}
+    seq = _narrow_detector(tmp_path, NARROW_DEPLOYED, "cuda", name="seq")
+    want = [seq.detect(f, **kw) for f in frames]
+    for depth in (1, 2, 3):
+        det = _narrow_detector(tmp_path, NARROW_DEPLOYED, "cuda",
+                               name=f"d{depth}")
+        got = list(det.detect_stream(frames, depth=depth, **kw))
+        assert len(got) == len(frames)
+        for (gp, gs), (wp, ws) in zip(got, want):
+            assert np.array_equal(gp, wp) and np.array_equal(gs, ws)
+
+
+def test_checkpoint_saved_on_the_card_loads_back(cuda, tmp_path):
+    """A checkpoint of a detector's weights on the card, saved with
+    `Checkpointer`, makes a new detector with the same output directory
+    give the same predictions (its `last_checkpoint`)."""
+    det = _narrow_detector(tmp_path, NARROW_CONTACT, "cuda", seed=1)
+    with torch.no_grad():
+        det.net.t_logit.weight.normal_(0.0, 0.01)
+    Checkpointer(det.output_dir).save(
+        "model_001", {"model": det.net.state_dict(), "extra": {"epoch": 1}})
+    again = _narrow_detector(tmp_path, NARROW_CONTACT, "cuda", seed=2)
+    assert again.output_dir == det.output_dir
+    cloud = _table(np.random.RandomState(5))
+    idx = torch.from_numpy(np.random.RandomState(6).choice(
+        2000, 16384).astype(np.int32)).to(cuda)
+    want, got = det.eval(cloud, sample_idx=idx), again.eval(cloud,
+                                                            sample_idx=idx)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key

@@ -181,8 +181,8 @@ def test_detect_stages_match_jax_detector(tmp_path):
     uniforms = jax.random.uniform(k_importance, (num_selected,))
 
     tdetector = tdet.GraspDetector(
-        model=str(cfg_file), device="cpu", cloud_capacity=CAPACITY,
-        num_candidates=CANDIDATES,
+        model=str(cfg_file), device="cpu", output_dir=str(tmp_path),
+        cloud_capacity=CAPACITY, num_candidates=CANDIDATES,
         state_dict=state_dict_from_flax(variables))
     cloud_t, valid_t = _t(padded), _t(valid)
     points = tdet.prep_one(cloud_t, valid_t, 512, sample_idx=_t(sample_idx))
@@ -236,8 +236,8 @@ def test_detect_batch_stages_match_jax_detector(tmp_path, monkeypatch):
         want_points.append(np.asarray(pre.points))
 
     tdetector = tdet.GraspDetector(
-        model=str(cfg_file), device="cpu", cloud_capacity=CAPACITY,
-        num_candidates=CANDIDATES,
+        model=str(cfg_file), device="cpu", output_dir=str(tmp_path),
+        cloud_capacity=CAPACITY, num_candidates=CANDIDATES,
         state_dict=state_dict_from_flax(variables))
     cloud_t, valid_t = _t(padded), _t(valid)
     points = tdet.prep_batch(cloud_t, valid_t, 512,
@@ -281,6 +281,7 @@ def test_detect_batch_runs_on_cpu_when_asked(tmp_path):
     cfg_file = tmp_path / "tiny_fused.yaml"
     cfg_file.write_text(yaml.safe_dump(TINY_FUSED))
     det = tdet.GraspDetector(model=str(cfg_file), device="cpu",
+                             output_dir=str(tmp_path),
                              cloud_capacity=CAPACITY, num_candidates=64)
     clouds = [clutter_cloud(np.random.RandomState(4)),
               clutter_cloud(np.random.RandomState(6), num_objects=4)]
@@ -304,6 +305,7 @@ def test_detect_runs_on_cpu_when_asked(tmp_path):
     cfg_file = tmp_path / "tiny.yaml"
     cfg_file.write_text(yaml.safe_dump(TINY))
     det = tdet.GraspDetector(model=str(cfg_file), device="cpu",
+                             output_dir=str(tmp_path),
                              cloud_capacity=CAPACITY, num_candidates=64)
     poses, scores = det.detect(clutter_cloud(np.random.RandomState(4)),
                                score_threshold=0.0,

@@ -315,8 +315,8 @@ def test_eval_matches_jax_eval(tmp_path, monkeypatch):
     sample_idx = jpre.random_sample_fixed(sub, pre.raw_valid, 512)
 
     tdetector = tdet.GraspDetector(
-        model=str(cfg_file), device="cpu", cloud_capacity=cap,
-        num_candidates=64,
+        model=str(cfg_file), device="cpu", output_dir=str(tmp_path),
+        cloud_capacity=cap, num_candidates=64,
         state_dict=state_dict_from_flax(jax.tree.map(np.asarray,
                                                      jdet.variables)))
     fps = _spy(monkeypatch, tsamp, "fps_exact")
