@@ -66,7 +66,10 @@ run, but the run then exits non-zero without printing a result:
    route (K7 on the GPU, `_fused_reference_phase`); then the contact
    model's detect stages (`_contact_reference_phase`) and, on a bf16
    backbone, the detect stages with `CAST_ACTIVATIONS` on
-   (`_cast_reference_phase`);
+   (`_cast_reference_phase`); then one narrow f32 train step on both
+   devices from the same weights and batch: losses, metrics, every
+   gradient and the BatchNorm statistics after it
+   (`_train_reference_phase`);
 4. main paths: `GraspDetector(model="curvature_model").detect` at full width
    with seeded random weights on a synthetic camera-frame tabletop (a plane
    plus boxes), a few times, then a clutter scene; per-stage and total ms,
@@ -91,16 +94,22 @@ run, but the run then exits non-zero without printing a result:
    at b = 2) and `CAST_ACTIVATIONS` (one detect); then `detect_stream`
    (`_stream_phase`): 8 tabletop frames at depth 1, 2 and 3, each equal
    bit for bit to sequential `detect` on a detector with the same seed,
-   frames/s of both and the host synchronizations of one frame's submit.
-   Each run's launch counters are zeroed before it and read after it, and
-   every kernel must
+   frames/s of both and the host synchronizations of one frame's submit;
+   then training (`_train_phase`): `Trainer.fit` at full width on six
+   synthetic scene pickles (one epoch of 3 steps with validation, then a
+   new Trainer resumed from `last_checkpoint` for epoch 2), one step with
+   its host synchronizations counted, one profiled step and one step with
+   every augmentation; the median step ms split into forward, backward
+   and optimizer, and the peak device memory.
+   Each run's launch counters are zeroed before it and read after it (a
+   train or val step's around each step), and every kernel must
    launch exactly its count per forward (`_deployed_launches`,
    `_parity_launches`, `FUSED_K7_LAUNCHES`), given the SA1 overflows the
    run reported (the stream: per frame); over the counted fused-chain runs the packed-operand
    cache must hit on every chain and pack none;
 5. profile: one detect, one detect_batch at b = 2, one parity detect and
-   one fused-chain detect under torch.profiler — device time by kernel and
-   the device's idle share.
+   one fused-chain detect under torch.profiler (and a train step, in
+   `_train_phase`) — device time by kernel and the device's idle share.
 
 Then one JSON line with every kernel's numbers and, last, the contract line
 `{"ok": true, "device": {...}}`.  Without a CUDA device, or without the
@@ -1849,6 +1858,357 @@ def _stream_phase(det, sdet, torch, np):
     return launches, rates
 
 
+# -- training --------------------------------------------------------------------
+
+TRAIN_SCENES = 6
+TRAIN_FRAMES = 600
+TRAIN_FRAME_POINTS = 512      # tools/train.py's --num-frame-points default
+NARROW_TRAIN = {**NARROW, "MODEL": {**NARROW["MODEL"], "PN2": {
+    **NARROW["MODEL"]["PN2"], "DROPOUT_PROB": 0.0}},
+    "TRAIN": {"BATCH_SIZE": 2}}
+
+
+def train_scene(rng, num_frames: int = TRAIN_FRAMES, num_objects: int = 5):
+    """A seeded scene in the training dump format: a camera-frame tabletop
+    as `point_cloud` (3, N); `num_frames` of its points with grasp frames
+    (random rotations, origins at the 0.02-0.08 m depth bins along the
+    frame's x axis), search and antipodal scores, object labels and an
+    (objects + 1, 5) pushed-distance `direction` table."""
+    import numpy as np
+    cloud = tabletop_cloud(rng)
+    valid = rng.choice(len(cloud), num_frames, replace=False)
+    q, r = np.linalg.qr(rng.randn(num_frames, 3, 3))
+    q = q * np.sign(np.diagonal(r, axis1=1, axis2=2))[:, None, :]
+    q[np.linalg.det(q) < 0, :, 2] *= -1
+    depth = rng.choice([0.02, 0.04, 0.06, 0.08], num_frames)
+    frames = np.tile(np.eye(4), (num_frames, 1, 1))
+    frames[:, :3, :3] = q
+    frames[:, :3, 3] = cloud[valid] - depth[:, None] * q[:, :, 0]
+    return {"point_cloud": cloud.T.copy(), "valid_index": valid,
+            "valid_frame": frames.astype(np.float32),
+            "search_score": rng.uniform(0, 30, num_frames).astype(np.float32),
+            "antipodal_score": rng.uniform(0, 1, num_frames)
+            .astype(np.float32),
+            "objects_label": rng.randint(0, num_objects + 1, num_frames),
+            "direction": rng.uniform(-0.05, 0.15, (num_objects + 1, 5))
+            .astype(np.float32)}
+
+
+def _train_data(np) -> str:
+    """TRAIN_SCENES seeded scene pickles written into the (gitignored)
+    build directory's train_data/, emptied first.  Returns the directory."""
+    import pickle
+    import shutil
+    from s4g_tpu_torch import _build
+    root = os.path.join(_build.BUILD_DIR, "train_data")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    for i in range(TRAIN_SCENES):
+        with open(os.path.join(root, f"{i}_view_0.p"), "wb") as f:
+            pickle.dump(train_scene(np.random.RandomState(200 + i)), f)
+    return root
+
+
+def _train_logger():
+    """The trainers' logger: stdout only, set up once."""
+    import logging
+    from s4g_tpu_torch.utils.logger import setup_logger
+    logger = logging.getLogger("chip_smoke.train")
+    return logger if logger.handlers else setup_logger("chip_smoke.train", "")
+
+
+def _train_config(**train):
+    """The port's curvature_model.yaml as it stands (full width, bf16,
+    DROPOUT_PROB 0.5 by default), TRAIN keys `train` replaced."""
+    import yaml
+    from s4g_tpu_torch.configs.config import load_cfg_from_dict
+    from s4g_tpu_torch.pipeline.detector import _CONFIG_DIR
+    with open(os.path.join(_CONFIG_DIR, "curvature_model.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["TRAIN"].update(train)
+    return load_cfg_from_dict(cfg)
+
+
+def _train_reference_phase(torch, np, devices=("cpu", "cuda")):
+    """One train step at a narrow width that takes every kernel route of
+    the deployed train step (NARROW: SA1 through K2, SA2 and SA3 through
+    K2f, FP 8192 <- 1024 through K4, FPS nested through K1), f32, dropout
+    0, no augmentation, b = 2, on the GPU and on the CPU (plain twins) from
+    the same state_dict and batch.  The GPU's gather backward sums with
+    atomics, so nothing is compared bit for bit: the losses within 1e-5
+    relative, the accuracies within 2e-3 (a point or two of a near tie),
+    R_err within 1e-4; each gradient within 2e-2 of its tensor's largest
+    (train-mode BatchNorm amplifies f32 rounding: on the CPU the port's
+    f32 step is 2e-3 from its float64 step, JAX's 2e-2) and at cosine
+    >= 0.9999; each BatchNorm running statistic after the step within
+    1e-5 of its tensor's largest.  Every comparison is made before the
+    first failure is raised, so the result names the worst of each."""
+    from s4g_tpu_torch.configs.config import load_cfg_from_dict
+    from s4g_tpu_torch.train.dataset import SceneGraspDataset
+    from s4g_tpu_torch.train.trainer import Trainer
+
+    cfg = load_cfg_from_dict(NARROW_TRAIN)
+    batch = next(iter(SceneGraspDataset(
+        _train_data(np), num_points=cfg.MODEL.PN2.NUM_INPUT,
+        batch_size=2, num_frame_points=128, seed=0)))
+    logger, out, state = _train_logger(), {}, None
+    for dev in devices:
+        tr = Trainer(cfg, output_dir=_output_dir(f"train_ref_{dev}"),
+                     device=dev, logger=logger)
+        tr.init_state()
+        if state is None:
+            state = {k: v.detach().cpu().clone()
+                     for k, v in tr.net.state_dict().items()}
+        tr.net.load_state_dict(state)
+        scalars = tr.train_step(batch)
+        out[dev] = {"scalars": {k: float(v) for k, v in scalars.items()},
+                    "grads": {n: p.grad.detach().cpu() for n, p in
+                              tr.net.named_parameters()},
+                    "stats": {k: v.detach().cpu() for k, v in
+                              tr.net.state_dict().items() if "running" in k}}
+    cpu, gpu = out[devices[0]], out[devices[1]]
+    res = {"max_loss_rel": 0.0, "max_acc_err": 0.0, "max_grad_err": 0.0,
+           "min_grad_cos": 1.0, "max_stat_err": 0.0}
+    bad = []
+    for k, want in cpu["scalars"].items():
+        got = gpu["scalars"][k]
+        if k.endswith("_acc"):
+            res["max_acc_err"] = max(res["max_acc_err"], abs(got - want))
+            ok = abs(got - want) <= 2e-3
+        else:
+            rel = abs(got - want) / max(abs(want), 1e-30)
+            ok = rel <= (1e-4 if k == "R_err" else 1e-5)
+            if k != "R_err":
+                res["max_loss_rel"] = max(res["max_loss_rel"], rel)
+        if not ok:
+            bad.append(f"train step {k}: GPU {got}, CPU {want}")
+    for name, want in cpu["grads"].items():
+        got = gpu["grads"][name].double()
+        want = want.double()
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max()) / max(scale, 1e-30)
+        cos = float((got * want).sum() / (got.norm() * want.norm()))
+        res["max_grad_err"] = max(res["max_grad_err"], err)
+        if scale > 1e-6:
+            res["min_grad_cos"] = min(res["min_grad_cos"], cos)
+        if err * scale > 2e-2 * scale + 1e-7 or (scale > 1e-6
+                                                 and cos < 0.9999):
+            bad.append(f"gradient {name}: max |GPU - CPU| {err:.3g} of its "
+                       f"max, cosine {cos}")
+    for k, want in cpu["stats"].items():
+        err = float((gpu["stats"][k] - want).abs().max()) / max(
+            float(want.abs().max()), 1e-30)
+        res["max_stat_err"] = max(res["max_stat_err"], err)
+        if err > 1e-5:
+            bad.append(f"{k} after the step: {err:.3g} of its max")
+    print(f"train reference: {res}", flush=True)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return res
+
+
+def _cuda_event(torch):
+    return torch.cuda.Event(enable_timing=True)
+
+
+def _instrument(trainer, kind_launches, shim, records, torch):
+    """Wrap `trainer`'s steps (instance attributes, which `fit` calls): each
+    train and val step's launches are counted on their own and must be
+    exactly `_deployed_launches` at the batch, given the SA1 overflow the
+    step reported (train: K2, or K2f on overflow; val, eval at b = 2: K3,
+    or K2f on overflow; no K5); a train step's scalars are kept, and CUDA
+    events time the whole step and its forward (with the loss), backward
+    and optimizer update."""
+    from s4g_tpu_torch import _build
+    from s4g_tpu_torch.ops import neighbors as nb
+    from s4g_tpu_torch.ops import sa_fused as sf
+
+    b = trainer.cfg.TRAIN.BATCH_SIZE
+
+    def counted(kind, fn, fused):
+        def step(batch):
+            before = dict(_build.LAUNCHES)
+            over = nb.SLAB_FALLBACKS["overflow"] + sf.SA1_FALLBACKS["overflow"]
+            start = _cuda_event(torch)
+            start.record()
+            result = fn(batch)
+            end = _cuda_event(torch)
+            end.record()
+            launches = {k: _build.LAUNCHES[k] - before[k] for k in before}
+            overflow = (nb.SLAB_FALLBACKS["overflow"]
+                        + sf.SA1_FALLBACKS["overflow"]) > over
+            want = {**_deployed_launches(shim, b, overflow, fused=fused),
+                    "collision_counts": 0}
+            if launches != want:
+                raise AssertionError(f"{kind} step: launches {launches}, "
+                                     f"expected {want}")
+            kind_launches[kind] = _add(kind_launches[kind], launches)
+            records[kind].append({"overflow": overflow, "events": [
+                ("step", start, end)]})
+            if kind == "train":
+                records[kind][-1]["scalars"] = result
+                records[kind][-1]["events"] += records.pop("parts", [])
+            return result
+        return step
+
+    def timed(name, fn):
+        def part(*args):
+            start = _cuda_event(torch)
+            start.record()
+            result = fn(*args)
+            end = _cuda_event(torch)
+            end.record()
+            records.setdefault("parts", []).append((name, start, end))
+            return result
+        return part
+
+    for name, label in (("forward_loss", "forward"), ("backward", "backward"),
+                        ("update", "optimizer")):
+        setattr(trainer, name, timed(label, getattr(trainer, name)))
+    trainer.train_step = counted("train", trainer.train_step, False)
+    trainer.val_step = counted("val", trainer.val_step, True)
+
+
+def _train_syncs(trainer, batch, torch):
+    """The host's waits on the device in one train step, counted with
+    `torch.cuda.set_sync_debug_mode("warn")` by the line that made each."""
+    import collections
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            trainer.train_step(batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    where = collections.Counter(
+        f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    return sum(where.values()), dict(where.most_common())
+
+
+def _train_phase(torch, np, device: str = "cuda"):
+    """Training at full width (`_train_config`: the port's
+    curvature_model.yaml, PN2_CLS, bf16, 25,600 points, b = 2, Adam 1e-3,
+    StepLR 20 / 0.5, dropout 0.5) on TRAIN_SCENES synthetic scene pickles:
+    SceneGraspDataset (512 frame points) -> FileBackedSceneLoader ->
+    Trainer.fit for one epoch of 3 steps, validating on the same data;
+    then a new Trainer resumes from `last_checkpoint` (step 3, the first
+    trainer's weights) and fits epoch 2 (steps 3 -> 6); then one more step
+    with the host's synchronizations counted, one profiled step, and one
+    step of a third trainer, resumed, with every augmentation on.  Every
+    train and val step's launches are held exactly (`_instrument`); the
+    scalars must be finite, and every parameter and BatchNorm running
+    statistic must have moved.  Prints the median step ms after the first,
+    split into forward, backward and optimizer, the peak device memory and
+    the synchronizations per step.  Returns the launches of the train and
+    val steps and those numbers."""
+    from types import SimpleNamespace
+    from s4g_tpu_torch.runtime.loader import FileBackedSceneLoader
+    from s4g_tpu_torch.train.dataset import SceneGraspDataset
+    from s4g_tpu_torch.train.trainer import Trainer
+
+    root = _train_data(np)
+    cfg = _train_config()
+    pn2 = cfg.MODEL.PN2
+
+    def loader():
+        ds = SceneGraspDataset(
+            root, num_points=pn2.NUM_INPUT,
+            score_classes=cfg.DATA.SCORE_CLASSES,
+            batch_size=cfg.TRAIN.BATCH_SIZE,
+            num_frame_points=TRAIN_FRAME_POINTS, t_classification=True,
+            seed=cfg.RNG_SEED,
+            num_removal_directions=cfg.DATA.NUM_REMOVAL_DIRECTIONS)
+        return FileBackedSceneLoader(ds, num_workers=cfg.DATA.NUM_WORKERS)
+
+    train_data, val_data = loader(), loader()
+    steps_per_epoch = len(train_data)
+    out = _output_dir("train")
+    logger = _train_logger()
+    shim = SimpleNamespace(cfg=cfg, num_input=pn2.NUM_INPUT)
+    launches = {"train": {}, "val": {}}
+    records = {"train": [], "val": []}
+
+    def trainer(config=cfg):
+        tr = Trainer(config, output_dir=out, steps_per_epoch=steps_per_epoch,
+                     device=device, logger=logger)
+        start = tr.resume_or_init()
+        _instrument(tr, launches, shim, records, torch)
+        return tr, start
+
+    torch.cuda.reset_peak_memory_stats()
+    first, start = trainer()
+    if start.step != 0:
+        raise AssertionError(f"a fresh output directory resumed at step "
+                             f"{start.step}")
+    before = {k: v.detach().clone() for k, v in start.model.items()
+              if "num_batches" not in k}
+    done = first.fit(train_data, val_data=val_data, max_epochs=1)
+    moved = [k for k, v in before.items() if not torch.equal(v,
+                                                              done.model[k])]
+    if done.step != steps_per_epoch or len(moved) != len(before):
+        raise AssertionError(f"epoch 1: step {done.step}; "
+                             f"{len(before) - len(moved)} tensors unchanged")
+    second, resumed = trainer()
+    if resumed.step != steps_per_epoch or not all(
+            torch.equal(resumed.model[k], v) for k, v in done.model.items()):
+        raise AssertionError(f"resumed at step {resumed.step}, or not at "
+                             "the first trainer's weights")
+    final = second.fit(train_data, val_data=val_data, max_epochs=2)
+    if final.step != 2 * steps_per_epoch:
+        raise AssertionError(f"epoch 2 ended at step {final.step}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    batch = list(train_data)[0]     # a whole pass: the workers finish
+    syncs, where = _train_syncs(second, batch, torch)
+    profile = _train_profile(second, batch, torch)
+    aug_cfg = _train_config(AUGMENTATION=(
+        "PointCloudRotate", ("PointCloudRotatePerturbation", 0.06, 0.18),
+        ("PointCloudTranslate", 0.02), ("PointCloudJitter", 0.002, 0.01)))
+    third, start = trainer(aug_cfg)
+    if start.step != 2 * steps_per_epoch:
+        raise AssertionError(f"augmented trainer resumed at {start.step}")
+    third.train_step(batch)
+
+    for rec in records["train"]:
+        bad = [k for k, v in rec["scalars"].items()
+               if not bool(torch.isfinite(v))]
+        if bad:
+            raise AssertionError(f"non-finite train scalars {bad}")
+    torch.cuda.synchronize()
+    timed = [{name: s.elapsed_time(e) for name, s, e in rec["events"]}
+             for rec in records["train"][1:2 * steps_per_epoch]]
+    med = {k: statistics.median(t[k] for t in timed) for k in timed[0]}
+    numbers = {"step_ms": med["step"], "forward_ms": med["forward"],
+               "backward_ms": med["backward"],
+               "optimizer_ms": med["optimizer"], "peak_gib": peak_gib,
+               "host_syncs_per_step": syncs,
+               "train_steps": len(records["train"]),
+               "val_steps": len(records["val"]),
+               "train_sa1_overflows": sum(r["overflow"]
+                                          for r in records["train"]),
+               "val_sa1_overflows": sum(r["overflow"]
+                                        for r in records["val"])}
+    print(f"train ({_nvidia_smi()}): median of {len(timed)} steps after the "
+          f"first: step {med['step']:.2f} ms = forward + loss "
+          f"{med['forward']:.2f}, backward {med['backward']:.2f}, optimizer "
+          f"{med['optimizer']:.2f}; peak memory {peak_gib:.2f} GiB; host "
+          f"synchronizations in one step: {syncs} {where}", flush=True)
+    print(f"train: {numbers['train_steps']} train steps (resumed at step "
+          f"{steps_per_epoch}, one with every augmentation), "
+          f"{numbers['val_steps']} val steps; SA1 overflows train "
+          f"{numbers['train_sa1_overflows']}, val "
+          f"{numbers['val_sa1_overflows']}; launches {launches}; last "
+          f"scalars " + ", ".join(
+              f"{k} {float(v):.4f}"
+              for k, v in records["train"][-1]["scalars"].items()),
+          flush=True)
+    numbers["profile"] = profile
+    return ({"train_step": launches["train"], "val_step": launches["val"]},
+            numbers)
+
+
 def _expect(label, launches, forwards, per_forward):
     """Fail unless every kernel launched `per_forward[kernel]` times per
     forward (each kernel must be named)."""
@@ -2168,28 +2528,56 @@ def _profile_phase(det, torch, np, top: int = 12, batch=None, name=None):
             det.detect(scenes["tabletop0"], **kw)
         else:
             det.detect_batch([scenes[x] for x in batch], **kw)
-    wall_ms = det.timings["total_ms"]
+    _print_profile(label, prof, det.timings["total_ms"], torch, top)
 
+
+def _print_profile(label, prof, wall_ms, torch, top: int = 12):
+    """Device time by kernel name (the `top` largest) of a torch.profiler
+    run, the device's busy time against the run's wall time, and so its
+    idle share (the profiler's own overhead is in the wall time, so the
+    idle share is an upper bound).  Returns (busy ms, [(ms, count, name)])
+    or None when the profiler recorded no device time."""
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
     # Device-side events only (the kernels and copies themselves): the
     # host-side aten:: events carry their kernels' time too.
+    # User annotations (an optimizer's step range) span kernels counted on
+    # their own.
     rows = sorted((e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
                    and dev_us(e) > 0), key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in rows) / 1e3
     if not rows:
         print(f"profile {label}: the profiler recorded no device time "
               "(device busy and idle share not measured)", flush=True)
-        return
+        return None
     print(f"profile {label}: wall {wall_ms:.2f} ms under the profiler, "
           f"device busy {busy_ms:.2f} ms, idle share "
           f"{1 - busy_ms / wall_ms:.3f}", flush=True)
     for e in rows[:top]:
         print(f"profile:   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
               f"{e.key[:90]}", flush=True)
+    return busy_ms, [(dev_us(e) / 1e3, e.count, e.key) for e in rows[:top]]
+
+
+def _train_profile(trainer, batch, torch, top: int = 12):
+    """One train step under torch.profiler (`_print_profile`), its wall time
+    from a synchronized host clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    got = _print_profile("train step", prof, wall_ms, torch, top)
+    return None if got is None else {"wall_ms": wall_ms, "busy_ms": got[0],
+                                     "top": got[1]}
 
 
 def main() -> int:
@@ -2286,6 +2674,7 @@ def main() -> int:
     ref_cast = phase("CAST_ACTIVATIONS reference",
                      lambda: _cast_reference_phase(torch, np))
     print(f"CAST_ACTIVATIONS reference: {ref_cast}", flush=True)
+    phase("train reference", lambda: _train_reference_phase(torch, np))
     launches = phase("detect", lambda: _detect_phase(det, torch, np))
     batch = phase("detect_batch", lambda: _detect_batch_phase(det, torch, np))
     parity = phase("parity", lambda: _parity_phase(pdet, torch, np))
@@ -2294,6 +2683,7 @@ def main() -> int:
     contact = phase("contact", lambda: _contact_phase(cdet, torch, np))
     settings = phase("settings", lambda: _settings_phase(det, torch, np))
     stream = phase("stream", lambda: _stream_phase(det, qdet, torch, np))
+    train = phase("train", lambda: _train_phase(torch, np))
     phase("profile", lambda: _profile_phase(det, torch, np))
     phase("profile batch", lambda: _profile_phase(det, torch, np,
                                                   batch=BATCHES[2]))
@@ -2312,7 +2702,7 @@ def main() -> int:
     # launches: over every main path's counted runs, and by path.
     paths = {"detect": launches, "detect_batch": batch[0], **parity[0],
              "sort_only_batch": sort_only[0], **fused[0], **contact[0],
-             **settings[0], "stream": stream[0]}
+             **settings[0], "stream": stream[0], **train[0]}
     extras.setdefault("mlp_chain", {})["pack_cache"] = fused[2]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,

@@ -1,1 +1,1 @@
-from .build_model import build_model
+from .build_model import build_loss_and_metric, build_model

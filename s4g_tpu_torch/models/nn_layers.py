@@ -1,4 +1,4 @@
-"""Point-wise MLP stacks with BatchNorm + ReLU, eval mode (port of
+"""Point-wise MLP stacks with BatchNorm + ReLU (port of
 s4g_tpu/models/nn_layers.py).
 
 Layers run over the trailing channel axis of channels-last tensors, as in
@@ -8,9 +8,21 @@ running_var}`), so a port state_dict is a reference state_dict.
 
 Rounding points match flax `nn.Dense(dtype=compute_dtype)` + `nn.BatchNorm`:
 the input and kernel are cast to the compute dtype and the product comes
-out in it; BatchNorm runs in f32 from the running statistics as
-(x - mean) * (scale * rsqrt(var + 1e-5)) + bias, then ReLU; activations stay
-f32 between layers.
+out in it; BatchNorm runs in f32 as (x - mean) * (scale * rsqrt(var +
+1e-5)) + bias, then ReLU; activations stay f32 between layers.  In eval
+mode mean and var are the running statistics.  In training mode
+(the BatchNorm module's `training`, so `bn.eval()` inside a training
+model keeps the running statistics, torch's way of freezing them) they
+are flax 0.12's batch statistics, written out as
+tensor ops so that autograd differentiates the formula XLA does: f32 over
+every axis but the channels, var = max(E[x^2] - E[x]^2, 0) (flax's
+`use_fast_variance`; `F.batch_norm` takes two passes and keeps the
+unbiased variance, which differs beyond f32 rounding), and the running
+statistics move by 0.1 towards the batch's mean and biased variance
+(torch's momentum 0.1, flax's 0.9).  A `SharedMLP` built with
+`dropout_prob` p > 0 drops elements after every layer in training mode:
+each is kept with probability 1 - p, drawn from the caller's
+`torch.Generator`, and scaled by 1 / (1 - p), as flax `nn.Dropout`.
 
 `SharedMLP.sa1_fused_eval` is the other route of an xyz-only SA stage: the
 whole stage as one kernel (K3, `ops/sa_fused.py`) with BatchNorm folded
@@ -110,7 +122,9 @@ class PointConv(nn.Module):
     """Dense (= 1x1 conv, no bias) + BatchNorm + ReLU over the last axis.
 
     `ndim` is the reference conv's dimensionality (2 in SA stages, 1 in FP
-    stages and heads); it only shapes the stored weight."""
+    stages and heads); it only shapes the stored weight.  Built in eval
+    mode, as the JAX layers default to `train=False`; `.train()` switches
+    to the batch statistics."""
 
     def __init__(self, in_features: int, features: int, ndim: int = 1,
                  dtype: torch.dtype = torch.float32):
@@ -119,40 +133,84 @@ class PointConv(nn.Module):
         self.conv = conv(in_features, features, 1, bias=False)
         self.bn = (nn.BatchNorm2d if ndim == 2 else nn.BatchNorm1d)(features)
         self.dtype = dtype
+        self.eval()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.conv.weight.reshape(self.conv.out_channels, -1)
-        y = torch.matmul(x.to(self.dtype), w.t().to(self.dtype))
+        y = torch.matmul(x.to(self.dtype), w.t().to(self.dtype)).float()
         bn = self.bn
-        mul = torch.rsqrt(bn.running_var + BN_EPS) * bn.weight
-        y = torch.relu((y.float() - bn.running_mean) * mul + bn.bias)
+        if bn.training:
+            mean, var = _batch_stats(y, bn)
+        else:
+            mean, var = bn.running_mean, bn.running_var
+        mul = torch.rsqrt(var + BN_EPS) * bn.weight
+        y = torch.relu((y - mean) * mul + bn.bias)
         return y.to(self.dtype) if CAST_ACTIVATIONS else y
 
 
+def _batch_stats(y: torch.Tensor, bn: nn.Module) -> tuple:
+    """flax BatchNorm's training statistics of f32 `y` over every axis but
+    the last, (mean, max(E[y^2] - mean^2, 0)); moves `bn`'s running
+    statistics by its momentum towards them (the biased variance)."""
+    axes = tuple(range(y.dim() - 1))
+    mean = torch.mean(y, dim=axes)
+    var = torch.clamp(torch.mean(y * y, dim=axes) - mean * mean, min=0.0)
+    with torch.no_grad():
+        keep = 1.0 - bn.momentum
+        bn.running_mean.copy_(keep * bn.running_mean + bn.momentum * mean)
+        bn.running_var.copy_(keep * bn.running_var + bn.momentum * var)
+    return mean, var
+
+
+def dropout(x: torch.Tensor, p: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax `nn.Dropout(p)` in training: each element kept with probability
+    1 - p (a uniform draw from `generator` below 1 - p) and scaled by
+    1 / (1 - p), the rest zero."""
+    if generator is None:
+        raise ValueError("dropout in training mode draws its masks from a "
+                         "torch.Generator: pass generator=")
+    keep_prob = 1.0 - p
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < keep_prob
+    return torch.where(keep, x / keep_prob, 0.0)
+
+
 class SharedMLP(nn.ModuleList):
-    """Stack of PointConv layers (reference SharedMLP; dropout is a no-op in
-    eval mode and is not carried).  A ModuleList, so layer j's parameters
-    are named `{j}.conv.*` / `{j}.bn.*` as in the reference."""
+    """Stack of PointConv layers (reference SharedMLP), with element-wise
+    dropout after every layer in training mode when `dropout_prob` > 0;
+    built in eval mode, as PointConv.  A ModuleList, so layer j's
+    parameters are named `{j}.conv.*` / `{j}.bn.*` as in the reference."""
 
     def __init__(self, in_features: int, mlp_channels: Sequence[int],
-                 ndim: int = 1, dtype: torch.dtype = torch.float32):
+                 ndim: int = 1, dtype: torch.dtype = torch.float32,
+                 dropout_prob: float = 0.0):
         layers = []
         for c in mlp_channels:
             layers.append(PointConv(in_features, c, ndim=ndim, dtype=dtype))
             in_features = c
         super().__init__(layers)
+        self.dropout_prob = dropout_prob
+        self.eval()
 
-    def forward(self, x: torch.Tensor,
-                max_pool_k: Optional[int] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, max_pool_k: Optional[int] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         """`max_pool_k`: max-pool the output over the second-to-last
-        (neighbour) axis, which must have that size.  The fused-chain route
-        (`fuses_chain`) runs the chain as one kernel instead."""
+        (neighbour) axis, which must have that size (`torch.amax`, which
+        splits a tie's gradient evenly, as `jnp.max`).  The fused-chain
+        route (`fuses_chain`) runs the chain as one kernel instead in eval
+        mode.  `generator`: the dropout masks' draws (training mode with
+        `dropout_prob` > 0 only)."""
         if not self.training and fuses_chain(
                 MLP_IMPL, MLP_FUSE_MIN_ROWS, MLP_FUSE_SCOPE, x.shape,
                 max_pool_k, x.is_cuda):
             return self.fused_eval(x, max_pool_k)
+        drop = self.training and self.dropout_prob > 0.0
         for layer in self:
             x = layer(x)
+            if drop:
+                x = dropout(x, self.dropout_prob, generator)
         if max_pool_k is not None:
             if x.shape[-2] != max_pool_k:
                 raise ValueError(f"pool axis {x.shape[-2]} != {max_pool_k}")

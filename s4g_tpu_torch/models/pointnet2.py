@@ -1,6 +1,12 @@
-"""PointNet++ backbone and the two grasp-proposal models, eval mode (port
-of s4g_tpu/models/pointnet2.py): PN2_CLS, the curvature model, and PN2,
-the contact model with a regression translation.
+"""PointNet++ backbone, the two grasp-proposal models and their losses and
+metrics (port of s4g_tpu/models/pointnet2.py): PN2_CLS, the curvature
+model, and PN2, the contact model with a regression translation.
+
+In training mode (`.train()`) the forwards build autograd graphs, with
+batch statistics and the score and movability heads' dropout (masks drawn
+from the caller's `generator`).  In eval mode they build none, whatever
+the grad mode, as serving and validation need none (the detector also runs
+them under `torch.no_grad()`).
 
 Modules keep the reference torch names (`sa_modules.{i}.mlp.{j}.{conv,bn}`,
 `fp_modules.{i}.mlp.{j}.*`, `mlp_{seg,R,t,movable}.{j}.*`,
@@ -17,6 +23,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from . import functional as F
 from .functional import rot6d_to_mat9
 from .nn_layers import SharedMLP
 from .pn2_modules import PointnetFPModule, PointNetSAModule, gather_cl
@@ -104,11 +111,12 @@ class PointNet2Backbone(nn.Module):
 
 
 def _head(mlp: SharedMLP, logit: nn.Conv1d, feature: torch.Tensor,
-          dtype: torch.dtype) -> torch.Tensor:
+          dtype: torch.dtype,
+          generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """SharedMLP head + linear logit layer (the JAX `_Head`): the product
     comes out in the compute dtype and the bias is added in it, like flax
     `nn.Dense(dtype=...)`."""
-    x = mlp(feature)
+    x = mlp(feature, generator=generator)
     w = logit.weight.reshape(logit.out_channels, -1)
     return torch.matmul(x.to(dtype), w.t().to(dtype)) + logit.bias.to(dtype)
 
@@ -116,37 +124,48 @@ def _head(mlp: SharedMLP, logit: nn.Conv1d, feature: torch.Tensor,
 class _GraspHeads(PointNet2Backbone):
     """The backbone and the four heads both grasp models share: score
     logits, rotation (`rot_width` outputs), translation (`trans_width`)
-    and 5-way sigmoid movability, built in the reference's order."""
+    and 5-way sigmoid movability, built in the reference's order.  The
+    score and movability heads drop out with `dropout_prob` in training
+    (JAX `pointnet2.py:192-201, 247-256`); rotation and translation do
+    not."""
 
     def __init__(self, score_classes: int, seg_channels: Sequence[int],
                  rot_width: int, trans_width: int,
                  num_removal_directions: int = 5,
-                 dtype: torch.dtype = torch.float32, **backbone_kwargs):
+                 dtype: torch.dtype = torch.float32,
+                 dropout_prob: float = 0.0, **backbone_kwargs):
         super().__init__(dtype=dtype, **backbone_kwargs)
         self.dtype = dtype
         width = backbone_kwargs["fp_channels"][-1][-1]
         seg_out = seg_channels[-1]
         for name in ("seg", "R", "t", "movable"):
+            p = dropout_prob if name in ("seg", "movable") else 0.0
             setattr(self, f"mlp_{name}",
-                    SharedMLP(width, seg_channels, ndim=1, dtype=dtype))
+                    SharedMLP(width, seg_channels, ndim=1, dtype=dtype,
+                              dropout_prob=p))
         self.seg_logit = nn.Conv1d(seg_out, score_classes, 1)
         self.R_logit = nn.Conv1d(seg_out, rot_width, 1)
         self.t_logit = nn.Conv1d(seg_out, trans_width, 1)
         self.movable_logit = nn.Sequential(
             nn.Conv1d(seg_out, num_removal_directions, 1), nn.Sigmoid())
 
-    def heads(self, points: torch.Tensor) -> tuple:
+    def heads(self, points: torch.Tensor,
+              generator: Optional[torch.Generator] = None) -> tuple:
         """points (B, 3, N) -> the four heads' outputs, channels-first f32:
         score logits, rotation, translation, movability (the sigmoid taken
-        in the compute dtype, then f32, as the JAX models do)."""
-        feature = self.backbone(points.transpose(1, 2))
-        dt = self.dtype
-        out = (_head(self.mlp_seg, self.seg_logit, feature, dt),
-               _head(self.mlp_R, self.R_logit, feature, dt),
-               _head(self.mlp_t, self.t_logit, feature, dt),
-               torch.sigmoid(_head(self.mlp_movable, self.movable_logit[0],
-                                   feature, dt)))
-        return tuple(x.transpose(1, 2).float() for x in out)
+        in the compute dtype, then f32, as the JAX models do).
+        `generator`: the dropout masks' draws, in training mode."""
+        with torch.set_grad_enabled(self.training
+                                    and torch.is_grad_enabled()):
+            feature = self.backbone(points.transpose(1, 2))
+            dt, g = self.dtype, generator
+            out = (_head(self.mlp_seg, self.seg_logit, feature, dt, g),
+                   _head(self.mlp_R, self.R_logit, feature, dt),
+                   _head(self.mlp_t, self.t_logit, feature, dt),
+                   torch.sigmoid(_head(self.mlp_movable,
+                                       self.movable_logit[0], feature, dt,
+                                       g)))
+            return tuple(x.transpose(1, 2).float() for x in out)
 
 
 class PointNet2CLS(_GraspHeads):
@@ -156,13 +175,13 @@ class PointNet2CLS(_GraspHeads):
 
     def __init__(self, score_classes: int, seg_channels: Sequence[int],
                  num_removal_directions: int = 5,
-                 dtype: torch.dtype = torch.float32, **backbone_kwargs):
+                 dtype: torch.dtype = torch.float32, **kwargs):
         super().__init__(score_classes, seg_channels, 9, 4,
-                         num_removal_directions, dtype, **backbone_kwargs)
+                         num_removal_directions, dtype, **kwargs)
 
-    @torch.no_grad()
-    def forward(self, data_batch: dict) -> dict:
-        logits, r, t, mov = self.heads(data_batch["scene_points"])
+    def forward(self, data_batch: dict,
+                generator: Optional[torch.Generator] = None) -> dict:
+        logits, r, t, mov = self.heads(data_batch["scene_points"], generator)
         return {"score": logits, "frame_R": r, "frame_t": t,
                 "movable_logits": mov}
 
@@ -177,15 +196,138 @@ class PointNet2Reg(_GraspHeads):
 
     def __init__(self, score_classes: int, seg_channels: Sequence[int],
                  num_removal_directions: int = 5,
-                 dtype: torch.dtype = torch.float32, **backbone_kwargs):
+                 dtype: torch.dtype = torch.float32, **kwargs):
         super().__init__(score_classes, seg_channels, 6, 3,
-                         num_removal_directions, dtype, **backbone_kwargs)
+                         num_removal_directions, dtype, **kwargs)
         nn.init.zeros_(self.t_logit.weight)
         nn.init.zeros_(self.t_logit.bias)
 
-    @torch.no_grad()
-    def forward(self, data_batch: dict) -> dict:
+    def forward(self, data_batch: dict,
+                generator: Optional[torch.Generator] = None) -> dict:
         points = data_batch["scene_points"]            # (B, 3, N)
-        logits, r6, dt, mov = self.heads(points)
+        logits, r6, dt, mov = self.heads(points, generator)
         return {"scene_score_logits": logits, "frame_R": rot6d_to_mat9(r6),
                 "frame_t": points.float() + dt, "movable_logits": mov}
+
+
+# -----------------------------------------------------------------------------
+# Losses and metrics (port of `pointnet2.py:353-416, 455-502`): pure
+# functions (preds, labels) -> dict with the reference's loss weights.  The
+# R / t terms take the first nf = best_frame_R.shape[2] points.
+# -----------------------------------------------------------------------------
+
+def _symmetric_r_loss(pred_r: torch.Tensor, gt_r: torch.Tensor,
+                      gt_score: torch.Tensor) -> torch.Tensor:
+    """Min-over-flip rotation MSE, score-weighted, x5."""
+    loss_1 = torch.mean((pred_r - gt_r) ** 2, dim=1)
+    loss_2 = torch.mean((pred_r - F.flip_mat9_gripper(gt_r)) ** 2, dim=1)
+    return torch.mean(torch.minimum(loss_1, loss_2) * gt_score) * 5.0
+
+
+def _score_cls_loss(logits: torch.Tensor, labels: torch.Tensor,
+                    neg_weight: float, label_smoothing: float
+                    ) -> torch.Tensor:
+    """Per-point score-bin cross entropy with class 0 weighted
+    `neg_weight`."""
+    score_classes = logits.shape[1]
+    # Made on the device: writing neg_weight into a tensor there would
+    # copy it from the host and wait.
+    weight = torch.where(torch.arange(score_classes, device=logits.device)
+                         == 0, neg_weight, 1.0)
+    if label_smoothing > 0:
+        flat = logits.transpose(1, 2).reshape(-1, score_classes)
+        return F.smooth_cross_entropy(flat, labels.reshape(-1),
+                                      label_smoothing, weight=weight)
+    return F.weighted_cross_entropy(logits, labels, weight)
+
+
+def _shared_losses(score_logits: torch.Tensor, preds: dict, labels: dict,
+                   neg_weight: float, label_smoothing: float) -> tuple:
+    """The terms both models share: the score loss, the movability L1 and
+    the symmetric R loss; and nf with the first nf points' gt scores."""
+    cls_loss = _score_cls_loss(score_logits, labels["scene_score_labels"],
+                               neg_weight, label_smoothing)
+    mov_loss = torch.mean(torch.abs(preds["movable_logits"]
+                                    - labels["scene_movable_labels"]))
+    gt_r = labels["best_frame_R"]
+    nf = gt_r.shape[2]
+    gt_score = labels["scene_score"][:, :nf]
+    r_loss = _symmetric_r_loss(preds["frame_R"][:, :, :nf], gt_r, gt_score)
+    return cls_loss, mov_loss, r_loss, nf, gt_score
+
+
+def pointnet2_loss(preds: dict, labels: dict, label_smoothing: float = 0.0,
+                   neg_weight: float = 0.1) -> dict:
+    """PN2 (regression translation) loss dict."""
+    cls_loss, mov_loss, r_loss, nf, gt_score = _shared_losses(
+        preds["scene_score_logits"], preds, labels, neg_weight,
+        label_smoothing)
+    pred_t = preds["frame_t"][:, :, :nf]
+    t_loss = torch.mean(torch.sum((pred_t - labels["best_frame_t"]) ** 2,
+                                  dim=1) * gt_score) * 20.0
+    return {"cls_loss": cls_loss, "R_loss": r_loss, "t_loss": t_loss,
+            "mov_loss": mov_loss}
+
+
+def pointnet2_cls_loss(preds: dict, labels: dict,
+                       label_smoothing: float = 0.0,
+                       neg_weight: float = 0.1) -> dict:
+    """PN2_CLS loss dict: the same R term, and cross entropy over the 4
+    translation bins x0.2 (`best_frame_t` holds integer classes)."""
+    cls_loss, mov_loss, r_loss, nf, _ = _shared_losses(
+        preds["score"], preds, labels, neg_weight, label_smoothing)
+    t_loss = F.cross_entropy(preds["frame_t"][:, :, :nf],
+                             labels["best_frame_t"]) * 0.2
+    return {"cls_loss": cls_loss, "R_loss": r_loss, "t_loss": t_loss,
+            "mov_loss": mov_loss}
+
+
+def _r_metric(preds: dict, labels: dict,
+              score_weighted: bool) -> torch.Tensor:
+    """Symmetry-aware geodesic rotation error."""
+    gt_r = labels["best_frame_R"]
+    b, _, nf = gt_r.shape
+    gt = gt_r.transpose(1, 2).reshape(b * nf, 3, 3)
+    pred = preds["frame_R"][:, :, :nf].transpose(1, 2).reshape(b * nf, 3, 3)
+    gt_flip = torch.cat([gt[:, :, :1], -gt[:, :, 1:]], dim=2)
+    angle = torch.minimum(F.geodesic_angle(gt, pred),
+                          F.geodesic_angle(gt_flip, pred))
+    if score_weighted:
+        return torch.mean(labels["scene_score"][:, :nf].reshape(-1) * angle)
+    return torch.mean(angle)
+
+
+def _accuracies(score_logits: torch.Tensor, preds: dict,
+                labels: dict) -> tuple:
+    """Per-point score-class and movability accuracies (f32 0 / 1)."""
+    cls_acc = (torch.argmax(score_logits, dim=1).reshape(-1)
+               == labels["scene_score_labels"].reshape(-1)).float()
+    mov_acc = ((preds["movable_logits"] > 0.5).reshape(-1).to(torch.int32)
+               == labels["scene_movable_labels"].reshape(-1).to(torch.int32)
+               ).float()
+    return cls_acc, mov_acc
+
+
+def pointnet2_metric(preds: dict, labels: dict) -> dict:
+    """PN2 metrics: accuracies, rotation error, translation error."""
+    score_key = ("scene_score_logits" if "scene_score_logits" in preds
+                 else "score")
+    cls_acc, mov_acc = _accuracies(preds[score_key], preds, labels)
+    nf = labels["best_frame_R"].shape[2]
+    t_err = torch.mean(torch.sqrt(torch.sum(
+        (labels["best_frame_t"] - preds["frame_t"][:, :, :nf]) ** 2, dim=1)))
+    return {"cls_acc": cls_acc, "mov_acc": mov_acc,
+            "R_err": _r_metric(preds, labels, score_weighted=True),
+            "t_err": t_err}
+
+
+def pointnet2_cls_metric(preds: dict, labels: dict) -> dict:
+    """PN2_CLS metrics: accuracies, rotation error, translation-bin
+    accuracy."""
+    cls_acc, mov_acc = _accuracies(preds["score"], preds, labels)
+    nf = labels["best_frame_R"].shape[2]
+    t_pred = torch.argmax(preds["frame_t"][:, :, :nf], dim=1).reshape(-1)
+    t_acc = (t_pred == labels["best_frame_t"].reshape(-1)).float()
+    return {"cls_acc": cls_acc, "mov_acc": mov_acc,
+            "R_err": _r_metric(preds, labels, score_weighted=True),
+            "t_acc": t_acc}
