@@ -69,7 +69,12 @@ run, but the run then exits non-zero without printing a result:
    (`_cast_reference_phase`); then one narrow f32 train step on both
    devices from the same weights and batch: losses, metrics, every
    gradient and the BatchNorm statistics after it
-   (`_train_reference_phase`);
+   (`_train_reference_phase`), with the spread of the GPU's gradients
+   between two of its own runs and under `use_deterministic_algorithms`
+   printed beside it; then the detect stages of EDGEPN2D and EDGEPN2DU
+   at a narrow four-stage pyramid (`_edge_reference_phase`: K6, K2f, K4,
+   K5) and one narrow PN2_LOCAL candidate-mode train step
+   (`_local_reference_phase`), GPU vs CPU;
 4. main paths: `GraspDetector(model="curvature_model").detect` at full width
    with seeded random weights on a synthetic camera-frame tabletop (a plane
    plus boxes), a few times, then a clutter scene; per-stage and total ms,
@@ -100,7 +105,15 @@ run, but the run then exits non-zero without printing a result:
    new Trainer resumed from `last_checkpoint` for epoch 2), one step with
    its host synchronizations counted, one profiled step and one step with
    every augmentation; the median step ms split into forward, backward
-   and optimizer, and the peak device memory.
+   and optimizer, and the peak device memory; then the other model types
+   at full width: EDGEPN2D and EDGEPN2DU served through
+   `GraspDetector(<yaml>)` at the reference's four-stage pyramid
+   (`_edge_phase`: detect x3, clutter, detect_batch b = 2; K6, K2f, K4
+   and K5 only, `_edge_launches`), PN2_LOCAL (`_local_phase`: eval at
+   b = 1, the net at b = 2, candidate-mode Trainer steps with their
+   launches, ms split and peak memory) and GPD / PointNetGPD over one
+   scene's 300 candidates (`_baseline_phase`: forward and train step in
+   bf16 and f32, GPU vs CPU at f32, no kernel launched).
    Each run's launch counters are zeroed before it and read after it (a
    train or val step's around each step), and every kernel must
    launch exactly its count per forward (`_deployed_launches`,
@@ -1929,44 +1942,85 @@ def _train_config(**train):
     return load_cfg_from_dict(cfg)
 
 
-def _train_reference_phase(torch, np, devices=("cpu", "cuda")):
-    """One train step at a narrow width that takes every kernel route of
-    the deployed train step (NARROW: SA1 through K2, SA2 and SA3 through
-    K2f, FP 8192 <- 1024 through K4, FPS nested through K1), f32, dropout
-    0, no augmentation, b = 2, on the GPU and on the CPU (plain twins) from
-    the same state_dict and batch.  The GPU's gather backward sums with
-    atomics, so nothing is compared bit for bit: the losses within 1e-5
-    relative, the accuracies within 2e-3 (a point or two of a near tie),
-    R_err within 1e-4; each gradient within 2e-2 of its tensor's largest
-    (train-mode BatchNorm amplifies f32 rounding: on the CPU the port's
-    f32 step is 2e-3 from its float64 step, JAX's 2e-2) and at cosine
-    >= 0.9999; each BatchNorm running statistic after the step within
-    1e-5 of its tensor's largest.  Every comparison is made before the
-    first failure is raised, so the result names the worst of each."""
-    from s4g_tpu_torch.configs.config import load_cfg_from_dict
-    from s4g_tpu_torch.train.dataset import SceneGraspDataset
-    from s4g_tpu_torch.train.trainer import Trainer
+def _grad_spread(got: dict, want: dict) -> tuple:
+    """Largest max |got - want| of a gradient over its tensor's largest
+    (`want`'s), the tensor it is in, and the least cosine, over the
+    tensors whose largest is above 1e-6 of the model's largest (below it a
+    gradient is zero but for rounding: a BatchNorm after it takes out what
+    it would move)."""
+    top = max(float(w.abs().max()) for w in want.values())
+    worst, where, cos_min = 0.0, None, 1.0
+    for name, w in want.items():
+        g, w = got[name].double(), w.double()
+        scale = float(w.abs().max())
+        if scale <= 1e-6 * top:
+            continue
+        err = float((g - w).abs().max()) / scale
+        if err > worst:
+            worst, where = err, name
+        cos_min = min(cos_min, float((g * w).sum() / (g.norm() * w.norm())))
+    return worst, where, cos_min
 
-    cfg = load_cfg_from_dict(NARROW_TRAIN)
-    batch = next(iter(SceneGraspDataset(
-        _train_data(np), num_points=cfg.MODEL.PN2.NUM_INPUT,
-        batch_size=2, num_frame_points=128, seed=0)))
-    logger, out, state = _train_logger(), {}, None
-    for dev in devices:
-        tr = Trainer(cfg, output_dir=_output_dir(f"train_ref_{dev}"),
-                     device=dev, logger=logger)
-        tr.init_state()
-        if state is None:
-            state = {k: v.detach().cpu().clone()
-                     for k, v in tr.net.state_dict().items()}
-        tr.net.load_state_dict(state)
-        scalars = tr.train_step(batch)
-        out[dev] = {"scalars": {k: float(v) for k, v in scalars.items()},
-                    "grads": {n: p.grad.detach().cpu() for n, p in
-                              tr.net.named_parameters()},
-                    "stats": {k: v.detach().cpu() for k, v in
-                              tr.net.state_dict().items() if "running" in k}}
-    cpu, gpu = out[devices[0]], out[devices[1]]
+
+def _f64_net(net):
+    """`net` in float64 throughout, the oracle of an f32 step's rounding:
+    its BatchNorm inputs too (on this instance, each PointConv's rounding
+    to f32 before its BatchNorm is left out).  The cloud stays f32, so
+    every neighbour index is the f32 run's."""
+    import types
+    import torch
+    from s4g_tpu_torch.models import nn_layers
+
+    def forward(self, x):
+        w = self.conv.weight.reshape(self.conv.out_channels, -1)
+        return torch.relu(nn_layers.batch_norm(
+            torch.matmul(x.to(self.dtype), w.t().to(self.dtype)), self.bn))
+
+    net.double()
+    for m in net.modules():
+        if isinstance(getattr(m, "dtype", None), torch.dtype):
+            m.dtype = torch.float64
+        if isinstance(m, nn_layers.PointConv):
+            m.forward = types.MethodType(forward, m)
+    return net
+
+
+def _step_on(cfg, batch, state, dev, name, f64=False):
+    """One train step of a fresh Trainer of `cfg` on `dev` from the
+    state_dict `state` (made by the first call when None), in float64
+    with `f64` (`_f64_net`; the batch's f32 arrays but the cloud in
+    float64 too): (state, its scalars, gradients and BatchNorm running
+    statistics on the host)."""
+    import numpy as np
+    from s4g_tpu_torch.train.trainer import Trainer
+    tr = Trainer(cfg, output_dir=_output_dir(f"{name}_{dev}"), device=dev,
+                 logger=_train_logger())
+    tr.init_state()
+    if state is None:
+        state = {k: v.detach().cpu().clone()
+                 for k, v in tr.net.state_dict().items()}
+    tr.net.load_state_dict(state)
+    if f64:
+        _f64_net(tr.net)
+        batch = {k: v.astype(np.float64)
+                 if v.dtype == np.float32 and k != "scene_points" else v
+                 for k, v in batch.items()}
+    scalars = tr.train_step(batch)
+    return state, {
+        "scalars": {k: float(v) for k, v in scalars.items()},
+        "grads": {n: p.grad.detach().cpu() for n, p in
+                  tr.net.named_parameters()},
+        "stats": {k: v.detach().cpu() for k, v in tr.net.state_dict().items()
+                  if "running" in k}}
+
+
+def _compare_steps(label, cpu, gpu, grad_tol=2e-2, cos_tol=0.9999):
+    """A train step on the two devices: the losses within 1e-5 relative,
+    the accuracies within 2e-3 (a point or two of a near tie), R_err within
+    1e-4; each gradient within `grad_tol` of its tensor's largest and at
+    cosine >= `cos_tol`; each BatchNorm running statistic after the step
+    within 1e-5 of its tensor's largest.  Returns (the worst of each,
+    the failures)."""
     res = {"max_loss_rel": 0.0, "max_acc_err": 0.0, "max_grad_err": 0.0,
            "min_grad_cos": 1.0, "max_stat_err": 0.0}
     bad = []
@@ -1981,7 +2035,7 @@ def _train_reference_phase(torch, np, devices=("cpu", "cuda")):
             if k != "R_err":
                 res["max_loss_rel"] = max(res["max_loss_rel"], rel)
         if not ok:
-            bad.append(f"train step {k}: GPU {got}, CPU {want}")
+            bad.append(f"{label} {k}: GPU {got}, CPU {want}")
     for name, want in cpu["grads"].items():
         got = gpu["grads"][name].double()
         want = want.double()
@@ -1991,17 +2045,87 @@ def _train_reference_phase(torch, np, devices=("cpu", "cuda")):
         res["max_grad_err"] = max(res["max_grad_err"], err)
         if scale > 1e-6:
             res["min_grad_cos"] = min(res["min_grad_cos"], cos)
-        if err * scale > 2e-2 * scale + 1e-7 or (scale > 1e-6
-                                                 and cos < 0.9999):
-            bad.append(f"gradient {name}: max |GPU - CPU| {err:.3g} of its "
-                       f"max, cosine {cos}")
+        if err * scale > grad_tol * scale + 1e-7 or (scale > 1e-6
+                                                     and cos < cos_tol):
+            bad.append(f"{label} gradient {name}: max |GPU - CPU| "
+                       f"{err:.3g} of its max, cosine {cos}")
     for k, want in cpu["stats"].items():
         err = float((gpu["stats"][k] - want).abs().max()) / max(
             float(want.abs().max()), 1e-30)
         res["max_stat_err"] = max(res["max_stat_err"], err)
         if err > 1e-5:
-            bad.append(f"{k} after the step: {err:.3g} of its max")
+            bad.append(f"{label} {k} after the step: {err:.3g} of its max")
+    return res, bad
+
+
+def _train_reference_phase(torch, np, devices=("cpu", "cuda")):
+    """One train step at a narrow width that takes every kernel route of
+    the deployed train step (NARROW: SA1 through K2, SA2 and SA3 through
+    K2f, FP 8192 <- 1024 through K4, FPS nested through K1), f32, dropout
+    0, no augmentation, b = 2, on the GPU and on the CPU (plain twins) from
+    the same state_dict and batch (`_compare_steps`; the GPU's gather
+    backward sums with atomics, so nothing is compared bit for bit; each
+    gradient within 2e-2 of its tensor's largest, as train-mode BatchNorm
+    amplifies f32 rounding).  Every comparison is made before the first
+    failure is raised, so the result names the worst of each.
+
+    Where the GPU's gradients part from the CPU's: the GPU step runs twice
+    more, once as before and once under `torch.use_deterministic_algorithms(
+    True, warn_only=True)` (the ops without a deterministic CUDA version
+    warn and run as before; they are counted), and the same step runs in
+    float64 on both devices (`_f64_net`); printed beside the GPU-vs-CPU
+    spread (`_grad_spread`: the largest error over its tensor's largest,
+    and the least cosine): the GPU's spread between its own runs, the
+    float64 steps' spread between the devices (which must be within 1e-6:
+    the two devices compute the same function) and each f32 step's
+    distance from the float64 one.  The 2e-2 gate stays on GPU vs CPU."""
+    import warnings
+    from s4g_tpu_torch.configs.config import load_cfg_from_dict
+    from s4g_tpu_torch.train.dataset import SceneGraspDataset
+
+    cfg = load_cfg_from_dict(NARROW_TRAIN)
+    batch = next(iter(SceneGraspDataset(
+        _train_data(np), num_points=cfg.MODEL.PN2.NUM_INPUT,
+        batch_size=2, num_frame_points=128, seed=0)))
+    state, cpu = _step_on(cfg, batch, None, devices[0], "train_ref")
+    _, gpu = _step_on(cfg, batch, state, devices[1], "train_ref")
+    res, bad = _compare_steps("train step", cpu, gpu)
     print(f"train reference: {res}", flush=True)
+    _, again = _step_on(cfg, batch, state, devices[1], "train_ref")
+    if devices[1] != "cpu":
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            _, det = _step_on(cfg, batch, state, devices[1], "train_ref")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message).split(" does not have a deterministic")
+                     [0] for w in caught
+                     if "deterministic" in str(w.message)})
+    _, cpu64 = _step_on(cfg, batch, state, devices[0], "train_ref", True)
+    _, gpu64 = _step_on(cfg, batch, state, devices[1], "train_ref", True)
+    spread = {}
+    for key, (a, b) in {"gpu_vs_cpu": (gpu, cpu),
+                        "gpu_vs_gpu": (again, gpu),
+                        "deterministic_vs_gpu": (det, gpu),
+                        "deterministic_vs_cpu": (det, cpu),
+                        "f64_gpu_vs_f64_cpu": (gpu64, cpu64),
+                        "gpu_vs_f64": (gpu, cpu64),
+                        "cpu_vs_f64": (cpu, cpu64)}.items():
+        err, where, cos = _grad_spread(a["grads"], b["grads"])
+        spread[key] = {"max_grad_err": err, "at": where, "min_cos": cos}
+    if spread["f64_gpu_vs_f64_cpu"]["max_grad_err"] > 1e-6:
+        bad.append(f"float64 steps: gradients differ by "
+                   f"{spread['f64_gpu_vs_f64_cpu']}")
+    res["spread"] = spread
+    res["nondeterministic_ops"] = nondet
+    print("train reference spread: "
+          + "; ".join(f"{k} {v['max_grad_err']:.3g} of its max at {v['at']}"
+                      f" (min cosine {v['min_cos']:.7f})"
+                      for k, v in spread.items())
+          + f"; ops without a deterministic CUDA version: {nondet}",
+          flush=True)
     if bad:
         raise AssertionError("; ".join(bad))
     return res
@@ -2207,6 +2331,572 @@ def _train_phase(torch, np, device: str = "cuda"):
     numbers["profile"] = profile
     return ({"train_step": launches["train"], "val_step": launches["val"]},
             numbers)
+
+
+# -- the other model types ---------------------------------------------------
+
+EDGE_MODELS = ("EDGEPN2D", "EDGEPN2DU")
+# A narrow four-stage pyramid of the reference's shape for the edge models'
+# GPU-vs-CPU runs: unsorted, so every FPS is K6 and every ball query K2f;
+# FP 8192 <- 2048 takes K4 (the two smaller 3-NN stages are below its pair
+# threshold); the last stage is global and its FP a broadcast.
+NARROW_EDGE_SECTION = {
+    "NUM_CENTROIDS": (2048, 512, 128, 0), "RADIUS": (0.02, 0.08, 0.32, -1.0),
+    "NUM_NEIGHBOURS": (32, 32, 32, -1),
+    "SA_CHANNELS": ((32, 32, 64), (64, 64, 64), (64, 64, 128), (128, 128)),
+    "FP_CHANNELS": ((64, 64), (64, 64), (64, 64), (64, 32)),
+    "NUM_FP_NEIGHBOURS": (0, 3, 3, 3), "SEG_CHANNELS": (64, 32)}
+
+
+def _narrow_edge(model_type: str) -> dict:
+    """An f32 config of `model_type` whose own section is
+    NARROW_EDGE_SECTION (NUM_INPUT stays in MODEL.PN2, as the detector
+    reads it)."""
+    return {"MODEL": {"TYPE": model_type, "COMPUTE_DTYPE": "float32",
+                      "PN2": {"NUM_INPUT": 8192},
+                      model_type: dict(NARROW_EDGE_SECTION)},
+            "DATA": {"SCORE_CLASSES": 3}}
+
+
+def _edge_reference_phase(torch, np, devices=("cpu", "cuda")):
+    """`_reference_phase` for EDGEPN2D and EDGEPN2DU at `_narrow_edge`,
+    with small translation residuals (`_small_t_logit`): on the GPU the
+    forward and post-processing must launch K6, K2f, K4 and K5, and no K1,
+    K2 or K3."""
+    from s4g_tpu_torch import _build
+
+    out = {}
+    for model_type in EDGE_MODELS:
+        before = dict(_build.LAUNCHES)
+        out[model_type] = _reference_phase(
+            torch, np, devices, config=_narrow_edge(model_type),
+            prepare=_small_t_logit)
+        ran = {k: _build.LAUNCHES[k] - before[k] for k in before}
+        idle = [k for k in ("fps_exact", "ball_query_full", "three_nn",
+                            "collision_counts") if not ran[k]]
+        stray = [k for k in ("fps_lane", "ball_query_slab", "sa1_fused")
+                 if ran[k]]
+        if devices[1] != "cpu" and (idle or stray):
+            raise AssertionError(f"{model_type} reference: launches {ran}")
+    return out
+
+
+def _edge_launches(det, b: int) -> dict:
+    """Launches per forward of an edge detector at batch `b` (its section
+    unsorted, the PN2Config default): K6 for each SA stage with centroids
+    > 0, K2f for each but the global stage, K4 for each 3-NN FP stage at or
+    above its pair threshold, K5 once per scene; never K1, K2, K3 or K7."""
+    from s4g_tpu_torch import _build
+    from s4g_tpu_torch.ops.neighbors import KERNEL_MIN_PAIRS
+    sec = getattr(det.cfg.MODEL, det.cfg.MODEL.TYPE)
+    if sec.SORT_POINTS:
+        raise ValueError("_edge_launches counts unsorted sections only")
+    levels = [det.num_input]
+    for m in sec.NUM_CENTROIDS:
+        levels.append(levels[-1] if m == -1 else max(m, 1))
+    fp = sum(k == 3 and levels[-2 - i] * levels[-1 - i] >= KERNEL_MIN_PAIRS
+             for i, k in enumerate(sec.NUM_FP_NEIGHBOURS))
+    return {**{k: 0 for k in _build.LAUNCHES},
+            "fps_exact": sum(m > 0 for m in sec.NUM_CENTROIDS),
+            "ball_query_full": sum(m != 0 for m in sec.NUM_CENTROIDS),
+            "three_nn": fp, "collision_counts": b}
+
+
+def _edge_kernel_phase(det, torch, np, extras):
+    """K6 and K2f at the edge forward's shapes (the reference pyramid,
+    unsorted: 25,600 -> 10,240 / 1,024 / 128 centroids, radii 0.2 / 0.3 /
+    0.4, K = 64) on a prepared tabletop at b = 1: each stage's exact FPS
+    against `_fps_plain` and ball query against `_ball_query_full`, bit for
+    bit; each timed (CUDA-graph replays) beside the plain versions (K6's
+    plain loop once), with its bound: 9 f32 operations a point and step for
+    K6; for K2f 9 a pair up to each ball's K-th hit in index order, the
+    tests the first-K scan needs on this data.  Adds `edge_*` numbers to
+    `extras` under both kernels' rows."""
+    from s4g_tpu_torch.models.pn2_modules import gather_cl
+    from s4g_tpu_torch.ops import neighbors as nb
+    from s4g_tpu_torch.ops import sampling as sp
+    from s4g_tpu_torch.pipeline.detector import prep_batch
+
+    sec = getattr(det.cfg.MODEL, det.cfg.MODEL.TYPE)
+    padded, valid = det._pad_cloud(tabletop_cloud(np.random.RandomState(0)))
+    gen = torch.Generator(device=det.device).manual_seed(8)
+    calls = []
+    with torch.no_grad():
+        xyz = prep_batch(padded[None], valid[None], det.num_input,
+                         generator=gen).transpose(1, 2).contiguous()
+        for m, r, k in zip(sec.NUM_CENTROIDS, sec.RADIUS,
+                           sec.NUM_NEIGHBOURS):
+            if m <= 0:
+                break
+            idx = sp.fps_exact(xyz, m)
+            cents = gather_cl(xyz.transpose(1, 2), idx).transpose(
+                1, 2).contiguous()
+            calls.append((xyz, m, cents, r, k))
+            xyz = cents
+    err, k6_ms, k2f_ms, k6_plain, k2f_plain = 0.0, [], [], 0.0, 0.0
+    k6_ops = k6_bytes = k2f_ops = k2f_bytes = 0.0
+    for p, m, c, r, k in calls:
+        n = p.shape[2]
+        err = max(err, _compare(f"edge fps_exact N={n} M={m}",
+                                [sp.fps_exact(p, m)], [sp._fps_plain(p, m)],
+                                True))
+        want = nb._ball_query_full(p, c, r * r, k)
+        err = max(err, _compare(f"edge ball_query_full N={n} M={m} r={r}",
+                                nb.ball_query_full_scan(p, c, r, k), want,
+                                True))
+        k6_ms.append(_graph_ms(lambda p=p, m=m: sp.fps_exact(p, m), reps=5,
+                               per_graph=3))
+        k2f_ms.append(_graph_ms(lambda p=p, c=c, r=r, k=k:
+                                nb.ball_query_full_scan(p, c, r, k)))
+        k6_plain += _event_ms(lambda p=p, m=m: sp._fps_plain(p, m), reps=1,
+                              warmup=0)
+        k2f_plain += _event_ms(lambda p=p, c=c, r=r, k=k:
+                               nb._ball_query_full(p, c, r * r, k), reps=3,
+                               warmup=1)
+        k6_ops += 9.0 * n * (m - 1)
+        k6_bytes += 12 * n + 4 * m
+        # The first-K scan of a ball stops at its K-th hit in index order
+        # (every key when it has fewer): count those tests.
+        last = torch.where(want[1] >= k, want[0][..., -1].long() + 1,
+                           torch.full_like(want[1], n, dtype=torch.long))
+        k2f_ops += 9.0 * float(last.sum())
+        k2f_bytes += 12 * (n + m) + 4 * m * (k + 1)
+    b6, by6 = _bound_ms(k6_ops, k6_bytes)
+    b2f, by2f = _bound_ms(k2f_ops, k2f_bytes)
+    extras.setdefault("fps_exact", {}).update(
+        edge_per_forward_ms=sum(k6_ms), edge_per_stage_ms=k6_ms,
+        edge_plain_ms=k6_plain, edge_bound_ms=b6, edge_bound_by=by6,
+        edge_max_abs_err=err)
+    extras.setdefault("ball_query_full", {}).update(
+        edge_per_forward_ms=sum(k2f_ms), edge_per_stage_ms=k2f_ms,
+        edge_plain_ms=k2f_plain, edge_bound_ms=b2f, edge_bound_by=by2f)
+    blocks = [sp.fps_exact_plan(c[0].shape[2])[0] for c in calls]
+    print(f"kernel fps_exact edge forward (b=1, stages "
+          f"{[(c[0].shape[2], c[1]) for c in calls]}): "
+          f"{', '.join(f'{t:.4f}' for t in k6_ms)} ms, {sum(k6_ms):.4f} ms "
+          f"a forward; plain {k6_plain:.2f} ms; bound {b6:.5f} ms ({by6}); "
+          f"cluster blocks {blocks}", flush=True)
+    print(f"kernel ball_query_full edge forward (b=1, radii "
+          f"{[c[3] for c in calls]}): "
+          f"{', '.join(f'{t:.4f}' for t in k2f_ms)} ms, {sum(k2f_ms):.4f} ms "
+          f"a forward; plain {k2f_plain:.2f} ms; first-K tests needed "
+          f"{int(k2f_ops / 9)}; bound {b2f:.5f} ms ({by2f}); max "
+          f"|kernel - plain| {err}", flush=True)
+
+
+def _edge_phase(torch, np, extras, device: str = "cuda"):
+    """EDGEPN2D and EDGEPN2DU served at full width through
+    `GraspDetector(<yaml>)`: the port's curvature_model.yaml with MODEL.TYPE
+    replaced (`_config_file`), so the net comes from the PN2Config
+    defaults of its own section (the reference's four-stage pyramid
+    25,600 -> 10,240 / 1,024 / 128 / global, radii 0.2 / 0.3 / 0.4, K 64,
+    FP neighbours 0 / 3 / 3 / 3; unsorted; bf16) and NUM_INPUT from
+    MODEL.PN2, with seeded random weights.  Each model: detect x3 on a
+    tabletop (timed), once on a clutter scene, then detect_batch at b = 2
+    on two tabletops, each warmed up and counted on its own, every kernel
+    exactly (`_edge_launches`); then one EDGEPN2D detect under the
+    profiler, and K6 and K2f at its shapes (`_edge_kernel_phase`).
+    Returns each run's launches and stage medians."""
+    from s4g_tpu_torch import _build
+    from s4g_tpu_torch.models.pn2_modules import EdgeFPModule
+    from s4g_tpu_torch.pipeline.detector import GraspDetector
+
+    scenes = _scenes(np)
+    kw = {"score_threshold": 0.0, "verticalness_threshold": -1e9}
+    pair = [scenes["tabletop0"], scenes["tabletop2"]]
+    paths, medians = {}, {}
+    for model_type in EDGE_MODELS:
+        name = model_type.lower()
+        det = GraspDetector(model=_config_file(
+            f"{name}_model", model={"TYPE": model_type}), seed=0,
+            output_dir=_output_dir(name), device=device)
+        net = det.net
+        edge_fp = all(isinstance(fp, EdgeFPModule) for fp in net.fp_modules)
+        if not (all(sa.edge for sa in net.sa_modules)
+                and net.sa_modules[-1].num_centroids == 0
+                and edge_fp == (model_type == "EDGEPN2DU")):
+            raise AssertionError(f"{model_type}: not an edge backbone")
+        print(f"{name}: SA centroids "
+              f"{[sa.num_centroids for sa in net.sa_modules]}, MLP inputs "
+              f"{[sa.mlp[0].conv.in_channels for sa in net.sa_modules]}; FP "
+              f"inputs {[fp.mlp[0].conv.in_channels for fp in net.fp_modules]}"
+              f", edge FP {edge_fp}; "
+              f"{sum(p.numel() for p in net.parameters())} parameters",
+              flush=True)
+        det.detect(scenes["tabletop0"], **kw)
+        det.detect_batch(pair, **kw)
+
+        _build.reset_launches()
+        runs, found = [], {}
+        for scene in ["tabletop0"] * NUM_DETECT + ["clutter1"]:
+            found[scene] = det.detect(scenes[scene], **kw) + (
+                det.last_num_valid,)
+            if scene == "tabletop0":
+                runs.append(dict(det.timings))
+        paths[f"{name}_detect"] = dict(_build.LAUNCHES)
+        _expect(f"{name} detect", paths[f"{name}_detect"], NUM_DETECT + 1,
+                _edge_launches(det, 1))
+        medians[f"{name} detect"] = _stage_medians(
+            f"{name} detect tabletop", runs)
+        for scene, (poses, scores, num_valid) in found.items():
+            ortho = _check_grasps(f"{name} {scene}", [(poses, scores)])
+            print(f"{name} detect {scene}: num_valid {num_valid}, "
+                  f"{len(poses)} grasps returned, max orthonormality error "
+                  f"{ortho:.2e}", flush=True)
+
+        _build.reset_launches()
+        results = det.detect_batch(pair, **kw)
+        _check_grasps(f"{name} detect_batch", results)
+        paths[f"{name}_batch"] = dict(_build.LAUNCHES)
+        _expect(f"{name} detect_batch b=2", paths[f"{name}_batch"], 1,
+                _edge_launches(det, 2))
+        medians[f"{name} detect_batch b=2"] = _stage_medians(
+            f"{name} detect_batch b=2", [det.timings])
+        if model_type == "EDGEPN2D":
+            _profile_phase(det, torch, np, name=f"{name} detect")
+            _edge_kernel_phase(det, torch, np, extras)
+    return paths, medians
+
+
+# PN2_LOCAL's candidate mode at full width: V frame points (chip_smoke's
+# training scenes' frame count) with S candidate frames each.  S is
+# synthetic: the label factory that makes such candidates is not ported.
+LOCAL_CANDIDATES = 8
+
+
+def _local_batch(points, rng, v: int, s: int, np) -> dict:
+    """A PN2_LOCAL candidate-mode batch on `points` (B, 3, N), train-frame
+    model inputs: for each of the first `v` points, `s` seeded candidate
+    frames (random rotations, origins within 2 cm of the point) with score
+    labels; 2-way movability labels per point; a best frame per frame
+    point."""
+    b, _, n = points.shape
+
+    def rotations(count):
+        q, r = np.linalg.qr(rng.randn(count, 3, 3))
+        q = q * np.sign(np.diagonal(r, axis1=1, axis2=2))[:, None, :]
+        q[np.linalg.det(q) < 0, :, 2] *= -1
+        return q.reshape(count, 9)
+
+    lsf = np.empty((b, 12, v, s), np.float32)
+    lsf[:, :9] = rotations(b * v * s).reshape(b, v, s, 9).transpose(
+        0, 3, 1, 2)
+    lsf[:, 9:] = points[:, :, :v, None] + rng.uniform(-0.02, 0.02,
+                                                      (b, 3, v, s))
+    return {"scene_points": np.ascontiguousarray(points, np.float32),
+            "local_search_frame": lsf,
+            "scored_grasp_labels": rng.randint(0, 3, (b, v, s)),
+            "scene_movable_labels": rng.randint(0, 2, (b, n)),
+            "best_frame_R": rotations(b * v).reshape(b, v, 9).transpose(
+                0, 2, 1).astype(np.float32),
+            "best_frame_t": (points[:, :, :v] + rng.uniform(
+                -0.02, 0.02, (b, 3, v))).astype(np.float32)}
+
+
+def _local_reference_phase(torch, np, devices=("cpu", "cuda")):
+    """One PN2_LOCAL candidate-mode train step at NARROW's width (the
+    kernel routes of `_train_reference_phase`), f32, dropout 0, b = 2,
+    V = 128 frame points with 4 candidates each, on the GPU and on the CPU
+    from the same state_dict and batch, held as `_compare_steps` holds
+    the PN2_CLS step."""
+    from s4g_tpu_torch.configs.config import load_cfg_from_dict
+    from s4g_tpu_torch.train.dataset import SceneGraspDataset
+
+    cfg = load_cfg_from_dict({**NARROW_TRAIN, "MODEL": {
+        **NARROW_TRAIN["MODEL"], "TYPE": "PN2_LOCAL"}})
+    points = next(iter(SceneGraspDataset(
+        _train_data(np), num_points=cfg.MODEL.PN2.NUM_INPUT, batch_size=2,
+        num_frame_points=128, seed=0)))["scene_points"]
+    batch = _local_batch(points, np.random.RandomState(12), 128, 4, np)
+    state, cpu = _step_on(cfg, batch, None, devices[0], "local_ref")
+    _, gpu = _step_on(cfg, batch, state, devices[1], "local_ref")
+    res, bad = _compare_steps("PN2_LOCAL step", cpu, gpu)
+    print(f"PN2_LOCAL reference: {res}", flush=True)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return res
+
+
+def _local_phase(torch, np, device: str = "cuda"):
+    """PN2_LOCAL at full width: the port's curvature_model.yaml with
+    MODEL.TYPE PN2_LOCAL (its PN2 section: sorted, 128-shard FPS, bf16,
+    dropout 0.5), seeded random weights.
+
+    * deployment mode through the API: `GraspDetector(<yaml>).eval` on a
+      tabletop (b = 1: K1, K2 or K2f on overflow, K2f, K4), then the net
+      on two prepared tabletops (b = 2: K3 or K2f on overflow), each
+      warmed up and counted on its own (`_deployed_launches` without K5),
+      then timed with CUDA events (median of 10);
+    * candidate mode: `Trainer.train_step` on b = 2 prepared tabletops
+      with `_local_batch` candidates (V = TRAIN_FRAME_POINTS, S =
+      LOCAL_CANDIDATES), a warm-up and 4 counted steps (`_instrument`:
+      every step's launches exact), the median step split into forward +
+      loss, backward and optimizer, the peak device memory; the scalars
+      finite and every parameter moved.
+    Returns each run's launches and those numbers."""
+    from types import SimpleNamespace
+    from s4g_tpu_torch import _build
+    from s4g_tpu_torch.pipeline.detector import GraspDetector, prep_batch
+    from s4g_tpu_torch.train.trainer import Trainer
+
+    ldet = GraspDetector(model=_config_file(
+        "local_model", model={"TYPE": "PN2_LOCAL"}), seed=0,
+        output_dir=_output_dir("local"), device=device)
+    scenes = _scenes(np)
+    n = ldet.num_input
+    ldet.eval(scenes["tabletop0"])
+    _build.reset_launches()
+    preds, want = _counted(ldet, lambda: ldet.eval(scenes["tabletop0"]), 1)
+    paths = {"local_forward_b1": dict(_build.LAUNCHES)}
+    _expect("PN2_LOCAL eval b=1", paths["local_forward_b1"], 1,
+            {**want, "collision_counts": 0})
+    shapes = {"local_search_logits": (1, 3, n, 1), "frame_R": (1, 9, n),
+              "frame_t": (1, 3, n), "movable_logits": (1, 2, n)}
+    for key, shape in shapes.items():
+        if tuple(preds[key].shape) != shape or not bool(
+                torch.isfinite(preds[key]).all()):
+            raise AssertionError(f"PN2_LOCAL {key}: shape "
+                                 f"{tuple(preds[key].shape)} or non-finite")
+
+    padded, valids = zip(*(ldet._pad_cloud(scenes[x])
+                           for x in ("tabletop0", "tabletop2")))
+    with torch.no_grad():
+        points = prep_batch(torch.stack(padded), torch.stack(valids), n,
+                            generator=ldet.generator)
+    inputs = {b: {"scene_points": points[:b].transpose(1, 2).contiguous()}
+              for b in (1, 2)}
+    ldet.net(inputs[2])
+    _build.reset_launches()
+    _, want = _counted(ldet, lambda: ldet.net(inputs[2]), 2)
+    paths["local_forward_b2"] = dict(_build.LAUNCHES)
+    _expect("PN2_LOCAL forward b=2", paths["local_forward_b2"], 1,
+            {**want, "collision_counts": 0})
+    numbers = {f"forward_b{b}_ms": _event_ms(lambda: ldet.net(inputs[b]),
+                                             reps=10)
+               for b in (1, 2)}
+
+    cfg = ldet.cfg
+    batch = _local_batch(points.transpose(1, 2).cpu().numpy(),
+                         np.random.RandomState(13), TRAIN_FRAME_POINTS,
+                         LOCAL_CANDIDATES, np)
+    tr = Trainer(cfg, output_dir=_output_dir("local_train"),
+                 device=device, logger=_train_logger())
+    tr.init_state()
+    before = {k: v.detach().clone() for k, v in tr.net.named_parameters()}
+    launches, records = {"train": {}, "val": {}}, {"train": [], "val": []}
+    _instrument(tr, launches, SimpleNamespace(cfg=cfg, num_input=n),
+                records, torch)
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(5):
+        tr.train_step(batch)
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    paths["local_train_step"] = launches["train"]
+    for rec in records["train"]:
+        bad = [k for k, v in rec["scalars"].items()
+               if not bool(torch.isfinite(v))]
+        if bad:
+            raise AssertionError(f"PN2_LOCAL non-finite scalars {bad}")
+    still = [k for k, v in tr.net.named_parameters()
+             if torch.equal(v, before[k])]
+    if still:
+        raise AssertionError(f"PN2_LOCAL parameters unchanged: {still}")
+    timed = [{name: st.elapsed_time(e) for name, st, e in rec["events"]}
+             for rec in records["train"][1:]]
+    med = {k: statistics.median(t[k] for t in timed) for k in timed[0]}
+    numbers.update(step_ms=med["step"], forward_loss_ms=med["forward"],
+                   backward_ms=med["backward"],
+                   optimizer_ms=med["optimizer"], peak_gib=peak_gib,
+                   train_sa1_overflows=sum(r["overflow"]
+                                           for r in records["train"]))
+    print(f"PN2_LOCAL ({_nvidia_smi()}): forward b=1 "
+          f"{numbers['forward_b1_ms']:.2f} ms, b=2 "
+          f"{numbers['forward_b2_ms']:.2f} ms (median of 10); candidate-mode"
+          f" train step b=2, V={TRAIN_FRAME_POINTS}, S={LOCAL_CANDIDATES} "
+          f"(median of {len(timed)} after the first): {med['step']:.2f} ms"
+          f" = forward + loss {med['forward']:.2f}, backward "
+          f"{med['backward']:.2f}, optimizer {med['optimizer']:.2f}; peak "
+          f"memory {peak_gib:.2f} GiB; SA1 overflows "
+          f"{numbers['train_sa1_overflows']}; last scalars " + ", ".join(
+              f"{k} {float(v):.4f}"
+              for k, v in records["train"][-1]["scalars"].items()),
+          flush=True)
+    return paths, numbers
+
+
+# GPD / PointNetGPD: one scene's DATA.TRAIN.NUM_GRASP candidates; the CPU
+# comparison of PointNetGPD takes fewer (its CPU step is the slow side).
+BASELINE_CANDIDATES = 300
+BASELINE_CPU_CANDIDATES = {"GPD": 300, "PointNetGPD": 64}
+
+
+def _baseline_batch(model_type: str, g: int, rng, cfg, np) -> dict:
+    """One scene's `g` candidates for a baseline, seeded and synthetic (the
+    JAX package's map and close-region generators are not ported): GPD's
+    12 x 60 x 60 maps uniform in [0, 1), PointNetGPD's
+    DATA.NUM_CLOSE_REGION_POINTS points uniform in the shifted gripper box,
+    and a score class per candidate."""
+    from s4g_tpu_torch.configs import gripper_config as G
+    if model_type == "GPD":
+        x = {"close_region_projection_maps": rng.rand(
+            1, g, cfg.DATA.GPD_IN_CHANNELS, 60, 60).astype(np.float32)}
+    else:
+        box = np.array([[G.FINGER_LENGTH], [2 * G.HALF_BOTTOM_SPACE],
+                        [2 * G.HALF_HAND_THICKNESS]])
+        x = {"close_region_points": (rng.rand(
+            1, g, 3, cfg.DATA.NUM_CLOSE_REGION_POINTS) * box
+        ).astype(np.float32)}
+    x["grasp_score_labels"] = rng.randint(0, cfg.DATA.SCORE_CLASSES, (g,))
+    return x
+
+
+def _baseline_cfg(model_type: str, dtype: str):
+    from s4g_tpu_torch.configs.config import load_cfg_from_dict
+    return load_cfg_from_dict({
+        "MODEL": {"TYPE": model_type, "COMPUTE_DTYPE": dtype},
+        "DATA": {"SCORE_CLASSES": 3, "GPD_IN_CHANNELS": 12},
+        "TRAIN": {"BATCH_SIZE": 1}})
+
+
+def _global_spread(got: dict, want: dict) -> tuple:
+    """All gradients as one vector: |got - want| / |want| and the cosine."""
+    import torch
+    g = torch.cat([got[k].double().ravel() for k in want])
+    w = torch.cat([v.double().ravel() for v in want.values()])
+    return (float((g - w).norm() / w.norm()),
+            float(g @ w / (g.norm() * w.norm())))
+
+
+def _baseline_compare(model_type, steps, logits, devices):
+    """A baseline's forward and train step on the two devices, in f32 and
+    in float64 (`steps[(device, bits)]`).  The float64 runs must agree
+    (the devices compute the same function): the loss within 1e-6
+    relative (the logits reach it rounded to f32), each gradient within
+    1e-6 of its tensor's largest (a gradient below 1e-9 of the model's
+    largest, zero but for rounding, within 1e-9 of that), each BatchNorm
+    running statistic within 1e-9 of its largest.  The f32 runs, each
+    device's, are held to the CPU's float64 one: the eval logits within
+    1e-4 of their largest (GPU vs CPU); the GPU's f32 loss within 1e-2
+    relative and all its gradients together within 5e-2 (relative L2), or
+    within twice the CPU's f32 step's distance where that is larger; their
+    worst tensor is printed.
+    PointNetGPD's f32 step is ill-conditioned: flax's BatchNorm variance
+    E[x^2] - E[x]^2, which both packages compute, cancels where a channel's
+    mean dwarfs its spread (bias-dominated features of close-region points
+    a few centimetres wide), and its BatchNorms after the max pool see a
+    few dozen vectors (tests/test_torch_port_baselines.py: JAX's own f32
+    step is up to 17 % of a tensor's largest from its float64 one).
+    Returns (the numbers, the failures)."""
+    bad, res = [], {}
+    cpu_dev, gpu_dev = devices
+    scale = float(logits[cpu_dev].abs().max())
+    res["logit_err"] = float((logits[gpu_dev] - logits[cpu_dev]).abs()
+                             .max()) / scale
+    if res["logit_err"] > 1e-4:
+        bad.append(f"{model_type} logits: {res['logit_err']:.3g}")
+    oracle = steps[(cpu_dev, 64)]
+    top = max(float(g.abs().max()) for g in oracle["grads"].values())
+    for key, got in (("f64_gpu_vs_f64_cpu", steps[(gpu_dev, 64)]),
+                     ("cpu_vs_f64", steps[(cpu_dev, 32)]),
+                     ("gpu_vs_f64", steps[(gpu_dev, 32)])):
+        loss_rel = abs(got["scalars"]["cls_loss"]
+                       - oracle["scalars"]["cls_loss"]) / abs(
+                           oracle["scalars"]["cls_loss"])
+        err, where, cos = _grad_spread(got["grads"], oracle["grads"])
+        l2, gcos = _global_spread(got["grads"], oracle["grads"])
+        stat = max([float((got["stats"][k].double() - w.double()).abs()
+                          .max()) / float(w.abs().max())
+                    for k, w in oracle["stats"].items()], default=0.0)
+        res[key] = {"loss_rel": loss_rel, "grad_l2_rel": l2,
+                    "grad_cos": gcos, "worst_tensor_err": err, "at": where,
+                    "max_stat_err": stat}
+        if key.startswith("f64"):
+            off = [k for k, w in oracle["grads"].items()
+                   if float((got["grads"][k] - w).abs().max()) > max(
+                       1e-6 * float(w.abs().max()), 1e-9 * top)]
+            ok = loss_rel <= 1e-6 and not off and stat <= 1e-9
+        elif key == "gpu_vs_f64":
+            cpu = res["cpu_vs_f64"]
+            ok = (loss_rel <= max(1e-2, 2 * cpu["loss_rel"])
+                  and l2 <= max(5e-2, 2 * cpu["grad_l2_rel"]))
+        else:
+            continue
+        if not ok:
+            bad.append(f"{model_type} {key}: {res[key]}")
+    return res, bad
+
+
+def _baseline_phase(torch, np, devices=("cpu", "cuda")):
+    """GPD and PointNetGPD on the card: one scene's BASELINE_CANDIDATES
+    candidates (`_baseline_batch`) at the default compute dtype (bf16) and
+    at f32, each a `build_model` net's eval forward (median of 10, CUDA
+    events) and `Trainer.train_step` (Adam; a warm-up, then the median of
+    5), with the peak device memory; no kernel of the port may launch.
+    Then the same weights and batch on the CPU and the GPU, in f32 and in
+    float64 (`_baseline_compare`).  Returns each run's (zero) launches and the
+    numbers."""
+    from s4g_tpu_torch import _build
+    from s4g_tpu_torch.models import build_model
+    from s4g_tpu_torch.train.dataset import batch_to_device
+    from s4g_tpu_torch.train.trainer import Trainer
+
+    paths, numbers = {}, {}
+    for model_type in ("GPD", "PointNetGPD"):
+        for dtype in ("bfloat16", "float32"):
+            cfg = _baseline_cfg(model_type, dtype)
+            batch = batch_to_device(_baseline_batch(
+                model_type, BASELINE_CANDIDATES, np.random.RandomState(14),
+                cfg, np), devices[1])
+            tr = Trainer(cfg, output_dir=_output_dir(
+                f"{model_type}_{dtype}"), device=devices[1],
+                logger=_train_logger())
+            tr.init_state()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launches()
+            tr.net.eval()
+            with torch.no_grad():
+                logits = tr.net(batch)["grasp_logits"]
+            if tuple(logits.shape) != (BASELINE_CANDIDATES, 3) or not bool(
+                    torch.isfinite(logits).all()):
+                raise AssertionError(f"{model_type} logits "
+                                     f"{tuple(logits.shape)} or non-finite")
+            fwd = _event_ms(lambda: tr.net(batch), reps=10)
+            step = _event_ms(lambda: tr.train_step(batch), reps=5, warmup=1)
+            label = f"{model_type.lower()}_{dtype}"
+            paths[label] = dict(_build.LAUNCHES)
+            if any(paths[label].values()):
+                raise AssertionError(f"{label}: launches {paths[label]}")
+            numbers[label] = {"forward_ms": fwd, "train_step_ms": step,
+                              "peak_gib": torch.cuda.max_memory_allocated()
+                              / 2 ** 30}
+            print(f"{label} ({_nvidia_smi()}): {BASELINE_CANDIDATES} "
+                  f"candidates, forward {fwd:.3f} ms, train step "
+                  f"{step:.3f} ms, peak memory "
+                  f"{numbers[label]['peak_gib']:.3f} GiB", flush=True)
+
+        cfg = _baseline_cfg(model_type, "float32")
+        batch = _baseline_batch(model_type,
+                                BASELINE_CPU_CANDIDATES[model_type],
+                                np.random.RandomState(15), cfg, np)
+        state, steps = None, {}
+        for dev in devices:
+            for bits in (32, 64):
+                state, steps[(dev, bits)] = _step_on(
+                    cfg, batch, state, dev, model_type, bits == 64)
+        logits = {}
+        for dev in devices:
+            net = build_model(cfg)
+            net.load_state_dict(state)
+            with torch.no_grad():
+                logits[dev] = net.to(dev)(batch_to_device(batch, dev))[
+                    "grasp_logits"].cpu()
+        res, bad = _baseline_compare(model_type, steps, logits, devices)
+        numbers[f"{model_type.lower()}_reference"] = res
+        print(f"{model_type} reference ({BASELINE_CPU_CANDIDATES[model_type]}"
+              f" candidates, f32): {res}", flush=True)
+        if bad:
+            raise AssertionError("; ".join(bad))
+    return paths, numbers
 
 
 def _expect(label, launches, forwards, per_forward):
@@ -2675,6 +3365,9 @@ def main() -> int:
                      lambda: _cast_reference_phase(torch, np))
     print(f"CAST_ACTIVATIONS reference: {ref_cast}", flush=True)
     phase("train reference", lambda: _train_reference_phase(torch, np))
+    ref_e = phase("edge reference", lambda: _edge_reference_phase(torch, np))
+    print(f"edge reference: {ref_e}", flush=True)
+    phase("PN2_LOCAL reference", lambda: _local_reference_phase(torch, np))
     launches = phase("detect", lambda: _detect_phase(det, torch, np))
     batch = phase("detect_batch", lambda: _detect_batch_phase(det, torch, np))
     parity = phase("parity", lambda: _parity_phase(pdet, torch, np))
@@ -2684,6 +3377,9 @@ def main() -> int:
     settings = phase("settings", lambda: _settings_phase(det, torch, np))
     stream = phase("stream", lambda: _stream_phase(det, qdet, torch, np))
     train = phase("train", lambda: _train_phase(torch, np))
+    edge = phase("edge", lambda: _edge_phase(torch, np, extras))
+    local = phase("PN2_LOCAL", lambda: _local_phase(torch, np))
+    baselines = phase("baselines", lambda: _baseline_phase(torch, np))
     phase("profile", lambda: _profile_phase(det, torch, np))
     phase("profile batch", lambda: _profile_phase(det, torch, np,
                                                   batch=BATCHES[2]))
@@ -2702,7 +3398,8 @@ def main() -> int:
     # launches: over every main path's counted runs, and by path.
     paths = {"detect": launches, "detect_batch": batch[0], **parity[0],
              "sort_only_batch": sort_only[0], **fused[0], **contact[0],
-             **settings[0], "stream": stream[0], **train[0]}
+             **settings[0], "stream": stream[0], **train[0], **edge[0],
+             **local[0], **baselines[0]}
     extras.setdefault("mlp_chain", {})["pack_cache"] = fused[2]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,

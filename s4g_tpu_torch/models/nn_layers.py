@@ -22,7 +22,11 @@ statistics move by 0.1 towards the batch's mean and biased variance
 (torch's momentum 0.1, flax's 0.9).  A `SharedMLP` built with
 `dropout_prob` p > 0 drops elements after every layer in training mode:
 each is kept with probability 1 - p, drawn from the caller's
-`torch.Generator`, and scaled by 1 / (1 - p), as flax `nn.Dropout`.
+`torch.Generator`, and scaled by 1 / (1 - p), as flax `nn.Dropout`; with
+`channel_dropout` one draw per (batch, channel) drops whole channels, as
+flax `nn.Dropout(broadcast_dims=...)`.  `MLP` is the same stack over
+(B, C) vectors, and `batch_norm` the BatchNorm formula alone (the
+baselines' Dense + BatchNorm layers use it).
 
 `SharedMLP.sa1_fused_eval` is the other route of an xyz-only SA stage: the
 whole stage as one kernel (K3, `ops/sa_fused.py`) with BatchNorm folded
@@ -138,14 +142,22 @@ class PointConv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.conv.weight.reshape(self.conv.out_channels, -1)
         y = torch.matmul(x.to(self.dtype), w.t().to(self.dtype)).float()
-        bn = self.bn
-        if bn.training:
-            mean, var = _batch_stats(y, bn)
-        else:
-            mean, var = bn.running_mean, bn.running_var
-        mul = torch.rsqrt(var + BN_EPS) * bn.weight
-        y = torch.relu((y - mean) * mul + bn.bias)
+        y = torch.relu(batch_norm(y, self.bn))
         return y.to(self.dtype) if CAST_ACTIVATIONS else y
+
+
+def batch_norm(y: torch.Tensor, bn: nn.Module) -> torch.Tensor:
+    """flax `nn.BatchNorm(dtype=float32)` over the last axis of `y` with
+    `bn`'s affine, in f32 (f64 stays f64, for a float64 oracle; PointConv
+    hands it f32): the running statistics in eval mode, the batch's
+    (`_batch_stats`, which moves the running ones) in training mode."""
+    y = y.to(torch.promote_types(y.dtype, torch.float32))
+    if bn.training:
+        mean, var = _batch_stats(y, bn)
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    mul = torch.rsqrt(var + BN_EPS) * bn.weight
+    return (y - mean) * mul + bn.bias
 
 
 def _batch_stats(y: torch.Tensor, bn: nn.Module) -> tuple:
@@ -163,34 +175,41 @@ def _batch_stats(y: torch.Tensor, bn: nn.Module) -> tuple:
 
 
 def dropout(x: torch.Tensor, p: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            channel: bool = False) -> torch.Tensor:
     """flax `nn.Dropout(p)` in training: each element kept with probability
     1 - p (a uniform draw from `generator` below 1 - p) and scaled by
-    1 / (1 - p), the rest zero."""
+    1 / (1 - p), the rest zero.  `channel`: one draw per (batch, channel),
+    shared over every axis between them (flax `broadcast_dims=range(1,
+    ndim - 1)`, torch's dropout2d): whole channels are dropped."""
     if generator is None:
         raise ValueError("dropout in training mode draws its masks from a "
                          "torch.Generator: pass generator=")
     keep_prob = 1.0 - p
-    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+    shape = ((x.shape[0], *[1] * (x.dim() - 2), x.shape[-1]) if channel
+             else x.shape)
+    keep = torch.rand(shape, generator=generator, device=x.device) \
         < keep_prob
     return torch.where(keep, x / keep_prob, 0.0)
 
 
 class SharedMLP(nn.ModuleList):
-    """Stack of PointConv layers (reference SharedMLP), with element-wise
-    dropout after every layer in training mode when `dropout_prob` > 0;
+    """Stack of PointConv layers (reference SharedMLP), with dropout after
+    every layer in training mode when `dropout_prob` > 0: element-wise, or
+    of whole channels with `channel_dropout` (JAX `nn_layers.py:229-234`);
     built in eval mode, as PointConv.  A ModuleList, so layer j's
     parameters are named `{j}.conv.*` / `{j}.bn.*` as in the reference."""
 
     def __init__(self, in_features: int, mlp_channels: Sequence[int],
                  ndim: int = 1, dtype: torch.dtype = torch.float32,
-                 dropout_prob: float = 0.0):
+                 dropout_prob: float = 0.0, channel_dropout: bool = False):
         layers = []
         for c in mlp_channels:
             layers.append(PointConv(in_features, c, ndim=ndim, dtype=dtype))
             in_features = c
         super().__init__(layers)
         self.dropout_prob = dropout_prob
+        self.channel_dropout = channel_dropout
         self.eval()
 
     def forward(self, x: torch.Tensor, max_pool_k: Optional[int] = None,
@@ -210,7 +229,8 @@ class SharedMLP(nn.ModuleList):
         for layer in self:
             x = layer(x)
             if drop:
-                x = dropout(x, self.dropout_prob, generator)
+                x = dropout(x, self.dropout_prob, generator,
+                            self.channel_dropout)
         if max_pool_k is not None:
             if x.shape[-2] != max_pool_k:
                 raise ValueError(f"pool axis {x.shape[-2]} != {max_pool_k}")
@@ -321,3 +341,27 @@ class SharedMLP(nn.ModuleList):
                 points.contiguous(), centroids.contiguous(), lo_tile, radius,
                 k, w1, b1, (w2, w3), (b2, b3), stratified=stratified)
         return out.to(self[0].dtype)
+
+
+class MLP(SharedMLP):
+    """FC + BN + ReLU stack over (B, C) vectors (port of JAX `MLP`,
+    `nn_layers.py:244-258`, the reference's mlp.py:8-52), with element-wise
+    dropout after every layer in training mode.  No configured model uses
+    it.  Its layers are PointConvs over the last axis, named `{j}.conv.*` /
+    `{j}.bn.*` after the JAX module's layers."""
+
+    def __init__(self, in_features: int, mlp_channels: Sequence[int],
+                 dtype: torch.dtype = torch.float32,
+                 dropout_prob: float = 0.0):
+        super().__init__(in_features, mlp_channels, ndim=1, dtype=dtype,
+                         dropout_prob=dropout_prob)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        drop = self.training and self.dropout_prob > 0.0
+        for layer in self:
+            x = layer(x)
+            if drop:
+                x = dropout(x, self.dropout_prob, generator)
+        return x

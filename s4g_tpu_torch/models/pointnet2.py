@@ -1,19 +1,25 @@
-"""PointNet++ backbone, the two grasp-proposal models and their losses and
+"""PointNet++ backbone, the grasp-proposal models and their losses and
 metrics (port of s4g_tpu/models/pointnet2.py): PN2_CLS, the curvature
-model, and PN2, the contact model with a regression translation.
+model; PN2, the contact model with a regression translation, which with
+`edge_sa` (and `edge_fp`) is also EDGEPN2D (EDGEPN2DU); and PN2_LOCAL,
+which grades SE(3) frames with an eval MLP.
 
 In training mode (`.train()`) the forwards build autograd graphs, with
-batch statistics and the score and movability heads' dropout (masks drawn
-from the caller's `generator`).  In eval mode they build none, whatever
-the grad mode, as serving and validation need none (the detector also runs
-them under `torch.no_grad()`).
+batch statistics and dropout (masks drawn from the caller's `generator`):
+the score and movability heads' in PN2_CLS and PN2, the eval MLP's whole
+channels in PN2_LOCAL.  In eval mode they build none, whatever the grad
+mode, as serving and validation need none (the detector also runs them
+under `torch.no_grad()`).
 
 Modules keep the reference torch names (`sa_modules.{i}.mlp.{j}.{conv,bn}`,
 `fp_modules.{i}.mlp.{j}.*`, `mlp_{seg,R,t,movable}.{j}.*`,
 `{seg,R,t}_logit.*`, `movable_logit.0.*`), so `state_dict()` is a reference
 PN2_CLS or PN2 state dict (`utils/weights.py` converts the JAX package's
-variables into it).  Predictions come out channels-first in f32, like the
-JAX models'.
+variables into it).  PN2_LOCAL's eval MLP and logit are
+`mlp_grasp_eval.{j}.*` and `grasp_eval_logit.*`, and its movability logit,
+which has no sigmoid, `movable_logit.*`: these follow the JAX modules, as
+the reference's own names cannot be checked here.  Predictions come out
+channels-first in f32, like the JAX models'.
 """
 
 from __future__ import annotations
@@ -26,7 +32,8 @@ from torch import nn
 from . import functional as F
 from .functional import rot6d_to_mat9
 from .nn_layers import SharedMLP
-from .pn2_modules import PointnetFPModule, PointNetSAModule, gather_cl
+from .pn2_modules import (EdgeFPModule, PointnetFPModule, PointNetSAModule,
+                          gather_cl)
 from ..ops.neighbors import invert_permutation
 from ..ops.sampling import fps_lane_nested, fps_nesting_applies
 
@@ -39,7 +46,8 @@ class PointNet2Backbone(nn.Module):
                  sa_channels: Sequence[Sequence[int]],
                  fp_channels: Sequence[Sequence[int]],
                  num_fp_neighbours: Sequence[int], sort_points: bool = False,
-                 fps_shards: int = 1, dtype: torch.dtype = torch.float32):
+                 fps_shards: int = 1, dtype: torch.dtype = torch.float32,
+                 edge_sa: bool = False, edge_fp: bool = False):
         super().__init__()
         num_layers = len(num_centroids)
         assert (len(radius) == len(num_neighbours) == len(sa_channels)
@@ -52,14 +60,17 @@ class PointNet2Backbone(nn.Module):
             PointNetSAModule(widths[i], sa_channels[i], num_centroids[i],
                              radius[i], num_neighbours[i],
                              fps_shards=fps_shards if sort_points else 1,
-                             dtype=dtype)
+                             dtype=dtype, edge=edge_sa)
             for i in range(num_layers))
         fp = []
         sparse_width = widths[-1]
         for i in range(num_layers):
-            fp.append(PointnetFPModule(sparse_width + widths[-2 - i],
-                                       fp_channels[i], num_fp_neighbours[i],
-                                       dtype=dtype))
+            # An edge FP stage over 3 neighbours takes [interpolated ||
+            # edge || dense].
+            twice = edge_fp and num_fp_neighbours[i] == 3
+            fp.append((EdgeFPModule if edge_fp else PointnetFPModule)(
+                sparse_width * (2 if twice else 1) + widths[-2 - i],
+                fp_channels[i], num_fp_neighbours[i], dtype=dtype))
             sparse_width = fp_channels[i][-1]
         self.fp_modules = nn.ModuleList(fp)
 
@@ -80,7 +91,8 @@ class PointNet2Backbone(nn.Module):
             xyz = gather_cl(xyz, order)
 
         # A sorted forward whose SA stages all take 128-shard FPS nests
-        # them: every stage's indices in one K1 launch.
+        # them: every stage's indices in one K1 launch.  A pyramid with a
+        # global (0) or all-points (-1) stage never nests.
         centroids = [sa.num_centroids for sa in self.sa_modules]
         fps_index = [None] * len(centroids)
         if self.sort_points and fps_nesting_applies(
@@ -192,7 +204,9 @@ class PointNet2Reg(_GraspHeads):
     into a 3x3 one in the net (`rot6d_to_mat9`), a translation residual
     added to each input point, whose logit layer starts at zero so a fresh
     model puts every grasp origin on its point, and 5-way sigmoid
-    movability."""
+    movability.  With `edge_sa=True` it is EDGEPN2D, with `edge_fp=True`
+    too EDGEPN2DU (a working model here, as in the JAX package, where the
+    reference's is not runnable)."""
 
     def __init__(self, score_classes: int, seg_channels: Sequence[int],
                  num_removal_directions: int = 5,
@@ -331,3 +345,124 @@ def pointnet2_cls_metric(preds: dict, labels: dict) -> dict:
     return {"cls_acc": cls_acc, "mov_acc": mov_acc,
             "R_err": _r_metric(preds, labels, score_weighted=True),
             "t_acc": t_acc}
+
+
+class PointNet2Local(PointNet2Backbone):
+    """PN2_LOCAL — the grasp-evaluation model (port of `PointNet2Local`,
+    `pointnet2.py:270-346`).  Heads over the backbone's features: a raw
+    9-D rotation, a translation residual (zero-initialized logit, added to
+    each point) and 2-way movability logits; then an eval MLP (whole
+    channels dropped in training) and a logit layer grade a 12-D pose,
+    repeated 4 times, beside each point's features.  Two modes:
+
+    * candidates: `data_batch["local_search_frame"]` (B, 12, V, S) holds S
+      frames for each of the first V points (rows 0-8 the rotation, 9-11
+      the translation, made relative to the point), graded into
+      "local_search_logits" (B, C, V, S);
+    * deployment: the model grades its own rotation and residual at every
+      point, (B, C, N, 1).
+
+    The eval MLP's input concatenates the f32 features with the
+    compute-dtype pose, promoted to f32 as JAX promotes it."""
+
+    def __init__(self, score_classes: int, seg_channels: Sequence[int],
+                 dtype: torch.dtype = torch.float32,
+                 dropout_prob: float = 0.0, **backbone_kwargs):
+        super().__init__(dtype=dtype, **backbone_kwargs)
+        self.dtype = dtype
+        width = backbone_kwargs["fp_channels"][-1][-1]
+        seg_out = seg_channels[-1]
+        for name, out in (("R", 9), ("t", 3), ("movable", 2)):
+            setattr(self, f"mlp_{name}",
+                    SharedMLP(width, seg_channels, ndim=1, dtype=dtype))
+            setattr(self, f"{name}_logit", nn.Conv1d(seg_out, out, 1))
+        nn.init.zeros_(self.t_logit.weight)
+        nn.init.zeros_(self.t_logit.bias)
+        self.mlp_grasp_eval = SharedMLP(
+            width + 48, seg_channels, ndim=2, dtype=dtype,
+            dropout_prob=dropout_prob, channel_dropout=True)
+        self.grasp_eval_logit = nn.Conv2d(seg_out, score_classes, 1)
+
+    def forward(self, data_batch: dict,
+                generator: Optional[torch.Generator] = None) -> dict:
+        points = data_batch["scene_points"]            # (B, 3, N)
+        with torch.set_grad_enabled(self.training
+                                    and torch.is_grad_enabled()):
+            feature = self.backbone(points.transpose(1, 2))
+            dt = self.dtype
+            r = _head(self.mlp_R, self.R_logit, feature, dt)      # (B, N, 9)
+            d = _head(self.mlp_t, self.t_logit, feature, dt)      # (B, N, 3)
+            mov = _head(self.mlp_movable, self.movable_logit, feature, dt)
+            if "local_search_frame" in data_batch:
+                lsf = data_batch["local_search_frame"]       # (B, 12, V, S)
+                v, s = lsf.shape[2], lsf.shape[3]
+                rel_t = lsf[:, 9:] - points[:, :, :v, None]
+                pose = torch.cat([lsf[:, :9], rel_t], dim=1) \
+                    .permute(0, 2, 3, 1)                     # (B, V, S, 12)
+                x = torch.cat([feature[:, :v, None, :].expand(-1, -1, s, -1),
+                               pose.repeat(1, 1, 1, 4)], dim=-1)
+            else:
+                pose = torch.cat([r, d], dim=-1).repeat(1, 1, 4)
+                x = torch.cat([feature, pose], dim=-1)[:, :, None, :]
+            logits = _head(self.mlp_grasp_eval, self.grasp_eval_logit, x,
+                           dt, generator)                    # (B, V, S, C)
+            to_cf = lambda y: y.transpose(1, 2).float()      # noqa: E731
+            return {"local_search_logits": logits.permute(0, 3, 1, 2)
+                    .float(),
+                    "frame_R": to_cf(r),
+                    "frame_t": points.float() + to_cf(d),
+                    "movable_logits": to_cf(mov)}
+
+
+def pointnet2_local_loss(preds: dict, labels: dict,
+                         label_smoothing: float = 0.0,
+                         neg_weight: float = 0.1) -> dict:
+    """PN2_LOCAL loss dict: the candidates' score-class cross entropy (class
+    0 weighted `neg_weight`), the 2-way movability cross entropy (class 0
+    weighted 0.4), the symmetric R MSE x4 and the translation MSE x20 over
+    the first nf points."""
+    logits = preds["local_search_logits"]              # (B, C, V, S)
+    classes = logits.shape[1]
+    weight = torch.where(torch.arange(classes, device=logits.device) == 0,
+                         neg_weight, 1.0)
+    mov_logits = preds["movable_logits"]
+    mov_weight = torch.where(torch.arange(2, device=logits.device) == 0,
+                             0.4, 1.0)
+    grasp_labels = labels["scored_grasp_labels"]
+    mov_labels = labels["scene_movable_labels"]
+    if label_smoothing > 0:
+        cls_loss = F.smooth_cross_entropy(
+            logits.permute(0, 2, 3, 1).reshape(-1, classes),
+            grasp_labels.reshape(-1), label_smoothing, weight=weight)
+        mov_loss = F.smooth_cross_entropy(
+            mov_logits.transpose(1, 2).reshape(-1, 2),
+            mov_labels.reshape(-1), label_smoothing, weight=mov_weight)
+    else:
+        cls_loss = F.weighted_cross_entropy(logits, grasp_labels, weight)
+        mov_loss = F.weighted_cross_entropy(mov_logits, mov_labels,
+                                            mov_weight)
+    gt_r = labels["best_frame_R"]
+    nf = gt_r.shape[2]
+    pred_r = preds["frame_R"][:, :, :nf]
+    loss_1 = torch.mean((pred_r - gt_r) ** 2, dim=1)
+    loss_2 = torch.mean((pred_r - F.flip_mat9_gripper(gt_r)) ** 2, dim=1)
+    r_loss = torch.mean(torch.minimum(loss_1, loss_2)) * 4.0
+    t_loss = torch.mean((preds["frame_t"][:, :, :nf]
+                         - labels["best_frame_t"]) ** 2) * 20.0
+    return {"cls_loss": cls_loss, "R_loss": r_loss, "t_loss": t_loss,
+            "mov_loss": mov_loss}
+
+
+def pointnet2_local_metric(preds: dict, labels: dict) -> dict:
+    """PN2_LOCAL metrics: the candidates' class and the movability class
+    accuracies, the unweighted rotation error and the translation error."""
+    cls_acc = (torch.argmax(preds["local_search_logits"], dim=1).reshape(-1)
+               == labels["scored_grasp_labels"].reshape(-1)).float()
+    mov_acc = (torch.argmax(preds["movable_logits"], dim=1).reshape(-1)
+               == labels["scene_movable_labels"].reshape(-1)).float()
+    nf = labels["best_frame_R"].shape[2]
+    t_err = torch.mean(torch.sqrt(torch.sum(
+        (labels["best_frame_t"] - preds["frame_t"][:, :, :nf]) ** 2, dim=1)))
+    return {"cls_acc": cls_acc, "mov_acc": mov_acc,
+            "R_err": _r_metric(preds, labels, score_weighted=False),
+            "t_err": t_err}

@@ -4,7 +4,8 @@ and `eval`, with its weight loading).
 
 One call: camera frame -> train frame, preprocessing (voxel / outlier /
 fixed-size sample), the model's forward (PN2_CLS, the curvature model, or
-PN2, the contact model), post-processing, the collision check against the
+a model with the contact model's outputs: PN2, EDGEPN2D or EDGEPN2DU),
+post-processing, the collision check against the
 camera-frame cloud and importance sampling.  The raw
 cloud is padded to `cloud_capacity`; candidates are a fixed top-K with a
 validity mask.  The stage functions `prep_one` / `post_one` (one scene) and
@@ -25,7 +26,7 @@ else the config's TEST.WEIGHT (a reference `.pth` / `.pt`, or a
 checkpoint of `utils.checkpoint.Checkpointer`), else
 `output_dir/last_checkpoint`, else a random init from `seed`.
 
-Not ported yet: mesh serving and training (ROADMAP.md).
+Not ported yet: mesh serving (ROADMAP.md §1 item 7).
 """
 
 from __future__ import annotations

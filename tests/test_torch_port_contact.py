@@ -162,9 +162,14 @@ def test_pn2_state_dict_round_trips_through_jax_importer():
 
 
 def test_unported_model_types_still_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_build(t_cfg({**TINY, "MODEL": {**TINY["MODEL"],
-                                         "TYPE": "PN2_LOCAL"}}))
+    """The port builds all seven of the JAX package's types; a type that
+    neither package builds raises ValueError, as JAX's `build_model`
+    does."""
+    cfg = {**TINY, "MODEL": {**TINY["MODEL"], "TYPE": "PN2_GLOBAL"}}
+    with pytest.raises(ValueError, match="Unknown model"):
+        j_build(j_cfg(cfg))
+    with pytest.raises(ValueError, match="Unknown model"):
+        t_build(t_cfg(cfg))
 
 
 # -- post-processing ------------------------------------------------------------------

@@ -1002,3 +1002,73 @@ def test_checkpoint_saved_on_the_card_loads_back(cuda, tmp_path):
                                                             sample_idx=idx)
     for key in want:
         assert torch.equal(got[key], want[key]), key
+
+
+# EDGEPN2D at a narrow four-stage pyramid of the reference's shape (a
+# global last stage, unsorted: exact FPS K6, full scans K2f, 3-NN K4).
+NARROW_EDGE = {"MODEL": {
+    "TYPE": "EDGEPN2D", "COMPUTE_DTYPE": "float32",
+    "PN2": {"NUM_INPUT": 16384},
+    "EDGEPN2D": {"NUM_CENTROIDS": (2048, 512, 128, 0),
+                 "RADIUS": (0.02, 0.08, 0.32, -1.0),
+                 "NUM_NEIGHBOURS": (32, 32, 32, -1),
+                 "SA_CHANNELS": ((32, 32, 64), (64, 64, 64), (64, 64, 128),
+                                 (128, 128)),
+                 "FP_CHANNELS": ((64, 64), (64, 64), (64, 64), (64, 32)),
+                 "NUM_FP_NEIGHBOURS": (0, 3, 3, 3),
+                 "SEG_CHANNELS": (64, 32)}},
+    "DATA": {"SCORE_CLASSES": 3}}
+
+
+def test_edge_detect_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """EDGEPN2D (f32, narrow) on the card and on the CPU with the same
+    weights and draws: predictions within 1e-4, launching K6, K2f and K4
+    and no K1, K2 or K3; then a detect returns orthonormal grasps."""
+    gpu = _narrow_detector(tmp_path, NARROW_EDGE, "cuda", name="edge")
+    cpu = _narrow_detector(tmp_path, NARROW_EDGE, "cpu", name="edge")
+    cloud = _table(np.random.RandomState(7))
+    idx = torch.from_numpy(np.random.RandomState(8).choice(
+        2000, 16384).astype(np.int32))
+    want = cpu.eval(cloud, sample_idx=idx)
+    _build.reset_launches()
+    got = gpu.eval(cloud, sample_idx=idx.to(cuda))
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    assert launches["fps_exact"] == 3 and launches["ball_query_full"] == 3
+    assert launches["three_nn"] == 1
+    assert launches["fps_lane"] == launches["ball_query_slab"] == \
+        launches["sa1_fused"] == 0
+    for key, w in want.items():
+        assert float((got[key].cpu() - w).abs().max()) <= 1e-4, key
+    poses, scores = gpu.detect(cloud, score_threshold=0.0,
+                               verticalness_threshold=-1e9,
+                               collision_check=False)
+    assert len(poses) == len(scores) > 0
+    r = torch.from_numpy(poses[:, :3, :3]).double()
+    assert float((r @ r.transpose(1, 2) - torch.eye(3, dtype=torch.float64)
+                  ).abs().max()) < 1e-4
+
+
+def test_local_forward_on_the_card_matches_the_cpu(cuda):
+    """PN2_LOCAL (f32) at the narrow deployed width, b = 1 in deployment
+    mode and b = 2 with candidate frames, on the card and on the CPU from
+    the same weights: every output within 1e-4 (b = 2's SA1 is K3, so
+    within 5e-2 there, as the bf16 tolerances of detect_batch)."""
+    spec = {**NARROW_DEPLOYED, "MODEL": {**NARROW_DEPLOYED["MODEL"],
+                                         "TYPE": "PN2_LOCAL",
+                                         "COMPUTE_DTYPE": "float32"}}
+    torch.manual_seed(0)
+    net = build_model(load_cfg_from_dict(spec))
+    rng = np.random.RandomState(9)
+    pts = torch.from_numpy((rng.rand(2, 3, 16384) * [[0.6], [0.4], [0.3]])
+                           .astype(np.float32))
+    lsf = torch.from_numpy(rng.randn(2, 12, 64, 4).astype(np.float32))
+    for batch, tol in (({"scene_points": pts[:1]}, 1e-4),
+                       ({"scene_points": pts, "local_search_frame": lsf},
+                        5e-2)):
+        want = net({k: v.clone() for k, v in batch.items()})
+        got = net.to(cuda)({k: v.to(cuda) for k, v in batch.items()})
+        net.cpu()
+        assert set(got) == set(want)
+        for key, w in want.items():
+            assert float((got[key].cpu() - w).abs().max()) <= tol, key
