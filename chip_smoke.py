@@ -74,7 +74,10 @@ run, but the run then exits non-zero without printing a result:
    printed beside it; then the detect stages of EDGEPN2D and EDGEPN2DU
    at a narrow four-stage pyramid (`_edge_reference_phase`: K6, K2f, K4,
    K5) and one narrow PN2_LOCAL candidate-mode train step
-   (`_local_reference_phase`), GPU vs CPU;
+   (`_local_reference_phase`), GPU vs CPU; then `eval_frames` at the
+   label factory's size, 2,000 poses against 100,000 labeled points
+   (`_eval_reference_phase`: collision and multi_objects equal, scores
+   within 1e-5, timed, its peak memory);
 4. main paths: `GraspDetector(model="curvature_model").detect` at full width
    with seeded random weights on a synthetic camera-frame tabletop (a plane
    plus boxes), a few times, then a clutter scene; per-stage and total ms,
@@ -113,9 +116,21 @@ run, but the run then exits non-zero without printing a result:
    b = 1, the net at b = 2, candidate-mode Trainer steps with their
    launches, ms split and peak memory) and GPD / PointNetGPD over one
    scene's 300 candidates (`_baseline_phase`: forward and train step in
-   bf16 and f32, GPU vs CPU at f32, no kernel launched).
+   bf16 and f32, GPU vs CPU at f32, no kernel launched); then the entry
+   points (`s4g_tpu_torch/tools`) at full width on a pickle of the seeded
+   tabletop, each `main` in its own directory: grasp_proposal_test (its
+   artifacts, then `log_to_file` GPU vs CPU on one forward's predictions:
+   the top-50 set, the collision masks, the top frames), measure_batch at
+   b = 1, 2 and 4, measure_stream at depths 1 and 2, the train CLI for
+   one epoch with a validation step (its checkpoint read back),
+   profile_stages and trace_forward
+   --detect (its Chrome trace must name every launched kernel).
    Each run's launch counters are zeroed before it and read after it (a
-   train or val step's around each step), and every kernel must
+   train or val step's around each step; a tool's around its `main`:
+   its forwards are known from its arguments, `_forward_launches`, except
+   profile_stages', whose graph captures make the count arbitrary: there
+   each kernel of the path must launch and no other, and the path is left
+   out of the kernels line's launches), and every kernel must
    launch exactly its count per forward (`_deployed_launches`,
    `_parity_launches`, `FUSED_K7_LAUNCHES`), given the SA1 overflows the
    run reported (the stream: per frame); over the counted fused-chain runs the packed-operand
@@ -174,48 +189,15 @@ def _event_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     """Median wall time of fn() on the card over `reps` CUDA-event-timed
     runs (host work included: for plain versions, whose host loop is part
     of their cost)."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    from s4g_tpu_torch.utils.profiling import event_ms
+    return event_ms(fn, reps, warmup)
 
 
 def _graph_ms(fn, reps: int = 20, per_graph: int = 10) -> float:
     """Median device time of one fn() launch: `per_graph` launches captured
     in a CUDA graph, the replay timed with CUDA events, `reps` times."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(per_graph):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / per_graph)
-    return statistics.median(times)
+    from s4g_tpu_torch.utils.profiling import graph_ms
+    return graph_ms(fn, reps, per_graph)
 
 
 def tabletop_cloud(rng, n_plane: int = 57000, n_box: int = 8000,
@@ -3218,28 +3200,20 @@ def _profile_phase(det, torch, np, top: int = 12, batch=None, name=None):
             det.detect(scenes["tabletop0"], **kw)
         else:
             det.detect_batch([scenes[x] for x in batch], **kw)
-    _print_profile(label, prof, det.timings["total_ms"], torch, top)
+    _print_profile(label, prof, det.timings["total_ms"], top)
 
 
-def _print_profile(label, prof, wall_ms, torch, top: int = 12):
+def _print_profile(label, prof, wall_ms, top: int = 12):
     """Device time by kernel name (the `top` largest) of a torch.profiler
-    run, the device's busy time against the run's wall time, and so its
-    idle share (the profiler's own overhead is in the wall time, so the
-    idle share is an upper bound).  Returns (busy ms, [(ms, count, name)])
-    or None when the profiler recorded no device time."""
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
+    run (`utils.profiling.device_kernel_times`), the device's busy time
+    against the run's wall time, and so its idle share (the profiler's own
+    overhead is in the wall time, so the idle share is an upper bound).
+    Returns (busy ms, [(ms, count, name)]) or None when the profiler
+    recorded no device time."""
+    from s4g_tpu_torch.utils.profiling import device_kernel_times
 
-    # Device-side events only (the kernels and copies themselves): the
-    # host-side aten:: events carry their kernels' time too.
-    # User annotations (an optimizer's step range) span kernels counted on
-    # their own.
-    rows = sorted((e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)
-                   and dev_us(e) > 0), key=dev_us, reverse=True)
-    busy_ms = sum(dev_us(e) for e in rows) / 1e3
+    rows = device_kernel_times(prof)
+    busy_ms = sum(ms for ms, _, _ in rows)
     if not rows:
         print(f"profile {label}: the profiler recorded no device time "
               "(device busy and idle share not measured)", flush=True)
@@ -3247,10 +3221,10 @@ def _print_profile(label, prof, wall_ms, torch, top: int = 12):
     print(f"profile {label}: wall {wall_ms:.2f} ms under the profiler, "
           f"device busy {busy_ms:.2f} ms, idle share "
           f"{1 - busy_ms / wall_ms:.3f}", flush=True)
-    for e in rows[:top]:
-        print(f"profile:   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
-              f"{e.key[:90]}", flush=True)
-    return busy_ms, [(dev_us(e) / 1e3, e.count, e.key) for e in rows[:top]]
+    for ms, count, name in rows[:top]:
+        print(f"profile:   {ms:9.3f} ms  x{count:<5d} {name[:90]}",
+              flush=True)
+    return busy_ms, rows[:top]
 
 
 def _train_profile(trainer, batch, torch, top: int = 12):
@@ -3265,9 +3239,517 @@ def _train_profile(trainer, batch, torch, top: int = 12):
         trainer.train_step(batch)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    got = _print_profile("train step", prof, wall_ms, torch, top)
+    got = _print_profile("train step", prof, wall_ms, top)
     return None if got is None else {"wall_ms": wall_ms, "busy_ms": got[0],
                                      "top": got[1]}
+
+
+# -- eval and the entry points ----------------------------------------------------
+
+EVAL_POSES = 2000
+EVAL_BOXES = 8
+EVAL_TABLE_POINTS = 60000
+EVAL_BOX_POINTS = 5000
+
+
+def eval_scene(rng):
+    """A seeded labeled scene at the label factory's size (`datagen/
+    eval_data.py`'s 2,000 poses against a labeled cloud of ~10^5 points):
+    a 0.8 x 0.6 m table (label 0) with EVAL_BOXES boxes on it (labels 1 to
+    8, 4-6 cm wide, 5-12 cm tall; their tops and four sides), every point
+    with its outward normal.  Returns cloud (N, 3), normals (N, 3) float32
+    and int32 labels, and the boxes' top centres."""
+    import numpy as np
+    xy = rng.uniform([-0.4, -0.3], [0.4, 0.3], (EVAL_TABLE_POINTS, 2))
+    pts = [np.column_stack([xy, np.zeros(len(xy))])]
+    nrm = [np.tile([0.0, 0.0, 1.0], (len(xy), 1))]
+    labels = [np.zeros(len(xy), np.int32)]
+    tops = []
+    for i in range(EVAL_BOXES):
+        c = np.array([-0.3 + 0.085 * i, 0.12 * ((-1) ** i), 0.0])
+        half = np.array([rng.uniform(0.02, 0.03), rng.uniform(0.02, 0.03),
+                         rng.uniform(0.025, 0.06)])
+        c[2] = half[2]
+        faces = [(2, 1.0), (0, 1.0), (0, -1.0), (1, 1.0), (1, -1.0)]
+        per = EVAL_BOX_POINTS // len(faces)
+        for axis, sign in faces:
+            p = rng.uniform(-half, half, (per, 3))
+            p[:, axis] = sign * half[axis]
+            n = np.zeros((per, 3))
+            n[:, axis] = sign
+            pts.append(c + p)
+            nrm.append(n)
+            labels.append(np.full(per, i + 1, np.int32))
+        tops.append(c + [0.0, 0.0, half[2]])
+    return (np.concatenate(pts).astype(np.float32),
+            np.concatenate(nrm).astype(np.float32), np.concatenate(labels),
+            np.array(tops))
+
+
+def eval_poses(rng, cloud, tops, count: int = EVAL_POSES):
+    """(count, 4, 4) float32 world->gripper matrices with frames at scene
+    points: half top-down grasps over the boxes' tops (random yaw, centre
+    within 1 cm, 0-4 cm above), half random rotations at random scene
+    points, backed off 0-4 cm along their approach axis."""
+    import numpy as np
+    half = count // 2
+    poses = np.tile(np.eye(4), (count, 1, 1))
+    yaw = rng.uniform(0, np.pi, half)
+    poses[:half, :3, 0] = [0.0, 0.0, -1.0]
+    poses[:half, :3, 1] = np.column_stack([np.cos(yaw), np.sin(yaw),
+                                           np.zeros(half)])
+    poses[:half, :3, 2] = np.cross(poses[:half, :3, 0], poses[:half, :3, 1])
+    poses[:half, :3, 3] = (tops[rng.randint(0, len(tops), half)]
+                           + rng.uniform([-0.01, -0.01, 0.0],
+                                         [0.01, 0.01, 0.04], (half, 3)))
+    q, r = np.linalg.qr(rng.randn(count - half, 3, 3))
+    q = q * np.sign(np.diagonal(r, axis1=1, axis2=2))[:, None, :]
+    q[np.linalg.det(q) < 0, :, 2] *= -1
+    poses[half:, :3, :3] = q
+    poses[half:, :3, 3] = (cloud[rng.choice(len(cloud), count - half)]
+                           - rng.uniform(0.0, 0.04, (count - half, 1))
+                           * q[:, :, 0])
+    return np.linalg.inv(poses).astype(np.float32)
+
+
+def _near_faces(g2l, cloud, torch, ulps: int = 4, chunk: int = 100) -> int:
+    """Pose-point pairs whose gripper-frame coordinate, in float64, lies
+    within `ulps` f32 ulps (at 0.2 m) of a box face that the masks test:
+    where the two devices' f32 transforms could part."""
+    from s4g_tpu_torch.configs import gripper_config as G
+    from s4g_tpu_torch.configs import processing_config as P
+    faces = {0: (G.FINGER_LENGTH, -G.BOTTOM_LENGTH, -P.BACK_COLLISION_MARGIN),
+             1: (G.HALF_BOTTOM_WIDTH, -G.HALF_BOTTOM_WIDTH,
+                 G.HALF_BOTTOM_SPACE, -G.HALF_BOTTOM_SPACE),
+             2: (G.HALF_HAND_THICKNESS, -G.HALF_HAND_THICKNESS)}
+    tol = ulps * 2.0 ** -23 * 0.2
+    mats, pts = g2l.double(), cloud.double().t()
+    count = 0
+    for g0 in range(0, mats.shape[0], chunk):
+        m = mats[g0:g0 + chunk]
+        local = torch.matmul(m[:, :3, :3], pts) + m[:, :3, 3:]
+        near = torch.zeros_like(local[:, 0], dtype=torch.bool)
+        for axis, values in faces.items():
+            for v in values:
+                near |= (local[:, axis] - v).abs() <= tol
+        count += int(near.sum())
+    return count
+
+
+def _eval_reference_phase(torch, np, devices=("cpu", "cuda")):
+    """`eval_frames` (`pipeline/eval_cloud.py`) at the label factory's
+    size: EVAL_POSES poses against `eval_scene`'s ~10^5 labeled points, on
+    both devices from the same inputs.  collision and multi_objects must be
+    equal, the antipodal score within 1e-5; prints the pairs within 4 ulp
+    of a box face.  On the card: the time (CUDA events, median of 5), the
+    chunk and the peak memory; no kernel of the port may launch.  Returns
+    the launches and the numbers."""
+    from s4g_tpu_torch import _build
+    from s4g_tpu_torch.pipeline import eval_cloud
+
+    rng = np.random.RandomState(31)
+    cloud, normals, labels, tops = eval_scene(rng)
+    g2l = eval_poses(rng, cloud, tops)
+    host = [torch.from_numpy(x) for x in (g2l, cloud, normals, labels)]
+    want = eval_cloud.eval_frames(*(x.to(devices[0]) for x in host))
+    args = [x.to(devices[1]) for x in host]
+    _build.reset_launches()
+    got = eval_cloud.eval_frames(*args)
+    launches = dict(_build.LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"eval_frames launched kernels: {launches}")
+    near = _near_faces(args[0], args[1], torch)
+    for name, g, w in zip(("collision", "multi_objects"), got[:2], want[:2]):
+        if not torch.equal(g.cpu(), w.cpu()):
+            raise AssertionError(
+                f"eval_frames {name}: {int((g.cpu() != w.cpu()).sum())} "
+                f"poses differ ({near} pose-point pairs within 4 ulp of a "
+                "box face)")
+    err = float((got[2].cpu() - want[2].cpu()).abs().max())
+    if err > 1e-5:
+        raise AssertionError(f"eval_frames antipodal_score: {err:.3g}")
+    n = cloud.shape[0]
+    chunk = max(1, eval_cloud.CHUNK_PAIRS // n)
+    numbers = {"poses": len(g2l), "points": n, "chunk": chunk,
+               "near_face_pairs": near, "max_abs_err": err,
+               "collision": int(got[0].sum()),
+               "multi_objects": int(got[1].sum()),
+               "scored": int((got[2] > 0).sum())}
+    if devices[1] == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        numbers["ms"] = _event_ms(lambda: eval_cloud.eval_frames(*args),
+                                  reps=5, warmup=1)
+        numbers["peak_gib"] = (torch.cuda.max_memory_allocated()
+                               - base) / 2 ** 30
+        print(f"eval_frames ({_nvidia_smi()}): {len(g2l)} poses x {n} "
+              f"points in chunks of {chunk} poses: {numbers['ms']:.3f} ms "
+              f"(CUDA events, median of 5), peak memory above the inputs "
+              f"{numbers['peak_gib']:.3f} GiB", flush=True)
+    print(f"eval reference: GPU vs CPU collision and multi_objects equal, "
+          f"antipodal_score max|diff| {err:.3g}; {near} pose-point pairs "
+          f"within 4 ulp of a box face; collide {numbers['collision']}, "
+          f"multi_objects {numbers['multi_objects']}, scored "
+          f"{numbers['scored']} of {len(g2l)}", flush=True)
+    return launches, numbers
+
+
+def _tool_scene(np) -> str:
+    """The seeded tabletop (`tabletop_cloud(RandomState(0))`, 65,000
+    points) as a scene pickle ({"point_cloud": (3, n)}) in the build
+    directory: the entry points' input.  Returns its path."""
+    import pickle
+    from s4g_tpu_torch import _build
+    path = os.path.join(_build.BUILD_DIR, "tools_tabletop_view_0.p")
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump({"point_cloud": tabletop_cloud(
+            np.random.RandomState(0)).T.copy()}, f)
+    return path
+
+
+def _overflows() -> int:
+    """SA1 window overflows so far (K2's fallback and K3's)."""
+    from s4g_tpu_torch.ops import neighbors as nb
+    from s4g_tpu_torch.ops import sa_fused as sf
+    return nb.SLAB_FALLBACKS["overflow"] + sf.SA1_FALLBACKS["overflow"]
+
+
+def _deployed_shim():
+    """What `_deployed_launches` reads of a detector, for the port's
+    curvature_model.yaml as the tools load it."""
+    from types import SimpleNamespace
+    from s4g_tpu_torch.configs.config import load_cfg_from_file
+    from s4g_tpu_torch.tools.common import DEFAULT_CFG
+    cfg = load_cfg_from_file(DEFAULT_CFG)
+    return SimpleNamespace(cfg=cfg, num_input=cfg.MODEL.PN2.NUM_INPUT)
+
+
+def _forward_launches(b: int, forwards: int, overflows: int,
+                      collision: int = 0, fused=None) -> dict:
+    """Launches of `forwards` deployed forwards at batch `b`, `overflows`
+    of which overflowed SA1's key windows (their SA1 through K2f), and
+    `collision` K5 launches."""
+    base = _deployed_launches(_deployed_shim(), b, fused=fused)
+    out = {k: v * forwards for k, v in base.items()}
+    sa1 = "ball_query_slab" if base["ball_query_slab"] else "sa1_fused"
+    out[sa1] -= overflows
+    out["ball_query_full"] += overflows
+    out["collision_counts"] = collision
+    return out
+
+
+def _counted_tool(label, call, expected):
+    """Run `call()` with the launch counters zeroed; `expected(overflows)`
+    gives the launches it must make.  Returns (result, launches)."""
+    from s4g_tpu_torch import _build
+    over = _overflows()
+    _build.reset_launches()
+    out = call()
+    launches = dict(_build.LAUNCHES)
+    want = expected(_overflows() - over)
+    print(f"{label}: launches {launches}", flush=True)
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, expected "
+                             f"{want}")
+    return out, launches
+
+
+def _match_rows(label, got, want, atol: float = 1e-5):
+    """Every row of `got` within `atol` of a distinct row of `want` (a set
+    comparison)."""
+    import numpy as np
+    if got.shape != want.shape:
+        raise AssertionError(f"{label}: shapes {got.shape} {want.shape}")
+    flat_w = want.reshape(len(want), -1)
+    free = list(range(len(flat_w)))
+    worst = 0.0
+    for row in got.reshape(len(got), -1):
+        dist = np.abs(flat_w[free] - row).max(axis=1)
+        k = int(np.argmin(dist))
+        worst = max(worst, float(dist[k]))
+        free.pop(k)
+    if worst > atol:
+        raise AssertionError(f"{label}: a row is {worst:.3g} from any other")
+    return worst
+
+
+def _proposal_phase(det, torch, np, scene, device: str = "cuda"):
+    """`tools/grasp_proposal_test` on the tabletop pickle at full width, in
+    its own directory (its timing files land in the working directory):
+    a warm-up and a timed forward (exact launches), its artifacts present.
+    Then `log_to_file(with_label=False)` on one forward's predictions, on
+    the card and on the CPU: the top-K set equal, the collision masks of
+    the same poses equal, the top frames (top_frames.npy) within 1e-5 as a
+    set.  Returns the launches and the numbers."""
+    import contextlib as cl
+    from s4g_tpu_torch.pipeline.collision import batch_view_non_collision
+    from s4g_tpu_torch.pipeline.file_logger import log_to_file
+    from s4g_tpu_torch.pipeline.postprocessing import expected_score
+    from s4g_tpu_torch.tools import grasp_proposal_test
+    from s4g_tpu_torch.utils.math_utils import (batch_transformation_inv,
+                                                gram_schmidt_frames)
+
+    out = _output_dir("tool_proposal")
+    os.makedirs(out)
+    with cl.chdir(out):
+        got, launches = _counted_tool(
+            "grasp_proposal_test", lambda: grasp_proposal_test.main(
+                ["--scene", scene, "--output", out, "--device", device]),
+            lambda over: _forward_launches(1, 2, over))
+    step = os.path.join(out, "test_step00000")
+    names = ["scene_points.xyz", "scene_score_logits.txt", "pred_frame_R.txt",
+             "pred_frame_t.txt", "pred_scene_score.txt", "pred_pts.ply"]
+    if got["num_poses"]:
+        names += ["cloud.ply", "top_hands.ply", "../top_frames.npy"]
+    missing = [x for x in names + ["../inference_time_ours.txt",
+                                   "../postprocess_time_ours.txt"]
+               if not os.path.getsize(os.path.join(step, x))]
+    if missing:
+        raise AssertionError(f"grasp_proposal_test: empty {missing}")
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    batch = grasp_proposal_test.load_static_data_batch(scene, det.num_input,
+                                                       gen)
+    with torch.no_grad():
+        preds = det.net(batch)
+    sides = {}
+    for side, dev in (("card", device), ("cpu", "cpu")):
+        d = os.path.join(out, f"log_{side}")
+        with cl.chdir(out):
+            res = log_to_file({k: v.to(dev) for k, v in batch.items()},
+                              {k: v.to(dev) for k, v in preds.items()}, 0, d,
+                              with_label=False)
+        score = expected_score(preds["score"][0].to(dev), upper_bins=False)
+        sides[side] = (res, np.argsort(-score.cpu().numpy())[:50], d)
+    (g_res, g_top, g_dir), (c_res, c_top, c_dir) = sides["card"], sides["cpu"]
+    if set(g_top) != set(c_top):
+        raise AssertionError(f"log_to_file top-50 sets differ: "
+                             f"{sorted(set(g_top) ^ set(c_top))}")
+    top = np.sort(c_top)
+    rot = gram_schmidt_frames(preds["frame_R"][0].t().reshape(-1, 3, 3)[
+        torch.from_numpy(top)])
+    pts = batch["scene_points"][0].t()
+    poses = torch.eye(4, device=device).repeat(len(top), 1, 1)
+    poses[:, :3, :3] = rot
+    poses[:, :3, 3] = pts[torch.from_numpy(top)]
+    g2l = batch_transformation_inv(poses).cpu()
+    masks = [batch_view_non_collision(g2l.to(dev), pts.to(dev)).cpu()
+             for dev in (device, "cpu")]
+    if not torch.equal(*masks):
+        raise AssertionError("log_to_file collision masks differ")
+    err = _match_rows("log_to_file top poses",
+                      np.concatenate([g_res[0].reshape(-1, 16),
+                                      g_res[1][:, None]], 1),
+                      np.concatenate([c_res[0].reshape(-1, 16),
+                                      c_res[1][:, None]], 1))
+    if len(g_res[0]):
+        err = max(err, _match_rows(
+            "top_frames.npy", np.load(os.path.join(g_dir, "top_frames.npy")),
+            np.load(os.path.join(c_dir, "top_frames.npy"))))
+    numbers = {"forward_ms": got["forward_ms"], "data_ms": got["data_ms"],
+               "num_poses": got["num_poses"], "top_max_abs_err": err,
+               "viable_top50": len(g_res[0])}
+    print(f"grasp_proposal_test ({got['device']}): forward "
+          f"{got['forward_ms']:.2f} ms, data {got['data_ms']:.2f} ms, "
+          f"{got['num_poses']} viable of the top 50, artifacts present; "
+          f"log_to_file GPU vs CPU: top-50 sets equal, collision masks equal "
+          f"({int(masks[0].sum())} of 50 clear), top frames within "
+          f"{err:.3g}", flush=True)
+    return launches, numbers
+
+
+def _measure_batch_phase(torch, np, scene, device: str = "cuda"):
+    """`tools/measure_batch` at b = 1, 2 and 4 on the tabletop pickle (its
+    JSON line printed): 2 + REPS forwards, then 2 + REPS forwards with
+    post-processing (K5 per scene), every launch counted.  Returns the
+    launches by batch and the JSON lines."""
+    from s4g_tpu_torch.tools import measure_batch
+
+    paths, lines = {}, {}
+    calls = 2 + measure_batch.REPS
+    for b in (1, 2, 4):
+        lines[b], paths[f"measure_batch_b{b}"] = _counted_tool(
+            f"measure_batch b={b}", lambda: measure_batch.main(
+                [str(b), "--scene", scene, "--device", device]),
+            lambda over: _forward_launches(b, 2 * calls, over,
+                                           collision=calls * b))
+    return paths, lines
+
+
+def _measure_stream_phase(torch, np, scene, frames: int = STREAM_FRAMES,
+                          device: str = "cuda"):
+    """`tools/measure_stream` over `frames` frames of the tabletop pickle at
+    depths 1 and 2 (its JSON lines printed): each run 1 + 2 + 2 x `frames`
+    detects, every launch counted (K5 once a detect).  Returns the launches
+    of both runs and the JSON lines."""
+    from s4g_tpu_torch.tools import measure_stream
+
+    out = _output_dir("tool_stream")
+    detects = 3 + 2 * frames
+    total, lines = {}, {}
+    for depth in (1, 2):
+        lines[depth], launches = _counted_tool(
+            f"measure_stream depth {depth}", lambda: measure_stream.main(
+                [str(frames), str(depth), "--scene", scene, "--output", out,
+                 "--device", device]),
+            lambda over: _forward_launches(1, detects, over,
+                                           collision=detects))
+        total = _add(total, launches)
+    return total, lines
+
+
+def _train_cli_phase(torch, np, device: str = "cuda"):
+    """`tools/train` at full width (the port's curvature_model.yaml, b = 2)
+    for one epoch of `_train_data`'s six pickles in its own directory,
+    validating on two of them copied into another (`--val-dir`): 3 steps,
+    each step's launches exact and timed with CUDA events (the class's
+    `train_step` wrapped for the call), then one validation step at b = 2,
+    its launches exact (SA1 through K3 in eval mode), then the checkpoint
+    it wrote (`model_001`, through `last_checkpoint`) read back equal to
+    the final weights.  Returns the launches and the numbers."""
+    import contextlib as cl
+    import shutil
+    from s4g_tpu_torch import _build
+    from s4g_tpu_torch.tools import train as train_cli
+    from s4g_tpu_torch.train.trainer import Trainer
+    from s4g_tpu_torch.utils.checkpoint import Checkpointer
+
+    root = _train_data(np)
+    val = os.path.join(_build.BUILD_DIR, "train_val")
+    shutil.rmtree(val, ignore_errors=True)
+    os.makedirs(val)
+    for i in range(2):
+        shutil.copy(os.path.join(root, f"{i}_view_0.p"), val)
+    out = _output_dir("tool_train")
+    os.makedirs(out)
+    steps, real = [], Trainer.train_step
+    val_steps, real_val = [], Trainer.val_step
+
+    def train_step(self, batch):
+        over, before = _overflows(), dict(_build.LAUNCHES)
+        start, end = _cuda_event(torch), _cuda_event(torch)
+        start.record()
+        result = real(self, batch)
+        end.record()
+        launches = {k: _build.LAUNCHES[k] - before[k] for k in before}
+        want = _forward_launches(2, 1, _overflows() - over, fused=False)
+        if launches != want:
+            raise AssertionError(f"train CLI step: launches {launches}, "
+                                 f"expected {want}")
+        steps.append((start, end))
+        return result
+
+    def val_step(self, batch):
+        over, before = _overflows(), dict(_build.LAUNCHES)
+        result = real_val(self, batch)
+        launches = {k: _build.LAUNCHES[k] - before[k] for k in before}
+        want = _forward_launches(2, 1, _overflows() - over)
+        if launches != want:
+            raise AssertionError(f"train CLI validation: launches "
+                                 f"{launches}, expected {want}")
+        val_steps.append(launches)
+        return result
+
+    _build.reset_launches()
+    Trainer.train_step, Trainer.val_step = train_step, val_step
+    try:
+        with cl.chdir(out):
+            state = train_cli.main(["--data-dir", root, "--val-dir", val,
+                                    "--output", out, "--max-epochs", "1",
+                                    "--device", device])
+    finally:
+        Trainer.train_step, Trainer.val_step = real, real_val
+    launches = dict(_build.LAUNCHES)
+    ckpt = Checkpointer(out)
+    saved = ckpt.load(None, resume=True)
+    if (state.step != TRAIN_SCENES // 2 or len(steps) != state.step
+            or len(val_steps) != 1
+            or not ckpt.last_checkpoint_path().endswith("model_001.ckpt")
+            or saved["extra"]["step"] != state.step):
+        raise AssertionError(f"train CLI: step {state.step}, {len(steps)} "
+                             f"steps, {ckpt.last_checkpoint_path()}")
+    bad = [k for k, v in state.model.items()
+           if not torch.equal(saved["model"][k].cpu(), v.cpu())]
+    if bad:
+        raise AssertionError(f"train CLI checkpoint differs: {bad[:5]}")
+    if device == "cuda":
+        torch.cuda.synchronize()
+    ms = [s.elapsed_time(e) for s, e in steps]
+    numbers = {"steps": len(steps), "step_ms": ms,
+               "median_after_first_ms": statistics.median(ms[1:])}
+    print(f"train CLI ({_nvidia_smi()}): {len(steps)} steps, step ms "
+          + ", ".join(f"{t:.2f}" for t in ms) + f" (median after the first "
+          f"{numbers['median_after_first_ms']:.2f}); validation step "
+          f"launches {val_steps[0]}; checkpoint model_001 read back equal; "
+          f"launches {launches}", flush=True)
+    return launches, numbers
+
+
+def _profile_stages_phase(torch, np, scene, device: str = "cuda"):
+    """`tools/profile_stages` once (b = 1, the tabletop pickle): each
+    recorded op timed alone.  Its launches depend on how many replays each
+    op takes (the counters see a CUDA graph's capture, not its replays),
+    so every kernel of the b = 1 forward must launch (K2 unless SA1's
+    windows overflowed) and no other, and the path stays out of
+    `launches_by_path`.  Returns the tool's report."""
+    from s4g_tpu_torch import _build
+    from s4g_tpu_torch.tools import profile_stages
+
+    over = _overflows()
+    _build.reset_launches()
+    got = profile_stages.main(["--scene", scene, "--device", device])
+    launches = dict(_build.LAUNCHES)
+    need = {"fps_lane", "ball_query_full", "three_nn"}
+    if _overflows() == over:
+        need.add("ball_query_slab")
+    if any(not launches[k] for k in need) or any(
+            launches[k] for k in launches if k not in need | {
+                "ball_query_slab"}):
+        raise AssertionError(f"profile_stages launches {launches}")
+    print(f"profile_stages: kernels launched "
+          f"{sorted(k for k, n in launches.items() if n)}", flush=True)
+    return got
+
+
+KERNEL_NAMES = {"fps_lane": ("fps_nested_kernel", "fps_lane_kernel"),
+                "fps_exact": ("fps_cluster_kernel",),
+                "ball_query_slab": ("ball_query_slab_kernel",),
+                "ball_query_full": ("::warp_kernel", "::tile_kernel"),
+                "sa1_fused": ("sa1_fused_kernel",),
+                "three_nn": ("three_nn_kernel",),
+                "collision_counts": ("collision_counts_kernel",),
+                "mlp_chain": ("mlp_chain_kernel", "mlp_wg_kernel",
+                              "mlp_wide_kernel")}
+
+
+def _trace_phase(torch, np, scene, device: str = "cuda"):
+    """`tools/trace_forward --detect`: its REPS traced detects (forward,
+    post-processing, collision check) after a warm-up, launches exact, and
+    its Chrome trace file names the kernel of every port kernel that
+    launched.  Returns the launches and the numbers."""
+    from s4g_tpu_torch.tools import trace_forward
+
+    trace_dir = _output_dir("tool_trace")
+    calls = 1 + trace_forward.REPS
+    got, launches = _counted_tool(
+        "trace_forward --detect", lambda: trace_forward.main(
+            ["--detect", "--scene", scene, "--trace-dir", trace_dir, "--top",
+             "15", "--device", device]),
+        lambda over: _forward_launches(1, calls, over, collision=calls))
+    with open(got["trace_file"]) as f:
+        text = f.read()
+    absent = [k for k, n in launches.items()
+              if n and not any(name in text for name in KERNEL_NAMES[k])]
+    if absent or not got["kernels"]:
+        raise AssertionError(f"trace {got['trace_file']}: no device time, "
+                             f"or no kernel of {absent}")
+    print(f"trace_forward: {os.path.getsize(got['trace_file'])} bytes of "
+          f"Chrome trace naming every launched port kernel; device "
+          f"{got['device_ms_per_exec']:.3f} ms a detect", flush=True)
+    return launches, {"device_ms_per_exec": got["device_ms_per_exec"]}
 
 
 def main() -> int:
@@ -3368,6 +3850,8 @@ def main() -> int:
     ref_e = phase("edge reference", lambda: _edge_reference_phase(torch, np))
     print(f"edge reference: {ref_e}", flush=True)
     phase("PN2_LOCAL reference", lambda: _local_reference_phase(torch, np))
+    ref_eval = phase("eval reference",
+                     lambda: _eval_reference_phase(torch, np))
     launches = phase("detect", lambda: _detect_phase(det, torch, np))
     batch = phase("detect_batch", lambda: _detect_batch_phase(det, torch, np))
     parity = phase("parity", lambda: _parity_phase(pdet, torch, np))
@@ -3380,6 +3864,16 @@ def main() -> int:
     edge = phase("edge", lambda: _edge_phase(torch, np, extras))
     local = phase("PN2_LOCAL", lambda: _local_phase(torch, np))
     baselines = phase("baselines", lambda: _baseline_phase(torch, np))
+    scene = phase("tool scene", lambda: _tool_scene(np))
+    proposal = phase("grasp_proposal_test",
+                     lambda: _proposal_phase(det, torch, np, scene))
+    mbatch = phase("measure_batch",
+                   lambda: _measure_batch_phase(torch, np, scene))
+    mstream = phase("measure_stream",
+                    lambda: _measure_stream_phase(torch, np, scene))
+    train_cli = phase("train CLI", lambda: _train_cli_phase(torch, np))
+    phase("profile_stages", lambda: _profile_stages_phase(torch, np, scene))
+    tfwd = phase("trace_forward", lambda: _trace_phase(torch, np, scene))
     phase("profile", lambda: _profile_phase(det, torch, np))
     phase("profile batch", lambda: _profile_phase(det, torch, np,
                                                   batch=BATCHES[2]))
@@ -3399,7 +3893,10 @@ def main() -> int:
     paths = {"detect": launches, "detect_batch": batch[0], **parity[0],
              "sort_only_batch": sort_only[0], **fused[0], **contact[0],
              **settings[0], "stream": stream[0], **train[0], **edge[0],
-             **local[0], **baselines[0]}
+             **local[0], **baselines[0], "eval_frames": ref_eval[0],
+             "proposal_test": proposal[0], **mbatch[0],
+             "measure_stream": mstream[0], "train_cli": train_cli[0],
+             "trace_forward": tfwd[0]}
     extras.setdefault("mlp_chain", {})["pack_cache"] = fused[2]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,

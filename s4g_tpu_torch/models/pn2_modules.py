@@ -54,6 +54,18 @@ def group_cl(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     return gather_cl(x, index.reshape(b, m * k)).reshape(b, m, k, c)
 
 
+def interpolate_cl(feature: torch.Tensor, index: torch.Tensor,
+                   weight: torch.Tensor) -> torch.Tensor:
+    """3-NN interpolation, channels-last: (B, N2, C) features, (B, N1, 3)
+    indices and weights -> (B, N1, C), a per-neighbour gather-then-fma
+    accumulated ((t0 + t1) + t2)."""
+    out = None
+    for j in range(3):
+        term = gather_cl(feature, index[:, :, j]) * weight[:, :, j:j + 1]
+        out = term if out is None else out + term
+    return out
+
+
 class PointNetSAModule(nn.Module):
     """Set abstraction: FPS -> ball-query grouping -> SharedMLP -> pool
     (max, or mean with `pool="mean"`).  `num_centroids` 0 is the global
@@ -249,14 +261,8 @@ class PointnetFPModule(nn.Module):
             return self.mlp(_broadcast(dense_xyz, sparse_xyz, dense_feature,
                                        sparse_feature))
         index, distance = ops.three_nn(_cf(dense_xyz), _cf(sparse_xyz))
-        weight = interpolation_weights(distance)
-        # Per-neighbour gather-then-fma, accumulated ((t0 + t1) + t2).
-        interpolated = None
-        for j in range(3):
-            term = gather_cl(sparse_feature, index[:, :, j]) \
-                * weight[:, :, j:j + 1]
-            interpolated = term if interpolated is None \
-                else interpolated + term
+        interpolated = interpolate_cl(sparse_feature, index,
+                                      interpolation_weights(distance))
         if dense_feature is not None:
             new_feature = torch.cat([interpolated, dense_feature], dim=-1)
         else:

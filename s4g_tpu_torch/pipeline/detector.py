@@ -43,6 +43,7 @@ import torch
 from ..configs import processing_config as proc_cfg
 from ..configs.config import Config, load_cfg_from_file
 from ..models import build_model
+from ..runtime.device import resolve_device
 from ..utils.checkpoint import (Checkpointer, load_torch_checkpoint,
                                 model_state_dict)
 from ..utils.math_utils import batch_transformation_inv
@@ -200,13 +201,7 @@ class GraspDetector:
         debug dumps.  `state_dict`: weights under the reference torch names
         (see utils/weights.py); without it they are resolved as the module
         docstring says."""
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "GraspDetector runs on CUDA and no GPU is available; "
-                    "pass device='cpu' to run on the CPU")
-            device = "cuda"
-        self.device = torch.device(device)
+        self.device = resolve_device(device, "GraspDetector")
         if model in _SUPPORTED_MODELS:
             cfg_path = os.path.join(_CONFIG_DIR, f"{model}.yaml")
         elif os.path.exists(model):

@@ -48,11 +48,16 @@ def _softmax0(x: torch.Tensor) -> torch.Tensor:
     return e / total
 
 
-def expected_score(score_logits: torch.Tensor) -> torch.Tensor:
-    """Softmax expectation over score bins (C, N) -> (N,), bins
-    linspace(0, 1, C + 1)[1:] (the detector's upper bins)."""
+def expected_score(score_logits: torch.Tensor,
+                   upper_bins: bool = True) -> torch.Tensor:
+    """Softmax expectation over score bins (C, N) -> (N,).
+
+    upper_bins=True: bins linspace(0, 1, C + 1)[1:], the detector's
+    (grasp_detector.py:145); False: linspace(0, 1, C + 1)[:-1], the file
+    logger's (file_logger_cls.py:67)."""
     c = score_logits.shape[0]
-    bins = torch.arange(1, c + 1, dtype=torch.float32,
+    first = 1 if upper_bins else 0
+    bins = torch.arange(first, first + c, dtype=torch.float32,
                         device=score_logits.device) / c
     prob = _softmax0(score_logits)
     out = bins[0] * prob[0]

@@ -1,1 +1,1 @@
-"""Host-side runtime: the training-data loaders."""
+"""Host-side runtime: the training-data loaders and the device check."""

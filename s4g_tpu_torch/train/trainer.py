@@ -29,6 +29,7 @@ import torch
 
 from ..configs.config import Config
 from ..models import build_loss_and_metric, build_model
+from ..runtime.device import resolve_device
 from ..utils.checkpoint import Checkpointer
 from ..utils.logger import MetricLogger, setup_logger
 from .augmentation import build_augmentation
@@ -55,13 +56,7 @@ class Trainer:
         """`device`: "cuda" (the default) or "cpu" (the tests); without a
         GPU a trainer is only made when the CPU is asked for.
         `steps_per_epoch` turns the schedule's epochs into steps."""
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "Trainer runs on CUDA and no GPU is available; pass "
-                    "device='cpu' to train on the CPU")
-            device = "cuda"
-        self.device = torch.device(device)
+        self.device = resolve_device(device, "Trainer")
         self.cfg = cfg
         self.output_dir = output_dir
         os.makedirs(output_dir, exist_ok=True)
