@@ -77,7 +77,13 @@ run, but the run then exits non-zero without printing a result:
    (`_local_reference_phase`), GPU vs CPU; then `eval_frames` at the
    label factory's size, 2,000 poses against 100,000 labeled points
    (`_eval_reference_phase`: collision and multi_objects equal, scores
-   within 1e-5, timed, its peak memory);
+   within 1e-5, timed, its peak memory); then the label factory at a
+   reduced size (`_factory_reference_phase`: an ellipsoid and a box
+   graded, one 320 x 240 view, capacity 4,096): each stage on the GPU fed
+   the CPU's inputs equal to the CPU's (integers, masks and frames
+   exactly, floats within 1e-6), and end to end normals and frames within
+   1e-5 up to the gripper's turn where the eigenvalue gap allows, with
+   the labels that differ counted;
 4. main paths: `GraspDetector(model="curvature_model").detect` at full width
    with seeded random weights on a synthetic camera-frame tabletop (a plane
    plus boxes), a few times, then a clutter scene; per-stage and total ms,
@@ -116,7 +122,14 @@ run, but the run then exits non-zero without printing a result:
    b = 1, the net at b = 2, candidate-mode Trainer steps with their
    launches, ms split and peak memory) and GPD / PointNetGPD over one
    scene's 300 candidates (`_baseline_phase`: forward and train step in
-   bf16 and f32, GPU vs CPU at f32, no kernel launched); then the entry
+   bf16 and f32, GPU vs CPU at f32, no kernel launched); then the label
+   factory at full size (`_factory_phase`: the eight mesh_tools
+   primitives graded at their defaults, four 640 x 480 views at capacity
+   16,384, the online variant, the contact flavour with refinement and
+   smoothing, an eval view of 2,000 grasp points with 300 baseline
+   payloads, a 300-grasp baseline view; per-stage ms, peak memory and
+   sizes; K2f and K5 only, counted exactly; `generate_end_to_end` whole
+   where `mujoco` imports); then the entry
    points (`s4g_tpu_torch/tools`) at full width on a pickle of the seeded
    tabletop, each `main` in its own directory: grasp_proposal_test (its
    artifacts, then `log_to_file` GPU vs CPU on one forward's predictions:
@@ -149,6 +162,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import pickle
 import statistics
 import subprocess
 import sys
@@ -387,6 +401,27 @@ def _compare(name, got, want, exact):
     return err
 
 
+def _k5_work(g2l, cv):
+    """K5's needed work on this data: (operations, bytes, (pose, valid
+    point) pairs, pairs inside the z slab).  Every pair pays its z row (3
+    mul + 3 add) and the z-slab test (~8 operations); only the pairs
+    inside the slab pay the x and y rows and the box tests (~22 more)."""
+    from s4g_tpu_torch.pipeline import collision as col
+    g = g2l.shape[0]
+    live = cv[:, 3] > 0.5
+    pairs = float(g * int(live.sum()))
+    pts = cv[live, :3]
+    m = g2l.reshape(g, 16)
+    in_z = 0
+    for g0 in range(0, g, 128):
+        mm = m[g0:g0 + 128, :, None]
+        z = (pts[:, 0] * mm[:, 8] + pts[:, 1] * mm[:, 9]
+             + pts[:, 2] * mm[:, 10] + mm[:, 11])
+        in_z += int((z.abs() < col._BOX[2]).sum())
+    return (8.0 * pairs + 22.0 * in_z, 64 * g + 16 * cv.shape[0] + 8 * g,
+            pairs, in_z)
+
+
 def _kernel_phase(inp, torch, extras):
     """Each kernel against its plain twin on the card, then timed; extra
     numbers per kernel go into `extras`."""
@@ -552,23 +587,11 @@ def _kernel_phase(inp, torch, extras):
     # tests (~22 more).  Pairs outside the slab count 0 whatever x and y
     # are, so no more is needed (as `_slab_keys` counts K2's and K3's
     # needed distance tests).
-    g = g2l.shape[0]
-    live = cv[:, 3] > 0.5
-    pairs = float(g * int(live.sum()))
-    nbytes = 64 * g + 16 * cv.shape[0] + 8 * g
     # FMA-less floors, in FP32 instructions at one per lane per clock (half
     # the FMA-counted peak): ~28 a pair when every pair is tested in full
     # (6 mul + 6 add + 3 rounded row sums' adds, 10 compares, selects), and
     # the pruned count above.
-    pts = cv[live, :3]
-    m = g2l.reshape(g, 16)
-    in_z = 0
-    for g0 in range(0, g, 128):
-        mm = m[g0:g0 + 128, :, None]
-        z = (pts[:, 0] * mm[:, 8] + pts[:, 1] * mm[:, 9]
-             + pts[:, 2] * mm[:, 10] + mm[:, 11])
-        in_z += int((z.abs() < col._BOX[2]).sum())
-    ops = 8.0 * pairs + 22.0 * in_z
+    ops, nbytes, pairs, in_z = _k5_work(g2l, cv)
     bound, by = _bound_ms(ops, nbytes)
     rate = PEAK_F32_FLOPS / 2
     extras["collision_counts"] = {
@@ -576,7 +599,8 @@ def _kernel_phase(inp, torch, extras):
         "pruned_floor_ms": 1e3 * ops / rate,
         "pairs": pairs, "pairs_in_z_slab": float(in_z),
         "raster_order_ms": ms_raster}
-    print(f"kernel collision_counts: {g} poses x {int(live.sum())} valid of "
+    print(f"kernel collision_counts: {g2l.shape[0]} poses x "
+          f"{int((cv[:, 3] > 0.5).sum())} valid of "
           f"{cv.shape[0]} rows, {pairs:.4g} pairs, {in_z} ({in_z / pairs:.4f})"
           f" inside the z slab; bound {bound:.5f} ms ({by}); FMA-less floor "
           f"{extras['collision_counts']['floor_ms']:.5f} ms, pruned "
@@ -2541,8 +2565,8 @@ def _edge_phase(torch, np, extras, device: str = "cuda"):
 
 
 # PN2_LOCAL's candidate mode at full width: V frame points (chip_smoke's
-# training scenes' frame count) with S candidate frames each.  S is
-# synthetic: the label factory that makes such candidates is not ported.
+# training scenes' frame count) with S candidate frames each, drawn here
+# from a seed (the label factory's `_factory_phase` makes real frames).
 LOCAL_CANDIDATES = 8
 
 
@@ -3395,6 +3419,568 @@ def _eval_reference_phase(torch, np, devices=("cpu", "cuda")):
     return launches, numbers
 
 
+# -- the label factory ----------------------------------------------------------
+
+# The reduced GPU-vs-CPU factory (`_factory_reference_phase`).
+FACTORY_REDUCED = {"capacity": 4096, "wh": (320, 240), "max_pairs": 512}
+# Darboux frames are compared where the relative eigenvalue gap of the
+# projected normal covariance exceeds this (the CPU tests' GAP_MIN).
+FACTORY_GAP_MIN = 1e-2
+# The full-size factory (`_factory_phase`): `generate_end_to_end`'s
+# defaults and the eval / baseline / contact flavours' sizes.
+FACTORY_VIEWS = 4
+FACTORY_WH = (640, 480)
+FACTORY_CAPACITY = 16384
+FACTORY_EVAL_POINTS = 2000
+FACTORY_BASELINE_GRASPS = 300
+FACTORY_CONTACT_PAIRS = 4096
+FACTORY_CONTACT_OBJECTS = ("ellipsoid", "cylinder")
+
+
+def _factory_meshes(names=None):
+    """The eight `mesh_tools` primitives at their default sizes."""
+    from s4g_tpu_torch.datagen import mesh_tools as mt
+    meshes = {"box": mt.make_box(), "cylinder": mt.make_cylinder(),
+              "ellipsoid": mt.make_ellipsoid(), "torus": mt.make_torus(),
+              "cone": mt.make_cone(), "capsule": mt.make_capsule(),
+              "cup": mt.make_cup(), "lshape": mt.make_lshape()}
+    return {n: meshes[n] for n in (names or meshes)}
+
+
+def _resting_poses(meshes, rng, np):
+    """{name: [x, y, z, qw, qx, qy, qz]}: each mesh resting on the table
+    (its lowest vertex at TABLE_HEIGHT), x in +-0.15 m, y in +-0.12 m, a
+    random yaw (no drop simulation)."""
+    from s4g_tpu_torch.datagen.label_transfer import TABLE_HEIGHT
+    poses = {}
+    for name, (verts, _) in meshes.items():
+        yaw = rng.uniform(0.0, 2 * np.pi)
+        poses[name] = np.array([rng.uniform(-0.15, 0.15),
+                                rng.uniform(-0.12, 0.12),
+                                TABLE_HEIGHT - verts[:, 2].min(),
+                                np.cos(yaw / 2), 0.0, 0.0, np.sin(yaw / 2)])
+    return poses
+
+
+def _same(label, got, want, float_keys=(), tol=1e-6):
+    """The arrays of `got` equal those of `want` under the same keys:
+    exactly, or within `tol` for `float_keys`.  Returns the largest float
+    difference."""
+    import numpy as np
+    err = 0.0
+    for key in got:
+        g, w = np.asarray(got[key]), np.asarray(want[key])
+        if g.shape != w.shape:
+            raise AssertionError(f"{label} {key}: shape {g.shape} on the "
+                                 f"GPU, {w.shape} on the CPU")
+        if key in float_keys:
+            e = float(np.abs(g - w).max()) if g.size else 0.0
+            err = max(err, e)
+            if not e <= tol:
+                raise AssertionError(f"{label} {key}: max|GPU - CPU| {e:.3g}"
+                                     f" > {tol}")
+        elif not np.array_equal(g, w):
+            raise AssertionError(f"{label} {key}: {int((g != w).sum())} of "
+                                 f"{g.size} entries differ")
+    return err
+
+
+def _frames_apart(label, points, normals, got_frames, want_frames, torch,
+                  np):
+    """Frames of two devices within 1e-5 up to the 180-degree turn about x
+    on points whose eigenvalue gap (`grading.darboux_gaps`, on the CPU
+    inputs) exceeds FACTORY_GAP_MIN.  Returns (points below the gap,
+    frames that differ)."""
+    from s4g_tpu_torch.datagen import grading
+    gap = grading.darboux_gaps(torch.from_numpy(points),
+                               torch.from_numpy(normals)).numpy()
+    turn = np.array([1.0, -1.0, -1.0], np.float32)
+    d = np.minimum(np.abs(got_frames - want_frames).max(axis=(1, 2)),
+                   np.abs(got_frames * turn - want_frames).max(axis=(1, 2)))
+    keep = gap > FACTORY_GAP_MIN
+    if (d[keep] > 1e-5).any():
+        raise AssertionError(f"{label}: {int((d[keep] > 1e-5).sum())} frames "
+                             "above the gap threshold differ by more than "
+                             "1e-5")
+    return int((~keep).sum()), int((d > 1e-5).sum())
+
+
+def _labels_apart(got, want, np) -> int:
+    """Labels that differ between two view records: grasp points in one
+    and not the other, plus (point, L, T) labels that differ at shared
+    points."""
+    g_idx, w_idx = list(got["valid_index"]), list(want["valid_index"])
+    shared = sorted(set(g_idx) & set(w_idx))
+    apart = len(set(g_idx) ^ set(w_idx))
+    if shared:
+        gi = [g_idx.index(i) for i in shared]
+        wi = [w_idx.index(i) for i in shared]
+        apart += int((got["objects_label"][gi]
+                      != want["objects_label"][wi]).sum())
+    return apart
+
+
+def _workspace_view(noisy, np):
+    """The view cloud the eval and baseline flavours take: a rendered
+    view's noisy cloud as the camera gives it, cropped to the workspace."""
+    from s4g_tpu_torch.datagen.label_transfer import DATAGEN_WORKSPACE
+    lo = np.array(DATAGEN_WORKSPACE[0::2])
+    hi = np.array(DATAGEN_WORKSPACE[1::2])
+    return noisy[((noisy > lo) & (noisy < hi)).all(axis=1)]
+
+
+def _factory_reference_phase(torch, np, devices=("cpu", "cuda")):
+    """The label factory at a reduced size on both devices: an ellipsoid
+    and a box graded by `grade_object`, composed on the table from a seeded
+    pose dict, one 320 x 240 view, then `generate_view_labels` and the
+    online variant at capacity 4,096, the contact flavour (512 pairs on the
+    ellipsoid) and its refinement, `generate_eval_view(with_baseline=True)`
+    and `generate_baseline_view` on the view's cloud (`_workspace_view`).
+
+    Each stage runs twice on the GPU: on the CPU's inputs (outputs of the
+    CPU's stage before), where integers, masks and frames must equal the
+    CPU's and floats agree within 1e-6; and end to end on its own inputs,
+    where normals and frames must agree within 1e-5 up to the gripper's
+    turn on points above the gap threshold, and the labels that differ are
+    counted.  Returns the numbers."""
+    from s4g_tpu_torch import _build
+    from s4g_tpu_torch.datagen import (baseline_generator, contact,
+                                       eval_data, generate, grading,
+                                       label_transfer as lt, refine_contact,
+                                       render, scene_compose)
+    from s4g_tpu_torch.utils.math_utils import batch_transformation_inv
+    cpu, gpu = devices
+    size = FACTORY_REDUCED
+    meshes = _factory_meshes(("ellipsoid", "box"))
+    poses = _resting_poses(meshes, np.random.RandomState(40), np)
+    index = {n: i for i, n in enumerate(meshes)}
+    out = {}
+    antip = ("antipodal_score", "inv_antipodal_score")
+
+    def t(x, dev):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    # grade_object: each device end to end, then each sub-stage on the GPU
+    # fed the CPU's inputs.
+    objects = {d: {n: generate.grade_object(*m, rng=np.random.RandomState(
+        41 + i), device=d) for i, (n, m) in enumerate(meshes.items())}
+        for d in devices}
+    for n in meshes:
+        want, got = objects[cpu][n], objects[gpu][n]
+        np.testing.assert_array_equal(got["cloud"], want["cloud"])
+        cloud = t(want["cloud"], gpu)
+        normals = -grading.estimate_normals(cloud,
+                                            t(want["cloud"].mean(0), gpu))
+        _same(f"estimate_normals {n}", {"normal": normals.cpu().numpy()},
+              want)
+        frames, inv = grading.darboux_frames(cloud, t(want["normal"], gpu))
+        _same(f"darboux_frames {n}", {"frame": frames.cpu().numpy(),
+                                      "inv_frame": inv.cpu().numpy()}, want)
+        homo = torch.cat([cloud.t(), torch.ones_like(cloud[:, :1]).t()])
+        for kind in ("", "inv_"):
+            s, a = grading.grade_frames(cloud, t(want["normal"].T, gpu),
+                                        t(want[kind + "frame"], gpu), homo)
+            out[f"grade_frames {n} {kind}max_abs_err"] = _same(
+                f"grade_frames {n} {kind}",
+                {kind + "search_score": s.cpu().numpy(),
+                 kind + "antipodal_score": a.cpu().numpy()}, want, antip)
+        below, apart = _frames_apart(f"grade_object {n}", want["cloud"],
+                                     want["normal"], got["frame"],
+                                     want["frame"], torch, np)
+        _same(f"grade_object {n} end to end", got, want, antip, tol=1e-6)
+        out[f"{n}: points, below the gap, frames apart"] = (
+            len(want["cloud"]), below, apart)
+
+    scenes = {d: scene_compose.compose_scene(poses, objects[d],
+                                             name_to_index=index)
+              for d in devices}
+    (clean, noisy, cam), = render.render_scene_views(
+        meshes, poses, table_mesh=render.table_mesh(),
+        rng=np.random.RandomState(42), camera_poses=render.CAMERA_POSE[:1],
+        width=size["wh"][0], height=size["wh"][1])
+    cam_loc = cam[:3, 3].astype(np.float32)
+    float_keys = ("antipodal_score", "valid_frame")
+
+    def stage(label, fn, keys=float_keys, inputs_gpu=None):
+        """fn(device, inputs) on the CPU, on the GPU with the CPU's inputs
+        and on the GPU with its own; the same-input pair must agree."""
+        want = fn(cpu, None)
+        same = fn(gpu, None)
+        err = _same(f"{label} (same inputs)", same, want, keys)
+        e2e = fn(gpu, inputs_gpu) if inputs_gpu is not None else same
+        out[f"{label} max_abs_err"] = err
+        return want, same, e2e
+
+    labels = stage("generate_view_labels", lambda d, sc: lt.generate_view_labels(
+        noisy, clean, cam, scenes[cpu] if sc is None else sc,
+        capacity=size["capacity"], device=d), inputs_gpu=scenes[gpu])
+    online = stage("generate_view_labels_online",
+                   lambda d, sc: lt.generate_view_labels_online(
+                       noisy, cam, scenes[cpu] if sc is None else sc,
+                       capacity=size["capacity"], device=d),
+                   inputs_gpu=scenes[gpu])
+    for name, (want, _, e2e) in (("labels", labels), ("online", online)):
+        out[f"{name}: valid points, labels apart end to end"] = (
+            len(want["valid_index"]), _labels_apart(e2e, want, np))
+    if not len(labels[0]["valid_index"]):
+        raise AssertionError("factory reference: the view yields no label")
+
+    ell = {d: objects[d]["ellipsoid"] for d in devices}
+
+    def contact_on(d, data):
+        data = ell[cpu] if data is None else data
+        return contact.generate_contact_object_data(
+            data["cloud"], data["normal"], max_pairs=size["max_pairs"],
+            rng=np.random.RandomState(43), device=d)
+    pairs = stage("contact", contact_on, keys=(), inputs_gpu=ell[gpu])
+    refined = stage("refine_contact_object",
+                    lambda d, data: refine_contact.refine_contact_object(
+                        pairs[0] if data is None else data, device=d),
+                    keys=(), inputs_gpu=pairs[2])
+    out["contact: frames, refined"] = (len(pairs[0]["search_score"]),
+                                       len(refined[0]["search_score"]))
+
+    view = _workspace_view(noisy, np)
+    launched = []
+
+    def eval_on(d, v):
+        _build.reset_launches()
+        rec = eval_data.generate_eval_view(
+            view if v is None else v, cam_loc, scenes[cpu],
+            FACTORY_EVAL_POINTS, rng=np.random.RandomState(44),
+            with_baseline=True, device=d)
+        launched.append(dict(_build.LAUNCHES))
+        return rec
+    keys = ("antipodal_score", "close_region_points",
+            "close_region_projection_maps")
+    ev = stage("generate_eval_view", eval_on, keys=keys)
+    from s4g_tpu_torch.ops.neighbors import KERNEL_MIN_PAIRS
+    k5 = int(len(ev[0]["frames"]) * len(view) >= KERNEL_MIN_PAIRS)
+    if launched[1]["collision_counts"] != k5:
+        raise AssertionError(f"generate_eval_view launched {launched[1]} "
+                             f"on the GPU: K5 {k5} expected")
+    framed = np.abs(ev[0]["frames"][:, :3, :3]).sum(axis=(1, 2)) > 0
+    g2l = batch_transformation_inv(t(ev[0]["frames"][framed], gpu))
+    near = _near_faces(g2l, t(view, gpu), torch)
+    flipped = sum(int((ev[1][k] != ev[0][k]).sum()) for k in (
+        "non_collision_bool", "scene_collision_bool", "single_label_bool"))
+    out["eval: poses x view points, pairs within 4 ulp of a face, "
+        "mask entries GPU != CPU"] = (len(ev[0]["frames"]), len(view), near,
+                                      flipped)
+    base = stage("generate_baseline_view", lambda d, _: (
+        baseline_generator.generate_baseline_view(
+            view, cam_loc, scenes[cpu], grasp_num=FACTORY_BASELINE_GRASPS,
+            rng=np.random.RandomState(45), device=d)), keys=keys)
+    out["baseline grasps"] = len(base[0]["grasp_score_labels"])
+
+    # the view cloud's own normals and frames, each device on its own
+    n_cpu = grading.estimate_normals(t(view, cpu), t(cam_loc, cpu))
+    n_gpu = grading.estimate_normals(t(view, gpu), t(cam_loc, gpu)).cpu()
+    f_cpu = grading.darboux_frames(t(view, cpu), n_cpu)[0].numpy()
+    f_gpu = grading.darboux_frames(t(view, gpu), n_gpu.to(gpu))[0].cpu()
+    below, apart = _frames_apart("view frames", view, n_cpu.numpy(),
+                                 f_gpu.numpy(), f_cpu, torch, np)
+    out["view normals max|GPU - CPU|"] = float((n_gpu - n_cpu).abs().max())
+    out["view: points, below the gap, frames apart"] = (len(view), below,
+                                                        apart)
+    print(f"factory reference: GPU vs CPU on the same inputs equal at every "
+          f"stage; {out}", flush=True)
+    return out
+
+
+def _synced(torch):
+    """A timer for factory stages: host clock around work that ends in a
+    device synchronization, and the peak device memory above what was
+    allocated before it."""
+    @contextlib.contextmanager
+    def timer(record: dict):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        record["ms"] = record.get("ms", 0.0) + 1e3 * (time.perf_counter()
+                                                      - t0)
+        record["peak_gib"] = max(record.get("peak_gib", 0.0), (
+            torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+    return timer
+
+
+@contextlib.contextmanager
+def _label_stage_probes(timer, views: list):
+    """Wrap label_transfer's device stages to time them and record the
+    sizes of each `generate_view_labels` call into views[-1]: voxels kept,
+    candidates after the magic formula."""
+    from s4g_tpu_torch.datagen import label_transfer as lt
+    real = {name: getattr(lt, name) for name in
+            ("processing_and_trace", "match_to_scene",
+             "grade_against_scene")}
+
+    def probe(name):
+        def call(*args, **kw):
+            rec = views[-1].setdefault(name, {})
+            with timer(rec):
+                res = real[name](*args, **kw)
+            if name == "processing_and_trace":
+                rec["voxels"] = int(res.valid.sum())
+            if name == "grade_against_scene":
+                rec["candidates"] = int(args[0].shape[0])
+            return res
+        return call
+    try:
+        for name in real:
+            setattr(lt, name, probe(name))
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(lt, name, fn)
+
+
+def _factory_end_to_end(meshes, out_dir, device):
+    """`generate_end_to_end` whole (MuJoCo drop, render, grade, label,
+    movability, merge) on the eight primitives as mesh assets."""
+    from s4g_tpu_torch.datagen import generate, mesh_tools
+    from s4g_tpu_torch.datagen.scene_sim import ObjectSpec
+    specs = []
+    for name, (verts, tris) in meshes.items():
+        stl = os.path.join(out_dir, f"{name}.stl")
+        mesh_tools.save_stl(stl, verts, tris)
+        specs.append(ObjectSpec(name=name, geom_type="mesh",
+                                mesh_files=[stl]))
+    return generate.generate_end_to_end(
+        meshes, specs, out_dir, scene_id=0, num_views=FACTORY_VIEWS,
+        percentage=1.0, seed=51, label_capacity=FACTORY_CAPACITY,
+        render_wh=FACTORY_WH, device=device)
+
+
+def _factory_kernel_phase(view, cloud, frames, torch, extras):
+    """K2f and K5 at the factory's shapes, held against their plain twins
+    on the card (bit for bit) and timed beside them: the self ball queries
+    of `estimate_normals` (K 30) and `darboux_frames` (K 64) on the eval
+    view (`view`, N, 3) and on a graded object's cloud, and the eval
+    view's collision counts of `frames` (G, 4, 4) local -> world poses.
+    Bounds count the distance tests this data needs (a first-K scan stops
+    at its K-th hit in index order) and K5's work on this data
+    (`_k5_work`)."""
+    from s4g_tpu_torch.ops import neighbors as nb
+    from s4g_tpu_torch.pipeline import collision as col
+    from s4g_tpu_torch.utils.math_utils import batch_transformation_inv
+    out = {}
+    for label, pts in (("view", view), ("object", cloud)):
+        p = torch.from_numpy(pts).cuda().t()[None].contiguous()
+        n = p.shape[2]
+        for k in (30, 64):
+            want = nb._ball_query_full(p, p, 0.01 * 0.01, k)
+            _compare(f"ball_query_full factory {label} N={n} K={k}",
+                     nb.ball_query_full_scan(p, p, 0.01, k), want, True)
+            ms = _graph_ms(lambda k=k: nb.ball_query_full_scan(p, p, 0.01, k))
+            plain = _event_ms(lambda k=k: nb._ball_query_full(
+                p, p, 0.01 * 0.01, k), reps=3, warmup=1)
+            # The first-K scan of a ball stops at its K-th hit in index
+            # order (every key when it has fewer): count those tests.
+            last = torch.where(want[1] >= k, want[0][..., -1].long() + 1,
+                               torch.full_like(want[1], n, dtype=torch.long))
+            tested = float(last.sum())
+            bound, by = _bound_ms(9.0 * tested, 24 * n + 4 * n * (k + 1))
+            out[f"{label}_k{k}"] = {"n": n, "ms": ms, "plain_ms": plain,
+                                    "tested": tested, "all_pairs": n * n,
+                                    "bound_ms": bound, "bound_by": by}
+    extras.setdefault("ball_query_full", {})["factory"] = out
+
+    g2l = batch_transformation_inv(
+        torch.from_numpy(frames).cuda()).contiguous()
+    pts = torch.from_numpy(view).cuda()
+    cv = torch.cat([pts, torch.ones_like(pts[:, :1])], dim=1).contiguous()
+    _compare(f"collision_counts factory {g2l.shape[0]} x {cv.shape[0]}",
+             col.collision_counts(g2l, cv),
+             col._collision_counts_plain(g2l, cv), True)
+    ms = _graph_ms(lambda: col.collision_counts(g2l, cv))
+    plain = _event_ms(lambda: col._collision_counts_plain(g2l, cv), reps=3,
+                      warmup=1)
+    ops, nbytes, pairs, in_z = _k5_work(g2l, cv)
+    bound, by = _bound_ms(ops, nbytes)
+    k5 = {"poses": g2l.shape[0], "points": cv.shape[0], "ms": ms,
+          "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+          "pairs_in_z_slab": float(in_z)}
+    extras.setdefault("collision_counts", {})["factory"] = k5
+    print(f"factory kernels: K2f {json.dumps(out)}; K5 {json.dumps(k5)}",
+          flush=True)
+
+
+def _factory_phase(torch, np, device: str = "cuda", extras=None):
+    """The label factory at full size on the card: the eight primitives
+    graded by `grade_object` at its defaults (2,000 points, 2.5 mm voxels,
+    every frame), composed on the table from a seeded pose dict (no drop
+    simulation unless `mujoco` imports, which runs `generate_end_to_end`
+    whole instead), four 640 x 480 views, `generate_view_labels` at
+    capacity 16,384 on each and the online variant on one, a seeded
+    direction table merged in, the contact flavour on two objects (4,096
+    pairs) with refinement and smoothing, `generate_eval_view` (2,000
+    grasp points, 300 baseline payloads) and `generate_baseline_view` (300
+    grasps).  Per stage: CUDA-synchronized ms, peak memory, sizes; host-only
+    stages apart.  The launch counters are zeroed before and read after:
+    K2f twice per normals + frames pair, K5 once for the eval view, no
+    other kernel.  Then, with `extras`, K2f and K5 at these shapes against
+    their twins (`_factory_kernel_phase`).  Returns the launches and the
+    numbers."""
+    import importlib.util
+    import shutil
+    from s4g_tpu_torch import _build
+    from s4g_tpu_torch.datagen import (baseline_generator, contact,
+                                       eval_data, generate, label_transfer,
+                                       merge, refine_contact, render,
+                                       scene_compose)
+    from s4g_tpu_torch.ops.neighbors import KERNEL_MIN_PAIRS
+
+    timer = _synced(torch)
+    smi = _nvidia_smi()
+    meshes = _factory_meshes()
+    index = {n: i for i, n in enumerate(meshes)}
+    stages, host, views = {}, {}, []
+    out_dir = os.path.join(_build.BUILD_DIR, "factory")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    mujoco = importlib.util.find_spec("mujoco") is not None
+
+    _build.reset_launches()
+    objects = {}
+    if mujoco:
+        with timer(stages.setdefault("generate_end_to_end", {})), \
+                _label_stage_probes(timer, views):
+            views.append({})
+            merged = _factory_end_to_end(meshes, out_dir, device)
+        obj_dir = os.path.join(out_dir, "single_object_data")
+        for name in meshes:
+            with open(os.path.join(obj_dir, f"{name}.p"), "rb") as f:
+                objects[name] = pickle.load(f)
+        poses = np.load(os.path.join(out_dir, "0.npy"),
+                        allow_pickle=True)[()]
+        records = []
+        for path in merged:
+            with open(path, "rb") as f:
+                records.append(pickle.load(f))
+        graded_k2f = 2 * len(meshes)
+    else:
+        for i, (name, mesh) in enumerate(meshes.items()):
+            with timer(stages.setdefault("grade_object", {})):
+                objects[name] = generate.grade_object(
+                    *mesh, rng=np.random.RandomState(60 + i), device=device)
+        poses = _resting_poses(meshes, np.random.RandomState(50), np)
+        graded_k2f = 2 * len(meshes)
+    scene = scene_compose.compose_scene(poses, objects, name_to_index=index)
+    t0 = time.perf_counter()
+    rendered = render.render_scene_views(
+        {n: meshes[n] for n in poses}, poses, table_mesh=render.table_mesh(),
+        rng=np.random.RandomState(52),
+        camera_poses=render.CAMERA_POSE[:FACTORY_VIEWS],
+        width=FACTORY_WH[0], height=FACTORY_WH[1])
+    host[f"render {len(rendered)} views"] = 1e3 * (time.perf_counter() - t0)
+    if not mujoco:
+        direction = {"obj_list": list(meshes),
+                     "move_distance": np.random.RandomState(53).rand(
+                         len(meshes), 5)}
+        table = merge.build_direction_table(direction, index, len(meshes))
+        records = []
+        with _label_stage_probes(timer, views):
+            for v, (clean, noisy, cam) in enumerate(rendered):
+                views.append({"points": len(noisy)})
+                with timer(views[-1].setdefault("generate_view_labels", {})):
+                    rec = label_transfer.generate_view_labels(
+                        noisy, clean, cam, scene, capacity=FACTORY_CAPACITY,
+                        device=device)
+                records.append(merge.merge_scene(rec, table, v))
+    clean, noisy, cam = rendered[0]
+    with timer(stages.setdefault("generate_view_labels_online", {})):
+        online = label_transfer.generate_view_labels_online(
+            noisy, cam, scene, capacity=FACTORY_CAPACITY, device=device)
+
+    contact_out = {}
+    for i, name in enumerate(FACTORY_CONTACT_OBJECTS):
+        data = objects[name]
+        with timer(stages.setdefault("generate_contact_object_data", {})):
+            pairs = contact.generate_contact_object_data(
+                data["cloud"], data["normal"],
+                max_pairs=FACTORY_CONTACT_PAIRS,
+                rng=np.random.RandomState(70 + i), device=device)
+        with timer(stages.setdefault("refine_contact_object", {})):
+            refined = refine_contact.refine_contact_object(pairs,
+                                                           device=device)
+        t0 = time.perf_counter()
+        smooth = refine_contact.smooth_contact_object(refined)
+        host["smooth_contact_object"] = host.get(
+            "smooth_contact_object", 0.0) + 1e3 * (time.perf_counter() - t0)
+        contact_out[name] = (len(pairs["search_score"]),
+                             len(refined["search_score"]),
+                             len(smooth["search_score"]))
+
+    cam_loc = cam[:3, 3].astype(np.float32)
+    view = _workspace_view(noisy, np)
+    with timer(stages.setdefault("generate_eval_view", {})):
+        ev = eval_data.generate_eval_view(
+            view, cam_loc, scene, FACTORY_EVAL_POINTS,
+            rng=np.random.RandomState(80), with_baseline=True, device=device)
+    with timer(stages.setdefault("generate_baseline_view", {})):
+        base = baseline_generator.generate_baseline_view(
+            view, cam_loc, scene, grasp_num=FACTORY_BASELINE_GRASPS,
+            rng=np.random.RandomState(81), device=device)
+    launches = dict(_build.LAUNCHES)
+    if extras is not None:
+        _factory_kernel_phase(view, objects["torus"]["cloud"], ev["frames"],
+                              torch, extras)
+
+    eval_k5 = int(len(ev["frames"]) * len(view) >= KERNEL_MIN_PAIRS)
+    expected = {k: 0 for k in launches}
+    expected.update(ball_query_full=graded_k2f + 2 + 2 + 2,
+                    collision_counts=eval_k5)
+    if launches != expected:
+        raise AssertionError(f"factory launches {launches}, expected "
+                             f"{expected}")
+    if not eval_k5:
+        raise AssertionError(f"eval view {len(ev['frames'])} poses x "
+                             f"{len(view)} points is below K5's threshold")
+
+    valid = [len(r["valid_index"]) for r in records]
+    if not sum(valid):
+        raise AssertionError("factory: no view yields a valid label")
+    for r in records + [online]:
+        if len(r["valid_index"]) and not (
+                (r["search_score"] >= 0).all()
+                and (r["antipodal_score"] >= 0).all()
+                and (r["antipodal_score"] <= 1).all()):
+            raise AssertionError("factory: a score lies out of its range")
+    for name, arr in (("eval", ev["antipodal_score"]),
+                      ("baseline", base["antipodal_score"])):
+        if not ((arr >= 0).all() and (arr <= 1).all()):
+            raise AssertionError(f"factory: a {name} score is out of [0, 1]")
+    scored = {n: int((o["search_score"] > 0).any(axis=(1, 2)).sum())
+              for n, o in objects.items()}
+    numbers = {
+        "device": smi, "mujoco": mujoco,
+        "objects: points": {n: len(o["cloud"]) for n, o in objects.items()},
+        "objects: points with a scored pose": scored,
+        "scene points": len(scene["cloud"]),
+        "views": [{k: (v if not isinstance(v, dict) else
+                       {a: (round(b, 3) if isinstance(b, float) else b)
+                        for a, b in v.items()})
+                   for k, v in view_rec.items()} for view_rec in views],
+        "valid labels per view": valid,
+        "valid labels, online view": len(online["valid_index"]),
+        "contact: frames, refined, smoothed": contact_out,
+        "eval: poses, view points, non-colliding, scored": (
+            len(ev["frames"]), len(view), int(ev["non_collision_bool"].sum()),
+            int((ev["antipodal_score"] > 0).sum())),
+        "eval: baseline payloads": len(ev["baseline_index"]),
+        "baseline grasps": len(base["grasp_score_labels"]),
+        "stages (ms, peak GiB above inputs)": {
+            k: (round(v["ms"], 3), round(v["peak_gib"], 4))
+            for k, v in stages.items()},
+        "host stages (ms)": {k: round(v, 3) for k, v in host.items()},
+        "launches": {k: v for k, v in launches.items() if v}}
+    print(f"factory ({smi}): {json.dumps(numbers)}", flush=True)
+    return launches, numbers
+
+
 def _tool_scene(np) -> str:
     """The seeded tabletop (`tabletop_cloud(RandomState(0))`, 65,000
     points) as a scene pickle ({"point_cloud": (3, n)}) in the build
@@ -3852,6 +4438,7 @@ def main() -> int:
     phase("PN2_LOCAL reference", lambda: _local_reference_phase(torch, np))
     ref_eval = phase("eval reference",
                      lambda: _eval_reference_phase(torch, np))
+    phase("factory reference", lambda: _factory_reference_phase(torch, np))
     launches = phase("detect", lambda: _detect_phase(det, torch, np))
     batch = phase("detect_batch", lambda: _detect_batch_phase(det, torch, np))
     parity = phase("parity", lambda: _parity_phase(pdet, torch, np))
@@ -3864,6 +4451,8 @@ def main() -> int:
     edge = phase("edge", lambda: _edge_phase(torch, np, extras))
     local = phase("PN2_LOCAL", lambda: _local_phase(torch, np))
     baselines = phase("baselines", lambda: _baseline_phase(torch, np))
+    factory = phase("factory", lambda: _factory_phase(torch, np,
+                                                      extras=extras))
     scene = phase("tool scene", lambda: _tool_scene(np))
     proposal = phase("grasp_proposal_test",
                      lambda: _proposal_phase(det, torch, np, scene))
@@ -3894,6 +4483,7 @@ def main() -> int:
              "sort_only_batch": sort_only[0], **fused[0], **contact[0],
              **settings[0], "stream": stream[0], **train[0], **edge[0],
              **local[0], **baselines[0], "eval_frames": ref_eval[0],
+             "factory": factory[0],
              "proposal_test": proposal[0], **mbatch[0],
              "measure_stream": mstream[0], "train_cli": train_cli[0],
              "trace_forward": tfwd[0]}

@@ -7,10 +7,11 @@ package's `eval_frames` computes them, with two differences of method
 that leave the results alone:
 
 * the (G, 4, 4) x (4, N) transform is written out as products and sums in
-  one fixed order, ((px*r0 + py*r1) + pz*r2) + r3, as K5's twin does
-  (`collision.py::_collision_counts_plain`): an einsum's reduction order,
-  and its TF32 use on the card, depend on the backend and its flags, and a
-  point within an ulp of a box face would flip with them;
+  one fixed order, ((px*r0 + py*r1) + pz*r2) + r3 (`transform_rows`), as
+  K5's twin does (`collision.py::_collision_counts_plain`): an einsum's
+  reduction order, and its TF32 use on the card, depend on the backend
+  and its flags, and a point within an ulp of a box face would flip with
+  them;
 * poses go through in chunks of about 2^26 pose-point pairs: at the label
   factory's size (2,000 poses against ~10^5 points) the whole (G, 3, N)
   local cloud would take 2.4 GB.  The band sums accumulate in float64 and
@@ -28,6 +29,10 @@ from .collision import gripper_local_masks
 
 # Pose-point pairs per chunk.
 CHUNK_PAIRS = 1 << 26
+# x / 3 is x * f32(1/3): what XLA makes of the JAX package's division by a
+# constant, and what torch computes on the card for a division by the
+# Python scalar 3.0 (on the CPU it divides), so both devices agree.
+THIRD = torch.tensor(1.0 / 3.0, dtype=torch.float32).item()
 # Label sentinel of an empty close region (the JAX package's 2**30).
 _BIG_LABEL = 2 ** 30
 
@@ -38,47 +43,49 @@ class EvalFrameResult(NamedTuple):
     antipodal_score: torch.Tensor  # (G,) f32 (0 when invalid)
 
 
-def _rows(mats: torch.Tensor, pts: torch.Tensor, rows, translate: bool):
-    """Rows `rows` of mats (g, 4, 4) applied to pts (3, N), each
-    ((px*m0 + py*m1) + pz*m2) [+ m3]: a (g, len(rows), N) tensor."""
+def transform_rows(mats: torch.Tensor, pts: torch.Tensor, rows,
+                   translate: bool = True):
+    """Rows `rows` of mats (..., 4, 4) applied to pts (3, N), each
+    ((px*m0 + py*m1) + pz*m2) [+ m3]: a list of (..., N) tensors."""
     px, py, pz = pts[0], pts[1], pts[2]
     out = []
     for r in rows:
-        m = mats[:, r, :, None]                                # (g, 4, 1)
-        v = px * m[:, 0] + py * m[:, 1] + pz * m[:, 2]
-        out.append(v + m[:, 3] if translate else v)
-    return torch.stack(out, dim=1)
+        m = mats[..., r, :, None]
+        v = px * m[..., 0, :] + py * m[..., 1, :] + pz * m[..., 2, :]
+        out.append(v + m[..., 3, :] if translate else v)
+    return out
 
 
-def _antipodal(local: torch.Tensor, local_ny: torch.Tensor,
-               close_region: torch.Tensor) -> torch.Tensor:
+def antipodal(y: torch.Tensor, ny: torch.Tensor, close_region: torch.Tensor,
+              depth_max: float = P.NEIGHBOR_DEPTH) -> torch.Tensor:
     """Batched antipodal score (reference eval_point_cloud.py:39-62):
-    product of mean |n . +-y| in the left/right contact bands.  An empty
-    close region gives left_y -inf and right_y +inf, NaN band edges, empty
-    bands and 0 / max(0, 1) = 0, as in the JAX package.
+    product of mean |n . +-y| in the left/right contact bands, the band
+    depth min((left - right) / 3, depth_max).  An empty close region gives
+    left_y -inf and right_y +inf, NaN band edges, empty bands and
+    0 / max(0, 1) = 0, as in the JAX package.  The band sums are float64,
+    rounded to f32 once.
 
-    Args: local (g, 3, N) gripper-frame points; local_ny (g, N) the normals'
-    y row; close_region (g, N) bool."""
-    y = local[:, 1]
-    ninf = torch.tensor(-float("inf"), dtype=local.dtype, device=local.device)
+    Args: y (..., N) gripper-frame y of the points; ny (..., N) the
+    normals' y row; close_region (..., N) bool."""
+    ninf = torch.tensor(-float("inf"), dtype=y.dtype, device=y.device)
     left_y = torch.amax(torch.where(close_region, y, ninf), dim=-1)
     right_y = -torch.amax(torch.where(close_region, -y, ninf), dim=-1)
-    depth = torch.clamp((left_y - right_y) / 3.0, max=P.NEIGHBOR_DEPTH)
-    left_band = close_region & (y > (left_y - depth)[:, None])
-    right_band = close_region & (y < (right_y + depth)[:, None])
-    ny = torch.abs(local_ny)
+    depth = torch.clamp((left_y - right_y) * THIRD, max=depth_max)
+    left_band = close_region & (y > (left_y - depth)[..., None])
+    right_band = close_region & (y < (right_y + depth)[..., None])
+    ny = torch.abs(ny)
 
     def mean_masked(mask):
         s = torch.sum(torch.where(mask, ny, 0.0), dim=-1,
-                      dtype=torch.float64).to(local.dtype)
-        return s / torch.clamp(mask.sum(dim=-1), min=1).to(local.dtype)
+                      dtype=torch.float64).to(y.dtype)
+        return s / torch.clamp(mask.sum(dim=-1), min=1).to(y.dtype)
 
     return mean_masked(left_band) * mean_masked(right_band)
 
 
 def _eval_chunk(mats, pts, nrm, labels, valid):
-    local = _rows(mats, pts, (0, 1, 2), True)                  # (g, 3, N)
-    local_ny = _rows(mats, nrm, (1,), False)[:, 0]             # (g, N)
+    local = torch.stack(transform_rows(mats, pts, (0, 1, 2)), dim=1)
+    (local_ny,) = transform_rows(mats, nrm, (1,), translate=False)
     masks = gripper_local_masks(local, valid)
     back_count = masks["back"].sum(dim=-1)
     finger_count = masks["fingers"].sum(dim=-1)
@@ -92,7 +99,7 @@ def _eval_chunk(mats, pts, nrm, labels, valid):
     multi_objects = lab_min != lab_max
 
     enough = close.sum(dim=-1) >= P.CLOSE_REGION_MIN_POINTS
-    score = _antipodal(local, local_ny, close)
+    score = antipodal(local[:, 1], local_ny, close)
     score = torch.where(enough & ~collision & ~multi_objects, score, 0.0)
     return collision, multi_objects, score
 

@@ -37,18 +37,28 @@ def _wrap_int32(v: torch.Tensor) -> torch.Tensor:
 
 
 def _voxel_ids(points: torch.Tensor, voxel_size: float,
-               origin: torch.Tensor) -> torch.Tensor:
+               origin: torch.Tensor, reciprocal: bool = True
+               ) -> torch.Tensor:
     """Integer voxel key per point: the JAX package's int32 hash
     ((c0 * P + c1) * P + c2), wrapping like int32 arithmetic (computed in
     int64, wrapped after each product).  Voxels come out in ascending hash
     order, so the wrap decides the voxel order and every index after it.
 
-    The coordinates are scaled by the f32 reciprocal of the voxel size: in
-    the JAX detect program the voxel size is a compile-time constant and
-    XLA turns the division into that multiply, which bins points on a voxel
-    boundary differently from a true division."""
-    inv = torch.tensor(1.0) / torch.tensor(voxel_size, dtype=torch.float32)
-    coords = torch.floor((points - origin) * inv.item()).to(torch.int64)
+    With `reciprocal` the coordinates are scaled by the f32 reciprocal of
+    the voxel size: in the JAX detect program the voxel size is a
+    compile-time constant and XLA turns the division into that multiply,
+    which bins points on a voxel boundary differently from a true division.
+    Without it they are divided, as where the JAX package passes the voxel
+    size as a traced argument (the label factory's `grade_object`): by a
+    tensor, as torch divides by a Python scalar on the card as a multiply
+    by its reciprocal."""
+    if reciprocal:
+        inv = torch.tensor(1.0) / torch.tensor(voxel_size,
+                                               dtype=torch.float32)
+        scaled = (points - origin) * inv.item()
+    else:
+        scaled = (points - origin) / torch.full_like(points, voxel_size)
+    coords = torch.floor(scaled).to(torch.int64)
     h = _wrap_int32(coords[:, 0] * _HASH_PRIME + coords[:, 1])
     return _wrap_int32(h * _HASH_PRIME + coords[:, 2])
 
@@ -60,17 +70,18 @@ class VoxelizeResult(NamedTuple):
 
 
 def voxel_downsample(points: torch.Tensor, valid: torch.Tensor,
-                     voxel_size: float, capacity: int) -> VoxelizeResult:
+                     voxel_size: float, capacity: int,
+                     reciprocal: bool = True) -> VoxelizeResult:
     """Per-voxel average downsample (Open3D voxel_down_sample semantics),
-    voxels ordered by ascending voxel hash.
+    voxels ordered by ascending voxel hash (`reciprocal`: see `_voxel_ids`).
 
     The per-voxel sums are a segment sum over the hash-sorted points, each
     voxel summed in order from 0 — the order of the JAX scatter-add, and
     deterministic on the GPU (no atomics)."""
     origin = torch.amin(torch.where(valid[:, None], points, float("inf")),
                         dim=0)
-    ids = torch.where(valid, _voxel_ids(points, voxel_size, origin),
-                      _INT32_MAX)
+    ids = torch.where(valid, _voxel_ids(points, voxel_size, origin,
+                                        reciprocal), _INT32_MAX)
     order = torch.argsort(ids, stable=True)
     ids_sorted = ids[order]
     pts_sorted = points[order]

@@ -1107,3 +1107,121 @@ def test_eval_frames_on_the_card_matches_the_cpu(cuda):
         again = eval_frames(*(a.to(cuda) for a in args), chunk=chunk)
         for g, a in zip(got, again):
             assert torch.equal(g, a)
+
+
+def _factory_scene():
+    """A graded ellipsoid on the table (its object data on the CPU) and a
+    noisy copy of its scene cloud."""
+    from s4g_tpu_torch.datagen import generate, mesh_tools, scene_compose
+    data = generate.grade_object(*mesh_tools.make_ellipsoid(),
+                                 rng=np.random.RandomState(0),
+                                 frame_stride=3, device="cpu")
+    pose = np.array([0.0, 0.0, 0.772, 1.0, 0, 0, 0])
+    scene = scene_compose.compose_scene({"egg": pose}, {"egg": data},
+                                        name_to_index={"egg": 0})
+    rng = np.random.RandomState(1)
+    clean = scene["cloud"].astype(np.float32)
+    noise = clean * (1 + rng.randn(*clean.shape).astype(np.float32) * 1e-3)
+    return data, scene, clean, noise
+
+
+def test_grade_object_on_the_card_is_the_cpu_bits(cuda):
+    """Normals, frames (one device-independent eigensolver, slot sums in
+    slot order) and every score the same bits on the card as on the CPU;
+    two K2f launches (estimate_normals + darboux_frames)."""
+    from s4g_tpu_torch.datagen import generate, mesh_tools
+    mesh = mesh_tools.make_ellipsoid()
+    want = generate.grade_object(*mesh, rng=np.random.RandomState(0),
+                                 frame_stride=3, device="cpu")
+    _build.reset_launches()
+    got = generate.grade_object(*mesh, rng=np.random.RandomState(0),
+                                frame_stride=3, device="cuda")
+    assert _build.LAUNCHES["ball_query_full"] == 2
+    for key in want:
+        if "antipodal" in key:
+            assert np.abs(got[key] - want[key]).max() <= 1e-6, key
+        else:
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
+def test_label_transfer_on_the_card_matches_the_cpu(cuda):
+    """processing_and_trace, match_to_scene and the whole view transfer on
+    the same inputs: indices, masks and labels exact, scores within 1e-6."""
+    from s4g_tpu_torch.datagen import label_transfer as lt
+    _, scene, clean, noise = _factory_scene()
+    for cap in (4096, 128):
+        want = lt.processing_and_trace(torch.from_numpy(noise), cap)
+        got = lt.processing_and_trace(torch.from_numpy(noise).to(cuda), cap)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+    cam = np.eye(4)
+    cam[:3, 3] = [0.2, 0.1, 1.8]
+    want = lt.generate_view_labels(noise, clean, cam, scene, capacity=4096,
+                                   device="cpu")
+    got = lt.generate_view_labels(noise, clean, cam, scene, capacity=4096,
+                                  device="cuda")
+    assert len(want["valid_index"]) > 0
+    for key in want:
+        if key in ("antipodal_score", "valid_frame"):
+            assert np.abs(got[key] - want[key]).max() <= 1e-6, key
+        else:
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
+def test_contact_and_baseline_on_the_card_match_the_cpu(cuda):
+    """The contact flavour, its refinement and the baseline payload on the
+    same inputs: frames and counts exact, maps within 1e-6."""
+    from s4g_tpu_torch.datagen import baseline_data, contact, refine_contact
+    data, _, _, _ = _factory_scene()
+    cloud, normals = data["cloud"], data["normal"]
+    want = contact.generate_contact_object_data(
+        cloud, normals, max_pairs=256, rng=np.random.RandomState(0),
+        device="cpu")
+    got = contact.generate_contact_object_data(
+        cloud, normals, max_pairs=256, rng=np.random.RandomState(0),
+        device="cuda")
+    assert len(want["search_score"]) > 0
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    ref_w = refine_contact.refine_contact_object(want, device="cpu")
+    ref_g = refine_contact.refine_contact_object(want, device="cuda")
+    for key in ref_w:
+        np.testing.assert_array_equal(ref_g[key], ref_w[key], err_msg=key)
+    pose = want["global_to_local"][0]
+    pw = baseline_data.baseline_grasp_data(pose, cloud, normals, 256, "cpu")
+    pg = baseline_data.baseline_grasp_data(pose, cloud, normals, 256, "cuda")
+    assert pg["num_close_points"] == pw["num_close_points"] > 0
+    for key in ("close_region_points", "close_region_projection_maps"):
+        assert np.abs(pg[key] - pw[key]).max() <= 1e-6, key
+
+
+def test_eval_view_on_the_card_launches_k5(cuda):
+    """generate_eval_view at G * N >= KERNEL_MIN_PAIRS: one K5 launch and
+    two K2f; the same record as on the CPU (masks exact, scores 1e-5)."""
+    from s4g_tpu_torch.datagen import eval_data
+    from s4g_tpu_torch.datagen.label_transfer import SAMPLE_REGION
+    _, scene, _, noise = _factory_scene()
+    table = np.random.RandomState(2).uniform(-0.1, 0.1, (4000, 3))
+    table[:, 2] = 0.75
+    view = np.concatenate([noise, table]).astype(np.float32)
+    g = 2000
+    picks = min(g, int((view[:, 2] > SAMPLE_REGION).sum()))
+    assert picks * len(view) >= nb.KERNEL_MIN_PAIRS
+    cam = np.array([0.2, 0.1, 1.8], np.float32)
+    want = eval_data.generate_eval_view(view, cam, scene, g,
+                                        rng=np.random.RandomState(0),
+                                        with_baseline=True, device="cpu")
+    _build.reset_launches()
+    got = eval_data.generate_eval_view(view, cam, scene, g,
+                                       rng=np.random.RandomState(0),
+                                       with_baseline=True, device="cuda")
+    assert _build.LAUNCHES["collision_counts"] == 1
+    assert _build.LAUNCHES["ball_query_full"] == 2
+    for key in ("frames", "non_collision_bool", "single_label_bool",
+                "scene_collision_bool", "baseline_index"):
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    np.testing.assert_allclose(got["antipodal_score"],
+                               want["antipodal_score"], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got["close_region_projection_maps"],
+                               want["close_region_projection_maps"], rtol=0,
+                               atol=1e-6)

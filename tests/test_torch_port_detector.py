@@ -344,6 +344,25 @@ def test_port_imports_neither_jax_nor_s4g_tpu():
     assert int(out.stdout.strip()) >= 20
 
 
+def test_datagen_imports_neither_jax_nor_s4g_tpu():
+    """`import s4g_tpu_torch.datagen` on its own, and every module of it,
+    loads no jax module and nothing of the JAX package."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import s4g_tpu_torch.datagen as d\n"
+        "for m in pkgutil.walk_packages(d.__path__, d.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 's4g_tpu' or m.startswith('s4g_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print(len([m for m in sys.modules"
+        " if m.startswith('s4g_tpu_torch.datagen.')]))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=REPO)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) == 15
+
+
 @pytest.mark.parametrize("alone", [False, True])
 def test_chip_smoke_fails_without_a_gpu(tmp_path, alone):
     """Without a CUDA device chip_smoke.py exits non-zero and prints no

@@ -205,8 +205,9 @@ def test_antipodal_empty_region_is_zero():
     want = np.asarray(jeval._antipodal(
         jnp.asarray(local), jnp.asarray(np.stack([ny] * 3, axis=1)),
         jnp.asarray(close)))
-    got = teval._antipodal(torch.from_numpy(local), torch.from_numpy(ny),
-                           torch.from_numpy(close)).numpy()
+    got = teval.antipodal(torch.from_numpy(local[:, 1]),
+                          torch.from_numpy(ny),
+                          torch.from_numpy(close)).numpy()
     assert got[0] == want[0] == 0
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
