@@ -137,7 +137,26 @@ run, but the run then exits non-zero without printing a result:
    b = 1, 2 and 4, measure_stream at depths 1 and 2, the train CLI for
    one epoch with a validation step (its checkpoint read back),
    profile_stages and trace_forward
-   --detect (its Chrome trace must name every launched kernel).
+   --detect (its Chrome trace must name every launched kernel); then the
+   label factory's tools, each in its own directory, every launch held to
+   its cause (`_tool_launches`: each forward its route's kernels,
+   `_net_launches`; each graded object K2f 2; each collision check K5
+   where it reaches the kernel's threshold; nothing else) and every kernel
+   it launches but K3 held against its plain twin, bit for bit, at each
+   shape the run gives it (`_held_kernels`: the first call at each
+   signature, copied and compared after the run): train_at_scale
+   at full width (`SCALE_ARGV`: the factory on 2 + 2 scenes of the
+   procedural catalog, 6 steps at b = 4 on 25,600 points, validation, the
+   QA on the fitted weights, the steady-state loop; step ms, peak
+   memory), detect_qa on its checkpoint (the same QA dict),
+   demo_full_system, datagen_mesh_qa --procedural, parity_at_speed's six
+   modes (quality on the at-scale run), measure_fps_sharded at G = 128 and
+   1 (each in a process of its own), trace_forward --json at b = 1 and 2
+   with trace_diff over the tables, r3_summarize over the tools' logs, and
+   host_ops (native equal to numpy on 4,096 points, host ms on the whole
+   tabletop) with guard's probes.  Where `mujoco` does not import (the
+   card's machine), TableEnv and DirectionGenerator are replaced by seeded
+   stand-ins for these phases (`_mujoco_standins`), and the run says so.
    Each run's launch counters are zeroed before it and read after it (a
    train or val step's around each step; a tool's around its `main`:
    its forwards are known from its arguments, `_forward_launches`, except
@@ -4338,6 +4357,718 @@ def _trace_phase(torch, np, scene, device: str = "cuda"):
     return launches, {"device_ms_per_exec": got["device_ms_per_exec"]}
 
 
+# -- the label factory's tools, the measurement tools, host_ops and guard ---------
+
+# train_at_scale at full width (25,600 points, centroids 5120/1024/256, the
+# deployed widths, b = 4), depth cut to 6 steps.  Two held-out scenes: one
+# scene's two views are fewer than a batch of 4, and the dataset drops the
+# remainder (as the JAX package's does), so the validation pass would see
+# no batch.
+SCALE_ARGV = ["--object-set", "procedural", "--scenes", "2", "--val-scenes",
+              "2", "--views", "2", "--steps", "6", "--batch", "4",
+              "--num-points", "25600"]
+DEMO_ARGV = ["--scenes", "2", "--epochs", "1"]
+MESH_QA_ARGV = ["--procedural", "--views", "2"]
+FPS_SHARDED_RUNS = (("25600", "5120", "128"), ("25600", "5120", "1"))
+
+
+def _spec_mesh(spec):
+    """(vertices, triangles) of a scene_sim ObjectSpec: its mesh file, or
+    the box of its half sizes."""
+    from s4g_tpu_torch.datagen import mesh_tools
+    from s4g_tpu_torch.tools.train_at_scale import box_mesh
+    if spec.geom_type == "mesh":
+        return mesh_tools.load_mesh(spec.mesh_files[0])
+    if spec.geom_type != "box":
+        raise ValueError(f"no stand-in mesh for a {spec.geom_type} geom")
+    return box_mesh(*map(float, spec.size.split()))
+
+
+class _RestingTableEnv:
+    """Stand-in for `datagen.scene_sim.TableEnv` where `mujoco` does not
+    import: every object rests on the table at a pose drawn from the seed
+    (`_resting_poses`), no drop simulation."""
+
+    def __init__(self, objects, percentage=0.5, random_seed=None,
+                 meshdir=None):
+        import numpy as np
+        self.all_objects = list(objects)
+        self.rng = np.random.RandomState(random_seed)
+        self.xml = ""
+
+    def run(self, *args, **kwargs):
+        import numpy as np
+        return _resting_poses({s.name: _spec_mesh(s)
+                               for s in self.all_objects}, self.rng, np)
+
+
+class _SeededDirections:
+    """Stand-in for `datagen.movability.DirectionGenerator` where `mujoco`
+    does not import: a seeded move-distance table, as `_factory_phase`
+    makes one by hand."""
+
+    def __init__(self, xml, pose_dict, timestep=0.002):
+        import numpy as np
+        self.obj = sorted(pose_dict)
+        self.rng = np.random.RandomState(53)
+
+    def run(self, save_path=None):
+        import numpy as np
+        return {"move_distance": self.rng.rand(len(self.obj), 5),
+                "obj_list": self.obj,
+                "mesh_center": np.zeros((len(self.obj), 3))}
+
+
+@contextlib.contextmanager
+def _mujoco_standins(force=None):
+    """Where `mujoco` does not import (`force` overrides the test), put
+    `_RestingTableEnv` and `_SeededDirections` in the place of TableEnv and
+    DirectionGenerator in the factory's modules for the block, and print
+    so.  No tool has a switch for this: the substitution lives in this
+    script only."""
+    import importlib.util
+    from s4g_tpu_torch.datagen import generate, movability, scene_sim
+    need = (importlib.util.find_spec("mujoco") is None if force is None
+            else force)
+    if not need:
+        yield
+        return
+    patches = [(scene_sim, "TableEnv", _RestingTableEnv),
+               (generate, "TableEnv", _RestingTableEnv),
+               (movability, "DirectionGenerator", _SeededDirections),
+               (generate, "DirectionGenerator", _SeededDirections)]
+    old = [(m, n, getattr(m, n)) for m, n, _ in patches]
+    for m, n, v in patches:
+        setattr(m, n, v)
+    print(json.dumps({"mujoco": False, "stand-ins": [
+        "TableEnv: _RestingTableEnv (seeded resting poses)",
+        "DirectionGenerator: _SeededDirections (seeded distances)"]}),
+        flush=True)
+    try:
+        yield
+    finally:
+        for m, n, v in old:
+            setattr(m, n, v)
+
+
+def _net_launches(net, n: int, b: int, overflow: bool) -> dict:
+    """Launches of one forward of `net` (PN2_CLS) on B x 3 x N points, from
+    its route: FPS once for all SA stages through K1 where the stages nest
+    (SORT_POINTS, FPS_SHARDS 128), else K6 once a stage; SA1 through K3
+    where it fuses (sorted, eval, `SA1_FUSE`'s batch rule), else K2 where
+    the sorted input is above the slab capacity, else (and on a window
+    overflow) K2f; K2f for every other stage; K4 for each FP stage at or
+    above its pair threshold.  No K5 (post-processing's) and no K7."""
+    from s4g_tpu_torch import _build
+    from s4g_tpu_torch.ops.neighbors import KERNEL_MIN_PAIRS
+    from s4g_tpu_torch.ops.sampling import fps_nesting_applies
+    cents = [m.num_centroids for m in net.sa_modules]
+    sizes = (n, *cents)
+    out = {k: 0 for k in _build.LAUNCHES}
+    out["three_nn"] = sum(a * c >= KERNEL_MIN_PAIRS
+                          for a, c in zip(sizes, sizes[1:]))
+    if net.sort_points and net.fps_shards > 1:
+        if not fps_nesting_applies(n, cents, net.fps_shards):
+            raise ValueError(f"no launch rule for FPS_SHARDS "
+                             f"{net.fps_shards} on {sizes}")
+        out["fps_lane"] = 1
+    else:
+        out["fps_exact"] = len(cents)
+    out["ball_query_full"] = len(cents) - 1
+    if not (net.sort_points and n > SLAB_CAPACITY) or overflow:
+        out["ball_query_full"] += 1
+    elif net.sa_modules[0]._fuses(b, 0):
+        out["sa1_fused"] = 1
+    else:
+        out["ball_query_slab"] = 1
+    return out
+
+
+# The tools' kernel calls held against the plain twins, by kernel: one
+# entry a held (tool, argument signature), filled by `_held_kernels`; the
+# kernels line counts them.
+TOOL_SHAPES_HELD = {}
+
+
+def _kernel_twins():
+    """(launch name, module, wrapper name, plain twin taking the wrapper's
+    arguments) for every kernel a tool's run can launch but K3 and K7: no
+    tool run here reaches K7, and K3 only trace_forward at b = 2 on the
+    tabletop, the shape the kernels phase holds (`_k3_phase`)."""
+    from s4g_tpu_torch.models import pointnet2
+    from s4g_tpu_torch.ops import neighbors as nb
+    from s4g_tpu_torch.ops import sampling as sp
+    from s4g_tpu_torch.pipeline import collision as col
+
+    def bq_full(points, centroids, radius, num_neighbours, stratified=False,
+                sorted_axis=None):
+        return nb._ball_query_full(points, centroids, radius * radius,
+                                   num_neighbours, stratified=stratified)
+
+    def bq_slab(points, centroids, lo_tile, radius, num_neighbours,
+                stratified=False):
+        return nb._ball_query_slab_plain(points, centroids, lo_tile,
+                                         radius * radius, num_neighbours,
+                                         stratified)
+
+    return [("fps_exact", sp, "fps_exact", sp._fps_plain),
+            ("fps_exact", sp, "fps_sharded", sp._fps_sharded_plain),
+            ("fps_lane", sp, "fps_lane_sharded", sp._fps_sharded_plain),
+            ("fps_lane", pointnet2, "fps_lane_nested", sp._fps_nested_plain),
+            ("ball_query_full", nb, "ball_query_full_scan", bq_full),
+            ("ball_query_slab", nb, "ball_query_fused_slab", bq_slab),
+            ("three_nn", nb, "three_nn_fused", nb._three_nn_plain),
+            ("collision_counts", col, "collision_counts",
+             col._collision_counts_plain)]
+
+
+def _signature(x):
+    """Shapes, dtypes and scalars of a call's arguments (tensors by shape
+    and dtype), hashable."""
+    import torch
+    if torch.is_tensor(x):
+        return (tuple(x.shape), str(x.dtype))
+    if isinstance(x, (list, tuple)):
+        return tuple(_signature(y) for y in x)
+    if isinstance(x, dict):
+        return tuple(sorted((k, _signature(v)) for k, v in x.items()))
+    return x
+
+
+def _described(args) -> str:
+    """A call's positional arguments for a reader: tensors by shape
+    (4x3x25600), the rest as they are."""
+    import torch
+    return ", ".join("x".join(map(str, a.shape)) if torch.is_tensor(a)
+                     else repr(a) for a in args)
+
+
+def _copied(x):
+    """`x` with every tensor in it detached and cloned."""
+    import torch
+    if torch.is_tensor(x):
+        return x.detach().clone()
+    if isinstance(x, (list, tuple)):
+        return type(x)(_copied(y) for y in x)
+    if isinstance(x, dict):
+        return {k: _copied(v) for k, v in x.items()}
+    return x
+
+
+@contextlib.contextmanager
+def _held_kernels(label):
+    """Hold the kernels a tool's run launches against their plain twins at
+    the shapes the run gives them: the first call of each kernel wrapper
+    (`_kernel_twins`) at each argument signature keeps copies of its
+    arguments and outputs; after the block the twin runs on the copies and
+    must give the same bits, and every kernel the block launched (but K3)
+    must have had a call held.  Copies, compared after the block, so the
+    tool's own times and memory are not the check's.  Yields the record
+    {kernel: [held signatures]}."""
+    import torch
+    from s4g_tpu_torch import _build
+    twins = _kernel_twins()
+    kept, held = {}, {}
+    before = dict(_build.LAUNCHES)
+
+    def wrap(kernel, name, real, twin):
+        def call(*args, **kwargs):
+            out = real(*args, **kwargs)
+            sig = (kernel, name, _signature(args), _signature(kwargs))
+            if sig not in kept:
+                kept[sig] = (twin, _copied(args), _copied(kwargs),
+                             _copied(out))
+            return out
+        return call
+
+    reals = [(module, name, getattr(module, name))
+             for _, module, name, _ in twins]
+    for (kernel, module, name, twin), (_, _, real) in zip(twins, reals):
+        setattr(module, name, wrap(kernel, name, real, twin))
+    try:
+        yield held
+    finally:
+        for module, name, real in reals:
+            setattr(module, name, real)
+    for (kernel, name, sig, _), (twin, args, kwargs, out) in kept.items():
+        with torch.no_grad():
+            want = twin(*args, **kwargs)
+        got = list(out) if isinstance(out, (list, tuple)) else [out]
+        want = list(want) if isinstance(want, (list, tuple)) else [want]
+        call = f"{name}({_described(args)})"
+        _compare(f"{label}: {call}", got, want, True)
+        held.setdefault(kernel, []).append(call)
+        TOOL_SHAPES_HELD.setdefault(kernel, []).append(f"{label}: {call}")
+    kept.clear()
+    launched = {k for k in before if _build.LAUNCHES[k] > before[k]}
+    unheld = launched - set(held) - {"sa1_fused", "mlp_chain"}
+    if unheld:
+        raise AssertionError(f"{label}: {sorted(unheld)} launched with no "
+                             "call held against the plain twin")
+    print(f"{label}: kernels equal to their plain twins, bit for bit, at "
+          f"the run's shapes: {json.dumps(held)}", flush=True)
+
+
+@contextlib.contextmanager
+def _tool_launches(label):
+    """Zero the launch counters and hold every launch of a tool's run in
+    the block to its cause: each PN2_CLS forward launches exactly its
+    route's kernels (`_net_launches`, with the SA1 overflow it reported),
+    each `grade_object` K2f twice (normals and frames), each collision
+    check K5 once where its pose-point pairs reach the kernel's threshold
+    (else nothing), and nothing launches outside them: the totals must
+    equal the sum.  Yields the record (counts of forwards, their batch
+    sizes, grades, collision checks, K5s); after the block
+    record["launches"] holds the totals, and record["held"] the calls held
+    against the plain twins (`_held_kernels`): the tool's own kernel
+    shapes, compared after its run, so a phase reads the tool's times and
+    peak memory inside the block."""
+    from s4g_tpu_torch import _build
+    from s4g_tpu_torch.datagen import generate
+    from s4g_tpu_torch.models.pointnet2 import PointNet2CLS
+    from s4g_tpu_torch.ops.neighbors import KERNEL_MIN_PAIRS
+    from s4g_tpu_torch.pipeline import collision
+
+    zero = {k: 0 for k in _build.LAUNCHES}
+    rec = {"forwards": 0, "batches": [], "grades": 0, "collisions": 0,
+           "k5": 0, "expected": dict(zero)}
+    real = (PointNet2CLS.forward, generate.grade_object,
+            collision.batch_view_non_collision)
+
+    def held(what, before, want):
+        got = {k: _build.LAUNCHES[k] - before[k] for k in before}
+        if got != want:
+            raise AssertionError(f"{label}: {what}: launches {got}, "
+                                 f"expected {want}")
+        rec["expected"] = _add(rec["expected"], want)
+
+    def forward(self, data_batch, *args, **kwargs):
+        b, _, n = data_batch["scene_points"].shape
+        before, over = dict(_build.LAUNCHES), _overflows()
+        out = real[0](self, data_batch, *args, **kwargs)
+        held("a forward", before,
+             _net_launches(self, n, b, _overflows() > over))
+        rec["forwards"] += 1
+        rec["batches"].append(b)
+        return out
+
+    def grade_object(*args, **kwargs):
+        before = dict(_build.LAUNCHES)
+        out = real[1](*args, **kwargs)
+        held("grade_object", before, {**zero, "ball_query_full": 2})
+        rec["grades"] += 1
+        return out
+
+    def batch_view_non_collision(g2l, cloud, *args, **kwargs):
+        before = dict(_build.LAUNCHES)
+        out = real[2](g2l, cloud, *args, **kwargs)
+        k5 = int(g2l.shape[0] * cloud.shape[0] >= KERNEL_MIN_PAIRS)
+        held("a collision check", before, {**zero, "collision_counts": k5})
+        rec["collisions"] += 1
+        rec["k5"] += k5
+        return out
+
+    _build.reset_launches()
+    PointNet2CLS.forward = forward
+    generate.grade_object = grade_object
+    collision.batch_view_non_collision = batch_view_non_collision
+    try:
+        with _held_kernels(label) as twins_held:
+            yield rec
+    finally:
+        (PointNet2CLS.forward, generate.grade_object,
+         collision.batch_view_non_collision) = real
+    rec["held"] = twins_held
+    rec["launches"] = dict(_build.LAUNCHES)
+    if rec["launches"] != rec["expected"]:
+        raise AssertionError(f"{label}: launches {rec['launches']}, "
+                             f"expected {rec['expected']}")
+    print(f"{label}: {rec['forwards']} forwards (batches "
+          f"{sorted(set(rec['batches']))}), {rec['grades']} objects graded, "
+          f"{rec['collisions']} collision checks ({rec['k5']} on K5); "
+          f"launches {rec['launches']}", flush=True)
+
+
+class _Tee:
+    """A text stream writing to several streams."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for stream in self.streams:
+            stream.write(text)
+        return len(text)
+
+    def flush(self):
+        for stream in self.streams:
+            stream.flush()
+
+
+def _tool_log_dir() -> str:
+    from s4g_tpu_torch import _build
+    return os.path.join(_build.BUILD_DIR, "tool_logs")
+
+
+@contextlib.contextmanager
+def _logged(name: str):
+    """Standard output of the block shown and also written to `name`.log
+    in the tool log directory (what `r3_summarize` reads).  Yields the
+    log's path."""
+    path = os.path.join(_tool_log_dir(), f"{name}.log")
+    with open(path, "w") as f, contextlib.redirect_stdout(
+            _Tee(sys.stdout, f)):
+        yield path
+
+
+def _state_sha(state: dict) -> str:
+    """sha256 over a state dict's names and tensor bytes."""
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(state):
+        h.update(k.encode())
+        h.update(state[k].detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _scale_phase(torch, np, device: str = "cuda"):
+    """`tools/train_at_scale` at full width (`SCALE_ARGV`): the label
+    factory makes 2 training and 2 held-out scenes of two 640 x 480 views
+    from the procedural catalog (33 objects graded into each root), then
+    `Trainer.fit` for 6 steps at b = 4, the validation pass, the detection
+    QA on the fitted weights and the steady-state loop.  Every launch held
+    to its cause (`_tool_launches`): per forward K6 3, K2f 3, K4 2; per
+    graded object K2f 2; the QA's collision check K5 1; each held against
+    its plain twin at the run's shapes (b = 4 in training and validation,
+    b = 1 in the QA, each object's self queries).  Each train step
+    timed with CUDA events; the QA's weights must hash to the checkpoint
+    fit saved.  Returns (launches, numbers, output directory, QA dict)."""
+    from s4g_tpu_torch.tools import train_at_scale
+    from s4g_tpu_torch.train.trainer import Trainer
+    from s4g_tpu_torch.utils.checkpoint import Checkpointer, model_state_dict
+
+    out = _output_dir("tool_train_at_scale")
+    steps, vals, qa_hash = [], [], []
+    real_step, real_val = Trainer.train_step, Trainer.val_step
+    real_qa = train_at_scale.run_detect_qa
+
+    def train_step(self, batch):
+        start = _cuda_event(torch) if device == "cuda" else None
+        end = _cuda_event(torch) if device == "cuda" else None
+        if start is not None:
+            start.record()
+        result = real_step(self, batch)
+        if end is not None:
+            end.record()
+        steps.append((start, end))
+        return result
+
+    def val_step(self, batch):
+        vals.append(1)
+        return real_val(self, batch)
+
+    def run_detect_qa(weights, *args, **kwargs):
+        qa_hash.append(_state_sha(weights))
+        return real_qa(weights, *args, **kwargs)
+
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    Trainer.train_step, Trainer.val_step = train_step, val_step
+    train_at_scale.run_detect_qa = run_detect_qa
+    try:
+        with _mujoco_standins(), _tool_launches("train_at_scale") as rec:
+            summary = train_at_scale.main(["--out", out, *SCALE_ARGV,
+                                           "--device", device])
+            wall = time.perf_counter() - t0
+            peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+                    if device == "cuda" else None)
+    finally:
+        Trainer.train_step, Trainer.val_step = real_step, real_val
+        train_at_scale.run_detect_qa = real_qa
+    saved = model_state_dict(Checkpointer(os.path.join(
+        out, "train_out")).load(None))
+    if qa_hash != [_state_sha(saved)]:
+        raise AssertionError("train_at_scale: the QA's weights are not the "
+                             "checkpoint fit saved")
+    want_forwards = (summary["steps"] + len(vals) + 1 + 1
+                     + train_at_scale.STEADY_REPS)
+    if (rec["forwards"] != want_forwards or not vals or rec["k5"] != 1
+            or rec["grades"] != 2 * 33 or summary["batch"] != 4):
+        raise AssertionError(f"train_at_scale: {rec['forwards']} forwards "
+                             f"(expected {want_forwards}), {len(vals)} "
+                             f"validation steps, {rec['grades']} grades, "
+                             f"{rec['k5']} K5")
+    ms = ([s.elapsed_time(e) for s, e in steps] if device == "cuda"
+          else [])
+    numbers = {"device": _nvidia_smi() if device == "cuda" else "cpu",
+               "wall_s": wall, "train_step_ms": ms,
+               "median_step_ms_after_first": statistics.median(ms[1:])
+               if len(ms) > 1 else None,
+               "peak_gib": peak, "summary": summary}
+    print(f"train_at_scale ({numbers['device']}): {json.dumps(numbers)}",
+          flush=True)
+    return rec["launches"], numbers, out, summary
+
+
+def _detect_qa_phase(torch, np, scale_out, scale_summary,
+                     device: str = "cuda"):
+    """`tools/detect_qa` on `_scale_phase`'s checkpoint: one forward and
+    one K5 check; the QA dict must equal the at-scale run's, whose QA ran on
+    the same weights and draws.  Returns (launches, QA dict)."""
+    from s4g_tpu_torch.tools import detect_qa
+    scale_qa = scale_summary["detect_qa"]
+    with _mujoco_standins(), _tool_launches("detect_qa") as rec:
+        qa = detect_qa.main(["--out", scale_out, "--num-points",
+                             str(scale_summary["num_points"]), "--device",
+                             device])
+    step = qa.pop("checkpoint_step")
+    if qa != scale_qa or rec["forwards"] != 1 or rec["k5"] != 1:
+        raise AssertionError(f"detect_qa (step {step}): {qa} against the "
+                             f"at-scale run's {scale_qa}; {rec['forwards']} "
+                             f"forwards")
+    print(f"detect_qa: checkpoint step {step}, QA equal to the at-scale "
+          f"run's: {json.dumps(qa)}", flush=True)
+    return rec["launches"], qa
+
+
+def _demo_phase(torch, np, device: str = "cuda"):
+    """`tools/demo_full_system` (`DEMO_ARGV`): the factory on three boxes
+    (graded once: K2f 6), one epoch at b = 2 on 10,240 points (centroids
+    2048/512/128: K6 3, K2f 3, K4 1 a forward), the detect with K5; it must
+    print DEMO COMPLETE.  Returns (launches, its result)."""
+    from s4g_tpu_torch.tools import demo_full_system
+    out = _output_dir("tool_demo")
+    t0 = time.perf_counter()
+    with _logged("demo_full_system") as log, _mujoco_standins(), \
+            _tool_launches("demo_full_system") as rec:
+        got = demo_full_system.main(["--out", out, *DEMO_ARGV, "--device",
+                                     device])
+        took = time.perf_counter() - t0
+    with open(log) as f:
+        done = "DEMO COMPLETE" in f.read()
+    if not done or rec["grades"] != 3 or rec["forwards"] != got["steps"] + 1:
+        raise AssertionError(f"demo_full_system: {got}, {rec['grades']} "
+                             f"grades, {rec['forwards']} forwards")
+    print(f"demo_full_system: {json.dumps(got)} in {took:.2f} s", flush=True)
+    return rec["launches"], got
+
+
+def _mesh_qa_phase(torch, np, device: str = "cuda"):
+    """`tools/datagen_mesh_qa --procedural` (`MESH_QA_ARGV`): three
+    generated meshes graded once each (K2f 6), the factory on four
+    instances, two 640 x 480 views; it must print MESH DATAGEN QA COMPLETE.
+    Returns (launches, per-view stats)."""
+    from s4g_tpu_torch.tools import datagen_mesh_qa
+    out = _output_dir("tool_mesh_qa")
+    t0 = time.perf_counter()
+    with _logged("datagen_mesh_qa") as log, _mujoco_standins(), \
+            _tool_launches("datagen_mesh_qa") as rec:
+        stats = datagen_mesh_qa.main(["--out", out, *MESH_QA_ARGV,
+                                      "--device", device])
+        took = time.perf_counter() - t0
+    with open(log) as f:
+        done = "MESH DATAGEN QA COMPLETE" in f.read()
+    if not done or rec["grades"] != 3 or rec["forwards"]:
+        raise AssertionError(f"datagen_mesh_qa: {rec['grades']} grades")
+    short = [{k: v for k, v in st.items() if k != "keys"} for st in stats]
+    print(f"datagen_mesh_qa: {json.dumps(short)} in {took:.2f} s",
+          flush=True)
+    return rec["launches"], short
+
+
+def _parity_tool_phase(torch, np, scene, scale_out, device: str = "cuda"):
+    """`tools/parity_at_speed`, all six modes: compare, selfnoise,
+    sortnoise, ablate and time-parity on the tabletop pickle with the fixed
+    random init, quality on qa:<the at-scale run> with its checkpoint (the
+    QA scene's objects graded there).  Each mode's forwards are known: 2,
+    2, 2, 4, 2 + REPS (each with K5), 2.  Returns (launches, the JSON
+    records by mode)."""
+    from s4g_tpu_torch.tools import parity_at_speed as pas
+    runs = [("compare", ["--scene", scene], 2),
+            ("selfnoise", ["--scene", scene], 2),
+            ("sortnoise", ["--scene", scene], 2),
+            ("ablate", ["--scene", scene], 1 + len(pas.ABLATIONS)),
+            ("time-parity", ["--scene", scene], 2 + pas.REPS),
+            ("quality", [os.path.join(scale_out, "train_out"), "--scene",
+                         f"qa:{scale_out}"], 2)]
+    total, records = {}, {}
+    for mode, argv, forwards in runs:
+        with _logged(f"parity_{mode}"), _mujoco_standins(), \
+                _tool_launches(f"parity_at_speed {mode}") as rec:
+            records[mode] = pas.main([mode, *argv, "--device", device])
+        k5 = forwards if mode == "time-parity" else 0
+        if rec["forwards"] != forwards or rec["k5"] != k5:
+            raise AssertionError(f"parity_at_speed {mode}: "
+                                 f"{rec['forwards']} forwards, {rec['k5']} "
+                                 f"K5")
+        total = _add(total, rec["launches"])
+    return total, records
+
+
+_FPS_CHILD = """
+import json, sys
+sys.path.insert(0, {root!r})
+from s4g_tpu_torch import _build
+from s4g_tpu_torch.tools import measure_fps_sharded
+_build.reset_launches()
+got = measure_fps_sharded.main(sys.argv[1:])
+print("LAUNCHES " + json.dumps(_build.LAUNCHES))
+print("RESULT " + json.dumps({{k: got[k] for k in ("device",
+      "device_ms_per_exec")}}))
+"""
+
+
+def _fps_sharded_phase(device: str = "cuda"):
+    """`tools/measure_fps_sharded` for each of FPS_SHARDED_RUNS in a process
+    of its own (as the JAX tool is run): its warm-up and REPS traced calls
+    launch K1 (G = 128) or K6 (G = 1) once each and nothing else.  Returns
+    (launches by run, numbers by run)."""
+    from s4g_tpu_torch.tools import measure_fps_sharded
+    paths, numbers = {}, {}
+    calls = 1 + measure_fps_sharded.REPS
+    for n, m, g in FPS_SHARDED_RUNS:
+        trace_dir = _output_dir(f"tool_fps_{g}")
+        with _logged(f"measure_fps_sharded_g{g}") as log:
+            out = subprocess.run(
+                [sys.executable, "-c", _FPS_CHILD.format(root=ROOT), n, m, g,
+                 "--trace-dir", trace_dir, "--device", device],
+                capture_output=True, text=True, timeout=600, cwd=ROOT)
+            print(out.stdout, end="", flush=True)
+        if out.returncode:
+            raise AssertionError(f"measure_fps_sharded {n} {m} {g}: rc "
+                                 f"{out.returncode}: {out.stderr[-2000:]}")
+        lines = {ln.split(" ", 1)[0]: json.loads(ln.split(" ", 1)[1])
+                 for ln in out.stdout.splitlines()
+                 if ln.startswith(("LAUNCHES ", "RESULT "))}
+        launches = lines["LAUNCHES"]
+        kernel = "fps_lane" if g == "128" else "fps_exact"
+        want = {k: (calls if k == kernel else 0) for k in launches}
+        if launches != want or not lines["RESULT"]["device_ms_per_exec"]:
+            raise AssertionError(f"measure_fps_sharded G={g}: launches "
+                                 f"{launches}, expected {want}; "
+                                 f"{lines['RESULT']}")
+        paths[f"measure_fps_sharded_g{g}"] = launches
+        numbers[g] = {**lines["RESULT"], "log": log}
+        print(f"measure_fps_sharded N={n} M={m} G={g}: "
+              f"{lines['RESULT']['device_ms_per_exec']:.4f} ms/exec, "
+              f"launches {launches}", flush=True)
+    return paths, numbers
+
+
+def _trace_diff_phase(torch, np, scene, device: str = "cuda"):
+    """`tools/trace_forward --json` at b = 1 and b = 2 (each 1 + REPS
+    deployed forwards, launches held), then `tools/trace_diff` over the two
+    tables.  Returns (launches, trace_diff's lines)."""
+    from s4g_tpu_torch.tools import trace_diff, trace_forward
+    tables, total = [], {}
+    for b in (1, 2):
+        table = os.path.join(_tool_log_dir(), f"trace_b{b}.json")
+        with _logged(f"trace_b{b}"), \
+                _tool_launches(f"trace_forward b={b}") as rec:
+            trace_forward.main(["--batch", str(b), "--scene", scene,
+                                "--json", table, "--trace-dir",
+                                _output_dir(f"tool_trace_b{b}"), "--top",
+                                "10", "--device", device])
+        if rec["forwards"] != 1 + trace_forward.REPS or set(
+                rec["batches"]) != {b}:
+            raise AssertionError(f"trace_forward b={b}: {rec['forwards']} "
+                                 f"forwards")
+        tables.append(table)
+        total = _add(total, rec["launches"])
+    lines = trace_diff.main(tables)
+    if len(lines) < 3 or not lines[0].startswith("leaf ms/scene"):
+        raise AssertionError(f"trace_diff: {lines}")
+    return total, lines
+
+
+def _r3_phase():
+    """`tools/r3_summarize` over the tool log directory: every parity mode
+    and both traces give a row."""
+    from s4g_tpu_torch.tools import r3_summarize
+    rows = r3_summarize.main([_tool_log_dir()])
+    need = [f"parity_{m}" for m in ("compare", "selfnoise", "sortnoise",
+                                    "ablate", "time-parity", "quality")]
+    need += ["trace_b1", "trace_b2"]
+    missing = [k for k in need if not rows.get(k)]
+    if missing:
+        raise AssertionError(f"r3_summarize: no row for {missing}")
+    return rows
+
+
+def _host_ops_phase(np):
+    """The native host library (`runtime/host_ops`, built with g++ at first
+    use) on this machine: native equal to its numpy paths on a 4,096-point
+    subsample of the tabletop (voxel traces as sets with their means within
+    f32 rounding, outlier masks and 1-NN exactly: the numpy outlier and
+    1-NN paths are n x n, ~50 GB at 65,000 points), then native alone on
+    the whole 65,000-point tabletop, host ms (median of 5); then
+    `runtime/guard`'s probes: `backend_reachable()` and `kernels_build()`
+    (K1 and K6 once each, in a child) must be true.  Returns the numbers."""
+    from s4g_tpu_torch.runtime import guard
+    from s4g_tpu_torch.runtime import host_ops as ho
+
+    t0 = time.perf_counter()
+    if not ho.native_available():
+        raise AssertionError("host_ops: the native library did not build")
+    build_ms = 1e3 * (time.perf_counter() - t0)
+    cloud = tabletop_cloud(np.random.RandomState(0))
+    rng = np.random.RandomState(1)
+    sub = cloud[rng.choice(len(cloud), 4096, replace=False)]
+    query = cloud[rng.choice(len(cloud), 4096, replace=False)]
+    keep = ho.radius_outlier_mask(sub, 0.05, 8)
+    nn = ho.nearest_neighbor_match(query, sub, 0.02)
+    p, t = ho.voxel_downsample_trace(sub, 0.02)
+    wp, wt = ho.numpy_voxel_downsample_trace(sub, 0.02, sub.min(0))
+    o, wo = np.argsort(t), np.argsort(wt)
+    mean_err = float(np.abs(p[o] - wp[wo]).max())
+    same = {
+        "outlier": bool(np.array_equal(
+            keep, ho.numpy_radius_outlier_mask(sub, 0.05, 8))),
+        "nn": all(bool(np.array_equal(a, b)) for a, b in zip(
+            nn, ho.numpy_nearest_neighbor_match(query, sub, 0.02))),
+        "voxel trace": bool(np.array_equal(t[o], wt[wo])),
+        "voxel means": bool(mean_err <= 4 * np.finfo(np.float32).eps
+                            * float(np.abs(wp).max()))}
+    if not all(same.values()):
+        raise AssertionError(f"host_ops native vs numpy: {same}")
+
+    def host_ms(fn):
+        times = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t1))
+        return statistics.median(times)
+
+    vox = ho.voxel_downsample_trace(cloud, 0.005)
+    whole = {"voxel_downsample_trace (5 mm) host ms": host_ms(
+                 lambda: ho.voxel_downsample_trace(cloud, 0.005)),
+             "radius_outlier_mask (2 cm, 32) host ms": host_ms(
+                 lambda: ho.radius_outlier_mask(cloud, 0.02, 32)),
+             "nearest_neighbor_match (to the voxels, 5 mm) host ms": host_ms(
+                 lambda: ho.nearest_neighbor_match(cloud, vox[0], 0.005)),
+             "voxels": len(vox[0]),
+             "kept": int(ho.radius_outlier_mask(cloud, 0.02, 32).sum())}
+    t1 = time.perf_counter()
+    reachable, line = guard.backend_reachable()
+    probe_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    built = guard.kernels_build()
+    build_probe_s = time.perf_counter() - t1
+    if not (reachable and built):
+        raise AssertionError(f"guard: backend_reachable {reachable} "
+                             f"({line}), kernels_build {built}")
+    numbers = {"native_available": True, "library build ms (host)": build_ms,
+               "native == numpy on 4,096 points": same,
+               "voxel mean max |native - numpy|": mean_err,
+               "whole tabletop, 65,000 points": whole,
+               "backend_reachable": line, "backend_reachable s": probe_s,
+               "kernels_build": built, "kernels_build s": build_probe_s}
+    print(f"host_ops and guard: {json.dumps(numbers)}", flush=True)
+    return numbers
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4463,6 +5194,20 @@ def main() -> int:
     train_cli = phase("train CLI", lambda: _train_cli_phase(torch, np))
     phase("profile_stages", lambda: _profile_stages_phase(torch, np, scene))
     tfwd = phase("trace_forward", lambda: _trace_phase(torch, np, scene))
+    import shutil
+    shutil.rmtree(_tool_log_dir(), ignore_errors=True)
+    os.makedirs(_tool_log_dir())
+    scale = phase("train_at_scale", lambda: _scale_phase(torch, np))
+    dqa = phase("detect_qa", lambda: _detect_qa_phase(
+        torch, np, scale[2], scale[3]))
+    demo = phase("demo_full_system", lambda: _demo_phase(torch, np))
+    mesh_qa = phase("datagen_mesh_qa", lambda: _mesh_qa_phase(torch, np))
+    parity_tool = phase("parity_at_speed", lambda: _parity_tool_phase(
+        torch, np, scene, scale[2]))
+    fps_sharded = phase("measure_fps_sharded", _fps_sharded_phase)
+    tdiff = phase("trace_diff", lambda: _trace_diff_phase(torch, np, scene))
+    phase("r3_summarize", _r3_phase)
+    phase("host_ops and guard", lambda: _host_ops_phase(np))
     phase("profile", lambda: _profile_phase(det, torch, np))
     phase("profile batch", lambda: _profile_phase(det, torch, np,
                                                   batch=BATCHES[2]))
@@ -4486,7 +5231,10 @@ def main() -> int:
              "factory": factory[0],
              "proposal_test": proposal[0], **mbatch[0],
              "measure_stream": mstream[0], "train_cli": train_cli[0],
-             "trace_forward": tfwd[0]}
+             "trace_forward": tfwd[0], "train_at_scale": scale[0],
+             "detect_qa": dqa[0], "demo_full_system": demo[0],
+             "datagen_mesh_qa": mesh_qa[0], "parity_at_speed": parity_tool[0],
+             **fps_sharded[0], "trace_diff": tdiff[0]}
     extras.setdefault("mlp_chain", {})["pack_cache"] = fused[2]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
@@ -4494,6 +5242,7 @@ def main() -> int:
          "launches_by_path": {k: p[name] for k, p in paths.items()},
          "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
          "bound_by": by, "library_ms": None, **extras.get(name, {}),
+         "tool_calls_held": len(TOOL_SHAPES_HELD.get(name, [])),
          "status": "ok"}
         for name, src, tpu, err, ms, plain, bound, by in report]}))
     print(json.dumps({"ok": True, "device": {

@@ -25,7 +25,8 @@ EE_TO_HAND = np.linalg.inv(HAND_TO_EE)
 
 def _mat2quat(rot: np.ndarray) -> np.ndarray:
     """Rotation matrix -> (w, x, y, z) quaternion (a copy of
-    s4g_tpu/datagen/grasp_env.py::_mat2quat)."""
+    s4g_tpu/datagen/grasp_env.py::_mat2quat; `datagen.grasp_env` imports
+    this one)."""
     t = np.trace(rot)
     if t > 0:
         s = np.sqrt(t + 1.0) * 2

@@ -1225,3 +1225,47 @@ def test_eval_view_on_the_card_launches_k5(cuda):
     np.testing.assert_allclose(got["close_region_projection_maps"],
                                want["close_region_projection_maps"], rtol=0,
                                atol=1e-6)
+
+
+# -- the label factory's tools slice: host ops, guard, measure_fps_sharded -------
+
+def test_host_ops_native_matches_numpy_on_the_card_host(cuda):
+    """The native host library builds on the card's machine and equals its
+    numpy paths on a 4,096-point cloud (the numpy outlier and 1-NN paths
+    are n x n: the whole scene would take ~50 GB)."""
+    from s4g_tpu_torch.runtime import host_ops as ho
+    assert ho.native_available()
+    rng = np.random.RandomState(5)
+    pts = (rng.rand(4096, 3) * [0.3, 0.2, 0.1]).astype(np.float32)
+    assert np.array_equal(ho.radius_outlier_mask(pts, 0.01, 8),
+                          ho.numpy_radius_outlier_mask(pts, 0.01, 8))
+    q = pts[::4] + rng.normal(0, 1e-3, (1024, 3)).astype(np.float32)
+    for got, want in zip(ho.nearest_neighbor_match(q, pts, 0.002),
+                         ho.numpy_nearest_neighbor_match(q, pts, 0.002)):
+        assert np.array_equal(got, want)
+    p, t = ho.voxel_downsample_trace(pts, 0.02)
+    wp, wt = ho.numpy_voxel_downsample_trace(pts, 0.02, pts.min(0))
+    o, wo = np.argsort(t), np.argsort(wt)
+    assert np.array_equal(t[o], wt[wo])
+    # the library sums in float64, numpy in float32: a few ulps apart
+    assert np.abs(p[o] - wp[wo]).max() <= 4 * np.finfo(np.float32).eps * \
+        np.abs(wp).max()
+
+
+def test_guard_probes_find_the_card(cuda):
+    from s4g_tpu_torch.runtime import guard
+    ok, line = guard.backend_reachable(timeout_s=300)
+    assert ok, line
+    assert guard.kernels_build(timeout_s=600)
+
+
+def test_measure_fps_sharded_names_k1_and_k6(cuda, tmp_path):
+    """The tool's trace, read by `device_kernel_times`, names K1's kernel
+    at G = 128 and K6's at G = 1, and their time is the device time."""
+    from s4g_tpu_torch.tools import measure_fps_sharded
+    for g, name in ((128, "fps_lane_kernel"), (1, "fps_cluster_kernel")):
+        got = measure_fps_sharded.main(["25600", "5120", str(g),
+                                        "--trace-dir", str(tmp_path)])
+        names = [row[2] for row in got["kernels"]]
+        assert any(name in n for n in names), names
+        assert got["device_ms_per_exec"] > 0

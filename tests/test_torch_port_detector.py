@@ -327,6 +327,17 @@ def test_detector_without_device_needs_a_gpu():
 REPO = Path(__file__).resolve().parents[1]
 
 
+# The modules of the label factory's tools slice: each must be among
+# those the walk below imports.
+FACTORY_TOOL_MODULES = (
+    "configs.path_registry", "datagen.stats", "datagen.postprocess_grasps",
+    "datagen.json_to_pcd", "datagen.grasp_env", "runtime.host_ops",
+    "runtime.guard", "tools.train_at_scale", "tools.detect_qa",
+    "tools.demo_full_system", "tools.datagen_mesh_qa",
+    "tools.parity_at_speed", "tools.measure_fps_sharded",
+    "tools.trace_diff", "tools.r3_summarize")
+
+
 def test_port_imports_neither_jax_nor_s4g_tpu():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -337,6 +348,9 @@ def test_port_imports_neither_jax_nor_s4g_tpu():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 's4g_tpu' or m.startswith('s4g_tpu.')]\n"
         "assert not bad, bad\n"
+        f"missing = [m for m in {FACTORY_TOOL_MODULES!r}"
+        " if 's4g_tpu_torch.' + m not in sys.modules]\n"
+        "assert not missing, missing\n"
         "print(len([m for m in sys.modules if m.startswith('s4g_tpu_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=REPO)
@@ -360,7 +374,7 @@ def test_datagen_imports_neither_jax_nor_s4g_tpu():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=REPO)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) == 15
+    assert int(out.stdout.strip()) == 19
 
 
 @pytest.mark.parametrize("alone", [False, True])

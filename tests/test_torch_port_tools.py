@@ -13,9 +13,12 @@ import pytest
 import torch
 import yaml
 
-from s4g_tpu_torch.tools import (grasp_proposal_test, measure_batch,
-                                 measure_stream, pick_grasp_viewer,
-                                 profile_stages, trace_forward, train,
+from s4g_tpu_torch.tools import (datagen_mesh_qa, demo_full_system,
+                                 detect_qa, grasp_proposal_test,
+                                 measure_batch, measure_fps_sharded,
+                                 measure_stream, parity_at_speed,
+                                 pick_grasp_viewer, profile_stages,
+                                 trace_forward, train, train_at_scale,
                                  visualize_scored_grasp)
 from s4g_tpu_torch.utils.checkpoint import Checkpointer
 
@@ -220,6 +223,14 @@ def test_pick_grasp_viewer_writes_html(files, tmp_path):
     (measure_stream, ["--scene", "x.p"]),
     (profile_stages, []),
     (trace_forward, []),
+    (train_at_scale, ["--out", "out"]),
+    (detect_qa, ["--out", "out"]),
+    (demo_full_system, ["--out", "out"]),
+    (datagen_mesh_qa, ["--procedural", "--out", "out"]),
+    (parity_at_speed, ["compare", "--scene", "x.p"]),
+    (parity_at_speed, ["quality", "--scene", "qa:out"]),
+    (parity_at_speed, ["time-parity", "--scene", "x.p"]),
+    (measure_fps_sharded, ["2048", "256", "128"]),
 ])
 def test_tools_need_a_gpu_by_default(tool, argv, tmp_path, monkeypatch):
     if torch.cuda.is_available():
@@ -227,3 +238,4 @@ def test_tools_need_a_gpu_by_default(tool, argv, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(RuntimeError, match="no GPU"):
         tool.main(argv)
+    assert os.listdir(tmp_path) == []            # nothing made before
