@@ -154,7 +154,16 @@ run, but the run then exits non-zero without printing a result:
    1 (each in a process of its own), trace_forward --json at b = 1 and 2
    with trace_diff over the tables, r3_summarize over the tools' logs, and
    host_ops (native equal to numpy on 4,096 points, host ms on the whole
-   tabletop) with guard's probes.  Where `mujoco` does not import (the
+   tabletop) with guard's probes; then data parallelism on the one card
+   (`_multi_device_phase`): two gloo ranks sharing cuda:0, spawned, each
+   serving its half of a B = 4 detect_batch (each rank's scenes bit for
+   bit a single process's call on the same draws) and training the
+   deployed configuration at global b = 4 (the ranks bit-equal after each
+   step, the losses within bf16's tolerance of one process's, launches
+   per step the single step's), a float64 step of a narrow configuration
+   against one process within 1e-9, and an NCCL world of one bit for bit
+   the same calls without a mesh (each rank's launches on a line of their
+   own).  Where `mujoco` does not import (the
    card's machine), TableEnv and DirectionGenerator are replaced by seeded
    stand-ins for these phases (`_mujoco_standins`), and the run says so.
    Each run's launch counters are zeroed before it and read after it (a
@@ -5069,6 +5078,520 @@ def _host_ops_phase(np):
     return numbers
 
 
+# -- multi-device ------------------------------------------------------------------
+
+MULTI_RANKS = 2
+MULTI_BATCH = 4          # serving's and training's global batch (2 a rank)
+MULTI_SERVING = {"tabletops": BATCHES[4], "mixed": MIXED[4]}
+MULTI_STEPS = 2
+MULTI_REPS = 3           # timed detect_batch calls per rank
+# The deployed (bf16) step's losses against one process's: bf16's
+# tolerance (tests/test_torch_port_train_step.py's bf16 step against JAX).
+# Its gradients are compared and printed, not gated: train-mode
+# BatchNorm's E[x^2] - E[x]^2 turns the rounding of sums taken in another
+# order into gradients 2-3e-2 of a tensor's largest apart in f32 (ROADMAP
+# F1), bf16 roundings further; the float64 step holds the function.
+MULTI_LOSS_RTOL = 2e-2
+
+
+def _multi_setup(torch):
+    """A child process of the multi-device phase: full-f32 matmuls and the
+    kernel library the parent built."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    from s4g_tpu_torch import _build
+    _build.load_library()
+
+
+@contextlib.contextmanager
+def _draws(record=None, replay=None):
+    """Within: the detector's sample indices and importance uniforms are
+    appended to `record` ({"samples": [], "uniforms": []}) as it draws
+    them, or handed to it from `replay` (the samples in order, the
+    uniforms as they are) instead of drawn."""
+    from s4g_tpu_torch.pipeline import detector as tdet
+    from s4g_tpu_torch.pipeline import preprocessing as tpre
+    sample, uniforms = tpre.random_sample_fixed, tdet._uniforms
+    if record is not None:
+        def new_sample(*a, **k):
+            record["samples"].append(sample(*a, **k))
+            return record["samples"][-1]
+
+        def new_uniforms(*a, **k):
+            record["uniforms"].append(uniforms(*a, **k))
+            return record["uniforms"][-1]
+    else:
+        queue = list(replay["samples"])
+
+        def new_sample(*a, **k):
+            return queue.pop(0)
+
+        def new_uniforms(*a, **k):
+            return replay["uniforms"]
+    tpre.random_sample_fixed, tdet._uniforms = new_sample, new_uniforms
+    try:
+        yield
+    finally:
+        tpre.random_sample_fixed, tdet._uniforms = sample, uniforms
+
+
+def _same_results(a, b) -> bool:
+    return len(a) == len(b) and all(
+        _np_equal(pa, pb) and _np_equal(sa, sb)
+        for (pa, sa), (pb, sb) in zip(a, b))
+
+
+def _np_equal(x, y) -> bool:
+    import numpy as np
+    return x.shape == y.shape and bool(np.array_equal(x, y))
+
+
+def _multi_serving(mesh, rank, torch, np):
+    """A rank's serving: the deployed detector with the mesh, a warm-up,
+    then `MULTI_SERVING`'s batches (global B = 4: this rank's two scenes,
+    K3 on two tabletops, the full-scan fallback where a clutter scene
+    overflows SA1's windows), each counted exactly (`_counted` at the
+    local b = 2) with its draws recorded, and each rank's scenes bit for
+    bit a single process's detect_batch over them on those draws; then
+    MULTI_REPS timed calls of the tabletop batch."""
+    from s4g_tpu_torch import _build
+    from s4g_tpu_torch.parallel import shard_rows
+    from s4g_tpu_torch.pipeline.detector import GraspDetector
+
+    scenes = _scenes(np)
+    det = GraspDetector(model="curvature_model", seed=0, mesh=mesh,
+                        output_dir=_output_dir(f"multi_rank{rank}"))
+    alone = GraspDetector(model="curvature_model", seed=0,
+                          output_dir=_output_dir(f"multi_alone{rank}"))
+
+    def run(d, names):
+        return d.detect_batch([scenes[x] for x in names],
+                              score_threshold=0.0,
+                              verticalness_threshold=-1e9)
+
+    run(det, MULTI_SERVING["tabletops"])
+    out = {}
+    for key, names in MULTI_SERVING.items():
+        rows = shard_rows(mesh, len(names))
+        record = {"samples": [], "uniforms": []}
+        _build.reset_launches()
+        with _draws(record=record):
+            results, want = _counted(det, lambda: run(det, names),
+                                     rows.stop - rows.start)
+        launches = dict(_build.LAUNCHES)
+        if launches != want:
+            raise AssertionError(f"rank {rank} {key}: launches {launches}, "
+                                 f"expected {want}")
+        with _draws(replay={"samples": record["samples"],
+                            "uniforms": record["uniforms"][0][rows]}):
+            single = run(alone, names[rows])
+        if not _same_results(results[rows], single):
+            raise AssertionError(
+                f"rank {rank} {key}: its scenes differ from a single "
+                "process's detect_batch over them on the same draws")
+        _check_grasps(f"rank {rank} {key}", results)
+        out[key] = {"results": results, "num_valid": det.last_num_valid,
+                    "launches": launches, "timings": dict(det.timings)}
+    times = []
+    for _ in range(MULTI_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(det, MULTI_SERVING["tabletops"])
+        times.append(time.perf_counter() - t0)
+    out["scenes_per_s"] = (MULTI_BATCH // mesh.size()) / statistics.median(
+        times)
+    return out
+
+
+# The float64 check's model: NARROW_TRAIN (every kernel route of the
+# deployed train step) with the heads' dropout on.
+NARROW_F64 = {**NARROW_TRAIN, "MODEL": {**NARROW_TRAIN["MODEL"], "PN2": {
+    **NARROW_TRAIN["MODEL"]["PN2"], "DROPOUT_PROB": 0.5}}}
+
+
+def _multi_batches(np):
+    """MULTI_STEPS global batches of MULTI_BATCH at full width from the
+    train phase's scene pickles (a new pass for each: the dataset
+    reshuffles), and one at NARROW_F64's width, its float leaves but the
+    cloud in float64."""
+    from s4g_tpu_torch.configs.config import load_cfg_from_dict
+    from s4g_tpu_torch.train.dataset import SceneGraspDataset
+
+    def dataset(cfg):
+        return SceneGraspDataset(
+            root, num_points=cfg.MODEL.PN2.NUM_INPUT,
+            score_classes=cfg.DATA.SCORE_CLASSES, batch_size=MULTI_BATCH,
+            num_frame_points=TRAIN_FRAME_POINTS, t_classification=True,
+            seed=cfg.RNG_SEED,
+            num_removal_directions=cfg.DATA.NUM_REMOVAL_DIRECTIONS)
+
+    root = _train_data(np)
+    ds = dataset(_train_config(BATCH_SIZE=MULTI_BATCH))
+    narrow = next(iter(dataset(load_cfg_from_dict(NARROW_F64))))
+    narrow = {k: v.astype(np.float64)
+              if v.dtype == np.float32 and k != "scene_points" else v
+              for k, v in narrow.items()}
+    return [next(iter(ds)) for _ in range(MULTI_STEPS)], narrow
+
+
+def _f64_step(mesh, batch, name, torch):
+    """One float64 step of NARROW_F64 (`_f64_net`; forward, losses and
+    backward: the gradients summed over the ranks where there is a mesh):
+    the losses (summed over the ranks), the gradients and the BatchNorm
+    running statistics, on the host."""
+    import torch.distributed as dist
+    from s4g_tpu_torch.configs.config import load_cfg_from_dict
+    from s4g_tpu_torch.train.trainer import Trainer
+    tr = Trainer(load_cfg_from_dict(NARROW_F64), output_dir=_output_dir(name),
+                 mesh=mesh, logger=_train_logger())
+    tr.init_state()
+    _f64_net(tr.net)
+    total, losses, _, _ = tr.forward_loss(
+        {k: torch.from_numpy(v) for k, v in batch.items()})
+    tr.backward(total)
+    losses = {k: v.detach().clone() for k, v in losses.items()}
+    if mesh is not None:
+        for v in losses.values():
+            dist.all_reduce(v, group=mesh.get_group())
+    return {"losses": {k: float(v) for k, v in losses.items()},
+            "grads": {n: p.grad.detach().cpu()
+                      for n, p in tr.net.named_parameters()},
+            "stats": {k: v.detach().cpu() for k, v in
+                      tr.net.state_dict().items() if "running" in k}}
+
+
+def _multi_steps(tr, batches, torch, keep_grads: bool):
+    """`tr`'s train steps on the global batches, each timed (host clock
+    between synchronizations) with its launches, scalars, a sha of the
+    state_dict and the generator's state; the gradients and BatchNorm
+    running statistics with `keep_grads`.  The gradient all-reduce is
+    timed on its own where there is a mesh."""
+    from s4g_tpu_torch import _build
+    reduce_ms = []
+    if tr.mesh is not None:
+        inner = tr.all_reduce_grads
+
+        def timed():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            inner()
+            torch.cuda.synchronize()
+            reduce_ms.append(1e3 * (time.perf_counter() - t0))
+        tr.all_reduce_grads = timed
+    steps = []
+    for batch in batches:
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scalars = tr.train_step(batch)
+        torch.cuda.synchronize()
+        step = {"ms": 1e3 * (time.perf_counter() - t0),
+                "launches": dict(_build.LAUNCHES),
+                "scalars": {k: float(v) for k, v in scalars.items()},
+                "sha": _state_sha(tr.net.state_dict()),
+                "generator": tr.generator.get_state().cpu()}
+        if keep_grads:
+            step["grads"] = {n: p.grad.detach().cpu()
+                             for n, p in tr.net.named_parameters()}
+            step["state"] = {k: v.detach().cpu() for k, v in
+                             tr.net.state_dict().items()}
+            step["stats"] = {k: v for k, v in step["state"].items()
+                             if "running" in k}
+        steps.append(step)
+    return steps, reduce_ms
+
+
+def _multi_rank(rank, world, init, workdir):
+    """One of the gloo ranks that share cuda:0: serving, then training at
+    the train phase's configuration; its results into workdir."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    _multi_setup(torch)
+    from s4g_tpu_torch.parallel import make_mesh
+    from s4g_tpu_torch.train.trainer import Trainer
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
+                            world_size=world)
+    try:
+        mesh = make_mesh(["cuda:0"] * world)
+        torch.cuda.reset_peak_memory_stats()
+        out = {"backend": dist.get_backend(),
+               "serving": _multi_serving(mesh, rank, torch, np)}
+        tr = Trainer(_train_config(BATCH_SIZE=MULTI_BATCH),
+                     output_dir=_output_dir(f"multi_train{rank}"), mesh=mesh,
+                     logger=_train_logger())
+        tr.init_state()
+        batches, narrow = torch.load(os.path.join(workdir, "batches.pt"),
+                                     weights_only=False)
+        out["steps"], out["reduce_ms"] = _multi_steps(tr, batches, torch,
+                                                      rank == 0)
+        torch.cuda.synchronize()
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del tr
+        out["f64"] = _f64_step(mesh, narrow, f"multi_f64_{rank}", torch)
+        torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _nccl_world_of_one(workdir, port):
+    """A launched world of one (torchrun's variables set here) whose mesh
+    takes NCCL: two train steps and a detect_batch at b = 2 with the mesh
+    and without, under `use_deterministic_algorithms` (the gather's
+    backward sums with atomics otherwise); results into workdir."""
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    _multi_setup(torch)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    from s4g_tpu_torch.parallel import make_mesh
+    from s4g_tpu_torch.pipeline.detector import GraspDetector
+    from s4g_tpu_torch.train.trainer import Trainer
+    mesh = make_mesh()
+    try:
+        batches, _ = torch.load(os.path.join(workdir, "batches.pt"),
+                                weights_only=False)
+        scenes = _scenes(np)
+        out = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+        for name, m in (("mesh", mesh), ("plain", None)):
+            tr = Trainer(_train_config(BATCH_SIZE=MULTI_BATCH),
+                         output_dir=_output_dir(f"nccl_{name}"), mesh=m,
+                         logger=_train_logger())
+            tr.init_state()
+            steps, _ = _multi_steps(tr, batches, torch, True)
+            det = GraspDetector(model="curvature_model", seed=0, mesh=m,
+                                output_dir=_output_dir(f"nccl_det_{name}"))
+            out[name] = {"steps": steps, "serving": det.detect_batch(
+                [scenes[x] for x in BATCHES[2]], score_threshold=0.0,
+                verticalness_threshold=-1e9)}
+        torch.save(out, os.path.join(workdir, "nccl.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _multi_diff(got, want):
+    """(scenes whose grasps differ, max |score diff|, max |pose diff|) over
+    the scenes whose grasp counts agree."""
+    import numpy as np
+    differ, ds, dp = 0, 0.0, 0.0
+    for (pg, sg), (pw, sw) in zip(got, want):
+        if not _np_equal(pg, pw) or not _np_equal(sg, sw):
+            differ += 1
+        if pg.shape == pw.shape and len(pg):
+            ds = max(ds, float(np.abs(sg - sw).max()))
+            dp = max(dp, float(np.abs(pg - pw).max()))
+    return differ, ds, dp
+
+
+def _multi_device_phase(torch, np):
+    """Data parallelism on one card (`s4g_tpu_torch.parallel`).
+
+    (a) Two gloo ranks share cuda:0 (NCCL refuses two ranks on one GPU),
+    spawned, each launching the real kernels (`_multi_rank`): serving
+    (`_multi_serving`: the deployed detector at full width, global B = 4,
+    each rank's scenes bit for bit a single process's call over them on
+    the same draws, launches exact at the local b = 2), then training at
+    the train phase's configuration (PN2_CLS, bf16, full width, dropout
+    0.5) for MULTI_STEPS steps at global b = 4 (`_multi_steps`).  Here,
+    against one process: the gathered results against the unsharded
+    B = 4 call (the differing scenes and the largest differences printed;
+    the draws are the same, the forward runs at b = 2 against b = 4); each
+    step's losses within MULTI_LOSS_RTOL of one process's (from rank 0's
+    state after the step before), its gradients and BatchNorm statistics
+    against one process's printed
+    (`_compare_steps`' numbers, rank 0's gradients being summed over the
+    ranks) beside one process's first step against itself; both ranks'
+    states and generators equal after each step; each rank's launches per
+    step equal to the single step's.  Then one float64 step of NARROW_F64
+    (`_f64_step`: every kernel route of the deployed step, dropout on) on
+    the ranks against one process: gradients within 1e-9 of each tensor's
+    largest (plus 1e-10 of the model's), losses within 1e-6 (the heads
+    return f32), BatchNorm statistics within 1e-9: the same function.
+
+    (b) An NCCL world of one in a child (`_nccl_world_of_one`): a Trainer
+    and a detect_batch with the mesh bit for bit the same calls without.
+
+    The numbers printed (step ms, all-reduce ms, scenes/s, peak memory)
+    come from two ranks sharing one card: they are no scaling result."""
+    import shutil
+    import socket
+    import torch.multiprocessing as mp
+    from s4g_tpu_torch import _build
+    from s4g_tpu_torch.pipeline.detector import GraspDetector
+    from s4g_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()        # the ranks share the card with us
+    workdir = os.path.join(_build.BUILD_DIR, "multi_device")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    batches, narrow = _multi_batches(np)
+    torch.save((batches, narrow), os.path.join(workdir, "batches.pt"))
+
+    mp.start_processes(_multi_rank, args=(MULTI_RANKS, os.path.join(
+        workdir, "rendezvous"), workdir), nprocs=MULTI_RANKS,
+        start_method="spawn")
+    ranks = [torch.load(os.path.join(workdir, f"rank{r}.pt"),
+                        weights_only=False) for r in range(MULTI_RANKS)]
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    child = mp.get_context("spawn").Process(target=_nccl_world_of_one,
+                                            args=(workdir, port))
+    child.start()
+    child.join(600)
+    if child.is_alive():
+        child.kill()
+        child.join()
+        raise AssertionError("the NCCL world of one did not end in 600 s")
+    if child.exitcode != 0:
+        raise AssertionError(f"the NCCL world of one exited "
+                             f"{child.exitcode}")
+    nccl = torch.load(os.path.join(workdir, "nccl.pt"), weights_only=False)
+
+    bad = []
+    # Serving: both ranks return the whole batch; against one process.
+    unsharded = GraspDetector(model="curvature_model", seed=0,
+                              output_dir=_output_dir("multi_unsharded"))
+    scenes = _scenes(np)
+
+    def run(names):
+        return unsharded.detect_batch([scenes[x] for x in names],
+                                      score_threshold=0.0,
+                                      verticalness_threshold=-1e9)
+
+    run(MULTI_SERVING["tabletops"])
+    serving = {}
+    for key, names in MULTI_SERVING.items():
+        want = run(names)
+        got = ranks[0]["serving"][key]
+        if not _same_results(ranks[1]["serving"][key]["results"],
+                             got["results"]):
+            bad.append(f"serving {key}: the ranks returned other results")
+        if got["num_valid"] != ranks[1]["serving"][key]["num_valid"]:
+            bad.append(f"serving {key}: the ranks' num_valid differ")
+        serving[key] = dict(zip(("differing_scenes", "max_score_diff",
+                                 "max_pose_diff"),
+                                _multi_diff(got["results"], want)))
+        serving[key]["launches"] = [r["serving"][key]["launches"]
+                                    for r in ranks]
+        serving[key]["gather_ms"] = [r["serving"][key]["timings"]
+                                     ["gather_ms"] for r in ranks]
+
+    # Training: rank 0 against one process on the same batches, and one
+    # process against itself (its first step again, from the same state:
+    # the card's gather backward sums with atomics).
+    def single_steps(steps):
+        """One process's steps, each after the first from rank 0's
+        parameters and buffers after the step before (one Adam step turns
+        the sign of a near-zero gradient into a full +/- lr, so the two
+        runs' parameters part; the generators do not)."""
+        single = Trainer(_train_config(BATCH_SIZE=MULTI_BATCH),
+                         output_dir=_output_dir("multi_single"),
+                         logger=_train_logger())
+        single.init_state()
+        out = []
+        for i, batch in enumerate(steps):
+            if i:
+                single.net.load_state_dict(ranks[0]["steps"][i - 1]["state"])
+            out += _multi_steps(single, [batch], torch, True)[0]
+        return out
+
+    want_steps = single_steps(batches)
+    again = single_steps(batches[:1])[0]
+    train = []
+    for i, want in enumerate(want_steps):
+        got = ranks[0]["steps"][i]
+        res, _ = _compare_steps(f"step {i}", want, got)
+        if i == 0:
+            err, _, cos = _grad_spread(again["grads"], want["grads"])
+            res["single_vs_single"] = {"max_grad_err": err, "min_cos": cos}
+        loss_rel = max(abs(got["scalars"][k] - v) / max(abs(v), 1e-30)
+                       for k, v in want["scalars"].items()
+                       if k.endswith("loss"))
+        if not loss_rel <= MULTI_LOSS_RTOL:
+            bad.append(f"step {i}: a loss {loss_rel:.3g} from one "
+                       "process's (relative)")
+        for r, rank in enumerate(ranks[1:], 1):
+            other = rank["steps"][i]
+            if other["sha"] != got["sha"] or not torch.equal(
+                    other["generator"], got["generator"]):
+                bad.append(f"step {i}: rank {r}'s state or generator is not "
+                           "rank 0's")
+        for r, rank in enumerate(ranks):
+            if rank["steps"][i]["launches"] != want["launches"]:
+                bad.append(f"step {i}: rank {r} launched "
+                           f"{rank['steps'][i]['launches']}, one process "
+                           f"{want['launches']}")
+        train.append(res)
+
+    # The float64 step: the same function, to rounding.
+    want64 = _f64_step(None, narrow, "multi_f64_single", torch)
+    got64 = ranks[0]["f64"]
+    top = max(float(g.abs().max()) for g in want64["grads"].values())
+    f64 = {"max_loss_rel": max(abs(got64["losses"][k] - v) / abs(v)
+                               for k, v in want64["losses"].items()),
+           "max_grad_err": max(float((got64["grads"][n] - g).abs().max())
+                               / max(float(g.abs().max()), 1e-300)
+                               for n, g in want64["grads"].items()),
+           "max_stat_err": max(float((got64["stats"][k] - v).abs().max())
+                               / float(v.abs().max())
+                               for k, v in want64["stats"].items())}
+    worse = [n for n, g in want64["grads"].items()
+             if float((got64["grads"][n] - g).abs().max())
+             > 1e-9 * float(g.abs().max()) + 1e-10 * top]
+    if worse or f64["max_loss_rel"] > 1e-6 or f64["max_stat_err"] > 1e-9:
+        bad.append(f"float64 step: {f64}, gradients past 1e-9 of their "
+                   f"max: {worse}")
+
+    # The NCCL world of one, bit for bit.
+    plain, meshed = nccl["plain"], nccl["mesh"]
+    nccl_same = {
+        "serving": _same_results(meshed["serving"], plain["serving"]),
+        "steps": all(
+            a["sha"] == b["sha"] and a["scalars"] == b["scalars"]
+            and torch.equal(a["generator"], b["generator"])
+            and all(torch.equal(a["grads"][n], b["grads"][n])
+                    for n in b["grads"])
+            for a, b in zip(meshed["steps"], plain["steps"]))}
+    if nccl["backend"] != "nccl" or not all(nccl_same.values()):
+        bad.append(f"NCCL world of one: backend {nccl['backend']}, bit for "
+                   f"bit with no mesh {nccl_same}")
+
+    wall = time.perf_counter() - t0
+    numbers = {
+        "card": _nvidia_smi(), "ranks": MULTI_RANKS,
+        "backend": [r["backend"] for r in ranks],
+        "step_ms": [[s["ms"] for s in r["steps"]] for r in ranks],
+        "single_step_ms": [s["ms"] for s in want_steps],
+        "all_reduce_ms": [r["reduce_ms"] for r in ranks],
+        "detect_batch_scenes_per_s": [r["serving"]["scenes_per_s"]
+                                      for r in ranks],
+        "peak_gib": [r["peak_gib"] for r in ranks],
+        "serving_vs_unsharded": serving, "train_vs_single": train,
+        "f64_train_vs_single": f64,
+        "nccl_world_of_one": {"backend": nccl["backend"],
+                              "world": nccl["world"], **nccl_same},
+        "phase_s": wall}
+    print(f"multi-device ({numbers['card']}; two ranks sharing one card "
+          f"over gloo: correctness, not scaling): {json.dumps(numbers)}",
+          flush=True)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    launches = {f"rank{r}": {"serving": {k: rank["serving"][k]["launches"]
+                                         for k in MULTI_SERVING},
+                             "train_steps": [s["launches"]
+                                             for s in rank["steps"]]}
+                for r, rank in enumerate(ranks)}
+    return launches, numbers
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5208,6 +5731,7 @@ def main() -> int:
     tdiff = phase("trace_diff", lambda: _trace_diff_phase(torch, np, scene))
     phase("r3_summarize", _r3_phase)
     phase("host_ops and guard", lambda: _host_ops_phase(np))
+    multi = phase("multi-device", lambda: _multi_device_phase(torch, np))
     phase("profile", lambda: _profile_phase(det, torch, np))
     phase("profile batch", lambda: _profile_phase(det, torch, np,
                                                   batch=BATCHES[2]))
@@ -5236,6 +5760,7 @@ def main() -> int:
              "datagen_mesh_qa": mesh_qa[0], "parity_at_speed": parity_tool[0],
              **fps_sharded[0], "trace_diff": tdiff[0]}
     extras.setdefault("mlp_chain", {})["pack_cache"] = fused[2]
+    print(json.dumps({"multi_device_launches": multi[0]}))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": sum(p[name] for p in paths.values()),

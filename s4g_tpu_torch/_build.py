@@ -10,7 +10,8 @@ changes (a content stamp sits beside it).
 
 Each C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `launch` raises on a non-zero code and counts the
-launch, so a run can show that it went through the kernels.
+launch, so a run can show that it went through the kernels.  A process
+launches on one GPU only (`claim_device`).
 """
 
 from __future__ import annotations
@@ -175,15 +176,52 @@ def load_library() -> ctypes.CDLL:
     return _lib
 
 
+# The one CUDA device this process launches on: the first launch records
+# it.  The kernels cache per-device facts once per process (the SM count,
+# `csrc/common.cuh:40-53`; the shared-memory and cluster opt-ins set with
+# cudaFuncSetAttribute, `common.cuh:28-37` and `fps_exact.cu:350-370`; the
+# occupancy, `mlp_chain.cu:935-960`), which hold for that device only.
+_launch_device: list = []
+
+
+def claim_device(kernel: str, device: torch.device) -> None:
+    """Record `device` as this process's launch device at its first launch;
+    raise for a launch on any other."""
+    with _lock:
+        if not _launch_device:
+            _launch_device.append(device)
+    if device != _launch_device[0]:
+        raise RuntimeError(
+            f"kernel {kernel} launched on {device}, and this process "
+            f"launched on {_launch_device[0]} first: the kernels cache "
+            "per-device facts once per process (SM count, shared-memory "
+            "and cluster opt-ins, occupancy; csrc/common.cuh, "
+            "csrc/fps_exact.cu, csrc/mlp_chain.cu), so one process runs "
+            "one GPU: launch one process per device "
+            "(s4g_tpu_torch.parallel.make_mesh)")
+
+
 def launch(kernel: str, *args) -> None:
-    """Call `s4g_<kernel>` on the current CUDA stream, raise if the launch
-    failed, and count it.  Tensor arguments are passed by data pointer;
-    the caller keeps them alive (they are its inputs and outputs)."""
+    """Call `s4g_<kernel>` on the stream of its tensors' device, raise if
+    the launch failed, and count it.  Tensor arguments are passed by data
+    pointer; the caller keeps them alive (they are its inputs and
+    outputs).
+
+    One device per process: a launch on another device than the first
+    launch's raises (`claim_device`; run one process per GPU,
+    `parallel.make_mesh`)."""
+    devices = {a.device for a in args if isinstance(a, torch.Tensor)}
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"kernel {kernel}: its tensors must lie on one "
+                         f"CUDA device, got {sorted(map(str, devices))}")
+    device = devices.pop()
+    claim_device(kernel, device)
     lib = load_library()
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
               for a in args]
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib, "s4g_" + kernel)(*c_args, stream)
+    with torch.cuda.device(device):     # the C side launches on it
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, "s4g_" + kernel)(*c_args, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {kernel} failed to launch: "
                            f"cudaError {err}")

@@ -1,6 +1,11 @@
 """Loss, metric and rotation helpers of the models (port of
 s4g_tpu/models/functional.py): pure tensor functions that autograd
-differentiates like the JAX package's `jax.grad` does."""
+differentiates like the JAX package's `jax.grad` does.
+
+Within `parallel.global_batch` a loss returns this rank's share of the
+global batch's loss (`batch_mean`; a weighted cross entropy divides by
+the weights summed over every rank): the shares sum to the global loss.
+"""
 
 from __future__ import annotations
 
@@ -8,6 +13,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.mesh import batch_mean, sum_over_ranks
 
 
 # -----------------------------------------------------------------------------
@@ -57,12 +64,12 @@ def weighted_cross_entropy(logits: torch.Tensor, target: torch.Tensor,
     Returns sum(w[y_i] * nll_i) / sum(w[y_i]) (torch's "mean" reduction
     normalises by the summed weights of the targets)."""
     w = class_weight[target.long()]
-    return torch.sum(w * _nll(logits, target)) / torch.sum(w)
+    return torch.sum(w * _nll(logits, target)) / sum_over_ranks(torch.sum(w))
 
 
 def cross_entropy(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Unweighted cross entropy, class axis at dim 1, mean reduction."""
-    return torch.mean(_nll(logits, target))
+    return batch_mean(_nll(logits, target))
 
 
 def smooth_cross_entropy(logits: torch.Tensor, target: torch.Tensor,
@@ -79,7 +86,7 @@ def smooth_cross_entropy(logits: torch.Tensor, target: torch.Tensor,
     per_class = -smooth * log_prob
     if weight is not None:
         per_class = per_class * weight[None, :]
-    return torch.mean(torch.sum(per_class, dim=1))
+    return batch_mean(torch.sum(per_class, dim=1))
 
 
 # -----------------------------------------------------------------------------

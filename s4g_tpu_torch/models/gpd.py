@@ -27,6 +27,7 @@ from torch import nn
 
 from . import functional as F
 from .nn_layers import dropout
+from ..parallel.mesh import sum_over_ranks
 
 POOLED = 12          # 60 -> conv 56 -> pool 28 -> conv 24 -> pool 12
 
@@ -83,16 +84,17 @@ def gpd_loss(preds: dict, labels: dict) -> dict:
 
 
 def gpd_metric(preds: dict, labels: dict) -> dict:
-    """Accuracy, and precision and recall of the top score class."""
+    """Accuracy, and precision and recall of the top score class (within
+    `parallel.global_batch`, of the global batch's counts)."""
     logits = preds["grasp_logits"]
     top = logits.shape[-1] - 1
     target = labels["grasp_score_labels"]
     pred_cls = torch.argmax(logits, dim=1)
     gt_pos = target == top
     pred_pos = pred_cls == top
-    true_pos = torch.sum((gt_pos & pred_pos).float())
+    true_pos = sum_over_ranks(torch.sum((gt_pos & pred_pos).float()))
     return {"cls_acc": (pred_cls == target).float(),
-            "prec": true_pos / torch.clamp(torch.sum(pred_pos.float()),
-                                           min=1e-6),
-            "recall": true_pos / torch.clamp(torch.sum(gt_pos.float()),
-                                             min=1e-6)}
+            "prec": true_pos / torch.clamp(
+                sum_over_ranks(torch.sum(pred_pos.float())), min=1e-6),
+            "recall": true_pos / torch.clamp(
+                sum_over_ranks(torch.sum(gt_pos.float())), min=1e-6)}

@@ -72,6 +72,7 @@ from torch import nn
 from ..ops import sa_fused
 from ..ops.mlp_chain import _pack, mlp_chain
 from ..ops.neighbors import ball_query_grouped
+from ..parallel.mesh import global_ranks, global_rows, sum_over_ranks
 
 BN_EPS = 1e-5
 
@@ -163,10 +164,23 @@ def batch_norm(y: torch.Tensor, bn: nn.Module) -> torch.Tensor:
 def _batch_stats(y: torch.Tensor, bn: nn.Module) -> tuple:
     """flax BatchNorm's training statistics of f32 `y` over every axis but
     the last, (mean, max(E[y^2] - mean^2, 0)); moves `bn`'s running
-    statistics by its momentum towards them (the biased variance)."""
+    statistics by its momentum towards them (the biased variance).  Within
+    `parallel.global_batch` they are the global batch's, the same on every
+    rank."""
     axes = tuple(range(y.dim() - 1))
-    mean = torch.mean(y, dim=axes)
-    var = torch.clamp(torch.mean(y * y, dim=axes) - mean * mean, min=0.0)
+    ranks = global_ranks()
+    if ranks is None:
+        mean = torch.mean(y, dim=axes)
+        var = torch.clamp(torch.mean(y * y, dim=axes) - mean * mean,
+                          min=0.0)
+    else:
+        # The global batch's: one all-reduce of the local sums of y and
+        # y^2 over the global count (every rank holds as many rows).
+        count = (y.numel() // y.shape[-1]) * ranks.size
+        sums = sum_over_ranks(torch.cat([torch.sum(y, dim=axes),
+                                         torch.sum(y * y, dim=axes)]))
+        mean, mean_sq = torch.chunk(sums / count, 2)
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
     with torch.no_grad():
         keep = 1.0 - bn.momentum
         bn.running_mean.copy_(keep * bn.running_mean + bn.momentum * mean)
@@ -181,14 +195,17 @@ def dropout(x: torch.Tensor, p: float,
     1 - p (a uniform draw from `generator` below 1 - p) and scaled by
     1 / (1 - p), the rest zero.  `channel`: one draw per (batch, channel),
     shared over every axis between them (flax `broadcast_dims=range(1,
-    ndim - 1)`, torch's dropout2d): whole channels are dropped."""
+    ndim - 1)`, torch's dropout2d): whole channels are dropped.  Within
+    `parallel.global_batch` the draws are the global batch's (this rank's
+    rows of them)."""
     if generator is None:
         raise ValueError("dropout in training mode draws its masks from a "
                          "torch.Generator: pass generator=")
     keep_prob = 1.0 - p
     shape = ((x.shape[0], *[1] * (x.dim() - 2), x.shape[-1]) if channel
              else x.shape)
-    keep = torch.rand(shape, generator=generator, device=x.device) \
+    keep = global_rows(lambda s: torch.rand(s, generator=generator,
+                                            device=x.device), shape) \
         < keep_prob
     return torch.where(keep, x / keep_prob, 0.0)
 

@@ -36,6 +36,7 @@ from .pn2_modules import (EdgeFPModule, PointnetFPModule, PointNetSAModule,
                           gather_cl)
 from ..ops.neighbors import invert_permutation
 from ..ops.sampling import fps_lane_nested, fps_nesting_applies
+from ..parallel.mesh import batch_mean
 
 
 class PointNet2Backbone(nn.Module):
@@ -227,7 +228,10 @@ class PointNet2Reg(_GraspHeads):
 # -----------------------------------------------------------------------------
 # Losses and metrics (port of `pointnet2.py:353-416, 455-502`): pure
 # functions (preds, labels) -> dict with the reference's loss weights.  The
-# R / t terms take the first nf = best_frame_R.shape[2] points.
+# R / t terms take the first nf = best_frame_R.shape[2] points.  Within
+# `parallel.global_batch` each loss term is this rank's share of the global
+# batch's (`batch_mean`, `functional.weighted_cross_entropy`); the metrics
+# stay local means, which the Trainer averages over the ranks.
 # -----------------------------------------------------------------------------
 
 def _symmetric_r_loss(pred_r: torch.Tensor, gt_r: torch.Tensor,
@@ -235,7 +239,7 @@ def _symmetric_r_loss(pred_r: torch.Tensor, gt_r: torch.Tensor,
     """Min-over-flip rotation MSE, score-weighted, x5."""
     loss_1 = torch.mean((pred_r - gt_r) ** 2, dim=1)
     loss_2 = torch.mean((pred_r - F.flip_mat9_gripper(gt_r)) ** 2, dim=1)
-    return torch.mean(torch.minimum(loss_1, loss_2) * gt_score) * 5.0
+    return batch_mean(torch.minimum(loss_1, loss_2) * gt_score) * 5.0
 
 
 def _score_cls_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -261,7 +265,7 @@ def _shared_losses(score_logits: torch.Tensor, preds: dict, labels: dict,
     the symmetric R loss; and nf with the first nf points' gt scores."""
     cls_loss = _score_cls_loss(score_logits, labels["scene_score_labels"],
                                neg_weight, label_smoothing)
-    mov_loss = torch.mean(torch.abs(preds["movable_logits"]
+    mov_loss = batch_mean(torch.abs(preds["movable_logits"]
                                     - labels["scene_movable_labels"]))
     gt_r = labels["best_frame_R"]
     nf = gt_r.shape[2]
@@ -277,7 +281,7 @@ def pointnet2_loss(preds: dict, labels: dict, label_smoothing: float = 0.0,
         preds["scene_score_logits"], preds, labels, neg_weight,
         label_smoothing)
     pred_t = preds["frame_t"][:, :, :nf]
-    t_loss = torch.mean(torch.sum((pred_t - labels["best_frame_t"]) ** 2,
+    t_loss = batch_mean(torch.sum((pred_t - labels["best_frame_t"]) ** 2,
                                   dim=1) * gt_score) * 20.0
     return {"cls_loss": cls_loss, "R_loss": r_loss, "t_loss": t_loss,
             "mov_loss": mov_loss}
@@ -446,8 +450,8 @@ def pointnet2_local_loss(preds: dict, labels: dict,
     pred_r = preds["frame_R"][:, :, :nf]
     loss_1 = torch.mean((pred_r - gt_r) ** 2, dim=1)
     loss_2 = torch.mean((pred_r - F.flip_mat9_gripper(gt_r)) ** 2, dim=1)
-    r_loss = torch.mean(torch.minimum(loss_1, loss_2)) * 4.0
-    t_loss = torch.mean((preds["frame_t"][:, :, :nf]
+    r_loss = batch_mean(torch.minimum(loss_1, loss_2)) * 4.0
+    t_loss = batch_mean((preds["frame_t"][:, :, :nf]
                          - labels["best_frame_t"]) ** 2) * 20.0
     return {"cls_loss": cls_loss, "R_loss": r_loss, "t_loss": t_loss,
             "mov_loss": mov_loss}

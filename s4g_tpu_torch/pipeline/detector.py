@@ -26,7 +26,13 @@ else the config's TEST.WEIGHT (a reference `.pth` / `.pt`, or a
 checkpoint of `utils.checkpoint.Checkpointer`), else
 `output_dir/last_checkpoint`, else a random init from `seed`.
 
-Not ported yet: mesh serving (ROADMAP.md §1 item 7).
+Mesh serving (`mesh=`, a `parallel.make_mesh` mesh, one process per
+device): `detect_batch` shards the scenes over the ranks, as the JAX
+program's `shard_map`; each rank runs the whole single-device program on
+its B/W scenes with no collective, drawing the global batch's random
+numbers in the unsharded order and keeping its scenes' draws, and the
+results come back to every rank through the host.  `detect`,
+`detect_stream` and `eval` run on the rank alone.
 """
 
 from __future__ import annotations
@@ -39,10 +45,12 @@ from typing import Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs import processing_config as proc_cfg
 from ..configs.config import Config, load_cfg_from_file
 from ..models import build_model
+from ..parallel.mesh import mesh_device, shard_rows
 from ..runtime.device import resolve_device
 from ..utils.checkpoint import (Checkpointer, load_torch_checkpoint,
                                 model_state_dict)
@@ -51,7 +59,8 @@ from .collision import batch_view_non_collision
 from .postprocessing import (REAL2TRAIN, importance_sample,
                              post_process_predictions,
                              post_process_predictions_regression)
-from .preprocessing import preprocess_cloud, random_sample_fixed
+from .preprocessing import (preprocess_cloud, random_sample_fixed,
+                            sample_draws)
 
 _SUPPORTED_MODELS = ("curvature_model", "contact_model")
 _CONFIG_DIR = os.path.join(os.path.dirname(__file__), "..", "configs")
@@ -160,6 +169,12 @@ def post_batch(points: torch.Tensor, preds: dict, clouds: torch.Tensor,
     return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
 
+def _uniforms(generator: torch.Generator, shape, device) -> torch.Tensor:
+    """The importance sampling's uniforms, (B, num_selected): one draw for
+    the whole batch, after every scene's sample draws."""
+    return torch.rand(shape, generator=generator, device=device)
+
+
 def _grasps(out: dict, num_selected: int) -> Tuple[np.ndarray, np.ndarray]:
     """One scene's host outputs -> (poses, scores): the importance draws,
     duplicates kept (reference grasp_detector.py:240-250), or every valid
@@ -193,15 +208,21 @@ class GraspDetector:
                  cloud_capacity: int = 65536, num_candidates: int = 1024,
                  seed: int = 0, state_dict: Optional[dict] = None,
                  enable_voxel_downsample: bool = True,
-                 enable_outlier_removal: bool = True):
+                 enable_outlier_removal: bool = True, mesh=None):
         """`model`: "curvature_model", "contact_model" or a YAML path.
         `device`: "cuda" (the default) or "cpu" (the tests); without a GPU a
         detector is only made when the CPU is asked for.  `output_dir`
         (created here) holds checkpoints (`last_checkpoint`) and `detect`'s
         debug dumps.  `state_dict`: weights under the reference torch names
         (see utils/weights.py); without it they are resolved as the module
-        docstring says."""
-        self.device = resolve_device(device, "GraspDetector")
+        docstring says.  `mesh`: a `parallel.make_mesh` mesh over which
+        `detect_batch` shards its scenes (the detector then runs on its
+        rank's device; every rank builds it with the same arguments);
+        `detect_batch` batches must split over it."""
+        self.mesh = mesh
+        self.device = (resolve_device(device, "GraspDetector")
+                       if mesh is None else mesh_device(mesh))
+        self.lead = mesh is None or mesh.get_local_rank() == 0
         if model in _SUPPORTED_MODELS:
             cfg_path = os.path.join(_CONFIG_DIR, f"{model}.yaml")
         elif os.path.exists(model):
@@ -258,13 +279,19 @@ class GraspDetector:
 
     # -- host side ------------------------------------------------------------
 
-    def _pad_cloud(self, cloud_array: np.ndarray):
-        """(n, 3) -> padded (capacity, 3) + valid mask, on the device."""
+    def _fit_capacity(self, cloud_array: np.ndarray) -> np.ndarray:
+        """(n, 3) -> at most `cloud_capacity` of its points (a seeded
+        random subset when it has more)."""
         n = cloud_array.shape[0]
         if n > self.cloud_capacity:
             sel = self._np_rng.choice(n, self.cloud_capacity, replace=False)
             cloud_array = cloud_array[sel]
-            n = self.cloud_capacity
+        return cloud_array
+
+    def _pad_cloud(self, cloud_array: np.ndarray):
+        """(n, 3) -> padded (capacity, 3) + valid mask, on the device."""
+        cloud_array = self._fit_capacity(cloud_array)
+        n = cloud_array.shape[0]
         out = np.zeros((self.cloud_capacity, 3), np.float32)
         out[:n] = cloud_array
         # Park padding far outside the workspace so neighbour ops ignore it.
@@ -281,7 +308,7 @@ class GraspDetector:
     def _submit(self, arrays: List[np.ndarray], num_selected: int,
                 score_threshold: float, verticalness_threshold: float,
                 collision_check: bool, host: Optional[dict] = None,
-                timed: bool = False) -> dict:
+                timed: bool = False, rows: Optional[slice] = None) -> dict:
         """The first half of `detect_batch`: pad the scenes, then launch
         prep, the forward and post-processing, drawing the frame's random
         numbers from `self.generator` (the sample indices, then the
@@ -289,7 +316,12 @@ class GraspDetector:
         host buffers `host` (pinned on CUDA; reused by the caller once the
         returned event has fired).  Nothing here waits for the device
         except where an op reads a device value on the host.  `timed`
-        synchronizes after each stage for `timings`."""
+        synchronizes after each stage for `timings`.
+
+        `rows`: run only these scenes of `arrays` (a rank's), with the
+        draws the whole batch would give them: every scene is fitted to
+        the capacity, and the other scenes' sample draws are drawn and
+        dropped, in the unsharded order."""
         clock = [time.perf_counter()]
 
         def lap():
@@ -297,21 +329,24 @@ class GraspDetector:
                 self._sync()
                 clock.append(time.perf_counter())
 
-        padded, valids = zip(*(self._pad_cloud(a) for a in arrays))
+        rows = slice(0, len(arrays)) if rows is None else rows
+        arrays = [self._fit_capacity(a) for a in arrays]
+        padded, valids = zip(*(self._pad_cloud(a) for a in arrays[rows]))
         padded, valids = torch.stack(padded), torch.stack(valids)
         lap()
         with torch.no_grad():
+            self._skip_draws(rows.start)
             points = prep_batch(padded, valids, self.num_input,
                                 generator=self.generator,
                                 enable_voxel=self._enable_voxel,
                                 enable_outlier=self._enable_outlier)
+            self._skip_draws(len(arrays) - rows.stop)
             lap()
             preds = self.net({"scene_points":
                               points.transpose(1, 2).contiguous()})
             lap()
-            uniforms = torch.rand((len(arrays), num_selected),
-                                  generator=self.generator,
-                                  device=self.device)
+            uniforms = _uniforms(self.generator, (len(arrays), num_selected),
+                                 self.device)[rows]
             out = post_batch(points, preds, padded, valids, uniforms,
                              float(score_threshold),
                              float(verticalness_threshold),
@@ -330,7 +365,14 @@ class GraspDetector:
         else:
             host.update(out)
         return {"host": host, "event": event, "clock": clock,
-                "scenes": len(arrays), "num_selected": num_selected}
+                "scenes": rows.stop - rows.start,
+                "num_selected": num_selected}
+
+    def _skip_draws(self, scenes: int) -> None:
+        """Advance the generator past `scenes` scenes' sample draws."""
+        for _ in range(scenes):
+            sample_draws(self.cloud_capacity, self.num_input, self.generator,
+                         self.device)
 
     def _materialize(self, job: dict) -> List[Tuple[np.ndarray, np.ndarray]]:
         """The second half of `detect_batch`: wait for the job's copies,
@@ -358,12 +400,13 @@ class GraspDetector:
         synchronized) land in `self.timings`, the number of valid
         candidates in `self.last_num_valid`.  `debug` writes the returned
         scores and poses to `output_dir/debug` when there are any."""
-        (result,) = self.detect_batch([_as_cloud(cloud_array, cloud_mask)],
-                                      num_selected, score_threshold,
-                                      verticalness_threshold, collision_check)
+        (result,) = self._detect_batch([_as_cloud(cloud_array, cloud_mask)],
+                                       num_selected, score_threshold,
+                                       verticalness_threshold,
+                                       collision_check)
         self.last_num_valid = self.last_num_valid[0]
         poses, scores = result
-        if debug and len(poses):
+        if debug and len(poses) and self.lead:
             dbg = os.path.join(self.output_dir, "debug")
             os.makedirs(dbg, exist_ok=True)
             np.savetxt(os.path.join(dbg, "top_scores.txt"), scores,
@@ -381,17 +424,45 @@ class GraspDetector:
         preprocessed one by one, the model runs once on (B, 3, N), then
         post-processing runs per scene.
 
+        Under a mesh every rank is handed the whole batch, whose size the
+        world's must divide (else it raises before any work), runs its
+        B/W scenes (`_submit`'s `rows`) and returns all B results, gathered
+        through the host; `last_num_valid` is the whole batch's, `timings`
+        the rank's with the gather's "gather_ms".
+
         Args: clouds: a (B, n, 3) array or a sequence of B (n_i, 3)
             camera-frame clouds.
         Returns: per scene (poses (k_i, 4, 4), scores (k_i,)).  Per-stage
         wall times (ms, synchronized) land in `self.timings`, each scene's
         number of valid candidates in `self.last_num_valid` (a list)."""
         arrays = [np.asarray(c, np.float32) for c in clouds]
+        if self.mesh is None:
+            return self._detect_batch(arrays, num_selected, score_threshold,
+                                      verticalness_threshold,
+                                      collision_check)
+        rows = shard_rows(self.mesh, len(arrays))
+        results = self._detect_batch(arrays, num_selected, score_threshold,
+                                     verticalness_threshold, collision_check,
+                                     rows)
+        t0 = time.perf_counter()
+        parts = [None] * self.mesh.size()
+        dist.all_gather_object(parts, (results, self.last_num_valid),
+                               group=self.mesh.get_group())
+        self.timings["gather_ms"] = 1e3 * (time.perf_counter() - t0)
+        self.last_num_valid = [v for _, part in parts for v in part]
+        return [r for part, _ in parts for r in part]
+
+    def _detect_batch(self, arrays: List[np.ndarray], num_selected: int,
+                      score_threshold: float, verticalness_threshold: float,
+                      collision_check: bool, rows: Optional[slice] = None
+                      ) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """`detect_batch` on this process: the scenes `rows` of `arrays`
+        (all of them when None)."""
         if not arrays or any(a.ndim != 2 or a.shape[1] != 3 for a in arrays):
             raise ValueError("clouds must be B >= 1 arrays of shape (n, 3)")
         job = self._submit(arrays, num_selected, score_threshold,
                            verticalness_threshold, collision_check,
-                           timed=True)
+                           timed=True, rows=rows)
         results = self._materialize(job)
         t0, t1, t2, t3 = job["clock"]
         t4 = time.perf_counter()
@@ -399,7 +470,8 @@ class GraspDetector:
                         "model_ms": 1e3 * (t3 - t2),
                         "post_ms": 1e3 * (t4 - t3),
                         "total_ms": 1e3 * (t4 - t0)}
-        logger.info("detect (B=%d): %s", len(arrays), self.timings)
+        if self.lead:
+            logger.info("detect (B=%d): %s", job["scenes"], self.timings)
         return results
 
     def detect_stream(self, clouds: Iterable, depth: int = 2,

@@ -121,25 +121,34 @@ def radius_outlier_mask(points: torch.Tensor, valid: torch.Tensor,
     return valid & (torch.cat(counts) >= min_neighbors)
 
 
+def sample_draws(n: int, num_samples: int, generator: torch.Generator,
+                 device) -> tuple:
+    """`random_sample_fixed`'s draws for n candidates: (n,) uniforms, then
+    (num_samples,) positions.  Their shapes do not depend on the data, so
+    a caller that skips a scene draws them and drops them."""
+    u = torch.rand(n, generator=generator, device=device)
+    pos = torch.randint(0, _INT32_MAX, (num_samples,), generator=generator,
+                        device=device)
+    return u, pos
+
+
 def random_sample_fixed(valid: torch.Tensor, num_samples: int,
                         generator: torch.Generator) -> torch.Tensor:
     """Sample `num_samples` indices among valid ones: without replacement
     when enough valid points exist, with replacement otherwise.  Draws come
-    from `generator` (on the device of `valid`); the count of valid points
-    stays on the device.
+    from `generator` (on the device of `valid`, `sample_draws`); the count
+    of valid points stays on the device.
 
     Returns (num_samples,) int32 indices into the input axis."""
-    n = valid.shape[0]
     num_valid = valid.sum()
-    u = torch.rand(n, generator=generator, device=valid.device)
+    u, pos = sample_draws(valid.shape[0], num_samples, generator,
+                          valid.device)
     # Top-k of i.i.d. uniforms over the valid entries is a uniform sample
     # without replacement; ties keep the lower index (stable sort).
     scores = torch.where(valid, u, -1.0)
     order = torch.sort(scores, descending=True, stable=True).indices
     # With replacement: uniform positions among the valid entries, which
     # lead the sorted order.
-    pos = torch.randint(0, _INT32_MAX, (num_samples,), generator=generator,
-                        device=valid.device)
     with_replace = order[pos % torch.clamp(num_valid, min=1)]
     return torch.where(num_valid >= num_samples, order[:num_samples],
                        with_replace).to(torch.int32)

@@ -30,9 +30,11 @@ def scrubbed_cpu_env(n_devices: int | None = None) -> dict:
 
     `n_devices` keeps the JAX function's signature, so a caller passes the
     same arguments to either package; nothing reads it (the result is the
-    same for every value).  It is reserved for the multi-device port
-    (ROADMAP.md item 7): the CPU processes of a `torch.distributed` gloo
-    group get their count from the group, not from the environment."""
+    same for every value).  JAX reads its count of virtual CPU devices from
+    the environment (XLA_FLAGS); the CPU ranks of a `torch.distributed`
+    gloo group take nothing from it: each is a process of its own, and
+    the group's size and each rank come from `init_process_group` (or
+    torchrun's RANK / WORLD_SIZE), `parallel.make_mesh(["cpu"] * W)`."""
     del n_devices
     env = dict(os.environ)
     env["CUDA_VISIBLE_DEVICES"] = ""

@@ -2,11 +2,15 @@
 
 The reference released no trainer; this drives the reconstructed training
 stack: config -> SceneGraspDataset -> FileBackedSceneLoader -> Trainer.fit
-with checkpoint / resume, on one device.
+with checkpoint / resume, on one device, or data-parallel over the ranks
+of a launched world (one process per GPU; every rank loads the global
+batch and trains on its rows; rank 0 alone writes checkpoints and logs).
 
 Usage:
     python -m s4g_tpu_torch.tools.train --data-dir data/merged_data \
         --output output/curvature [--cfg PATH] [--device cpu]
+    torchrun --nproc_per_node=N -m s4g_tpu_torch.tools.train \
+        --data-dir data/merged_data --output output/curvature
 """
 
 from __future__ import annotations
@@ -33,12 +37,14 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     from ..configs.config import load_cfg_from_file
+    from ..parallel.mesh import launched_mesh
     from ..runtime.device import resolve_device
     from ..runtime.loader import FileBackedSceneLoader
     from ..train.dataset import SceneGraspDataset
     from ..train.trainer import Trainer
 
     dev = resolve_device(args.device, "train")
+    mesh = launched_mesh(dev)
     cfg = load_cfg_from_file(args.cfg)
     train_dir = args.data_dir or cfg.DATA.TRAIN.ROOT_DIR
     t_classification = cfg.MODEL.TYPE == "PN2_CLS"
@@ -67,7 +73,7 @@ def main(argv=None):
         val_loader = FileBackedSceneLoader(val_ds, num_workers=workers)
 
     trainer = Trainer(cfg, output_dir=args.output, steps_per_epoch=len(ds),
-                      device=dev)
+                      device=dev, mesh=mesh)
     return trainer.fit(loader, val_data=val_loader,
                        max_epochs=args.max_epochs)
 

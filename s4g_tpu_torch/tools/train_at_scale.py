@@ -11,6 +11,12 @@ The config sets neither SORT_POINTS nor FPS_SHARDS, so the route is the
 unsorted, exact-FPS one (K6 and K2f per SA stage, K4 per FP stage, K5 in
 the QA), as in the JAX tool.
 
+Under `torchrun --nproc_per_node=N` it trains data-parallel (one process
+per GPU, `--batch` the global batch): rank 0 alone generates the data,
+runs the QA and writes the outputs and the JSON; the validation pass and
+the timed steps are sharded over the ranks, as the JAX tool's
+`shard_batch`.
+
 Usage:
     python -m s4g_tpu_torch.tools.train_at_scale --out OUT --scenes 8 \
         --steps 300 --batch 4 [--object-set mixed --real-mesh MESH.obj] \
@@ -309,16 +315,28 @@ def main(argv=None) -> dict:
     if args.object_set == "mixed" and not args.real_mesh:
         parser.error("--object-set mixed needs --real-mesh PATH")
 
+    import torch.distributed as dist
+
     from ..datagen.generate import generate_scenes
     from ..datagen.scene_sim import ObjectSpec
+    from ..parallel.mesh import launched_mesh
     from ..runtime.device import resolve_device
     from ..train.dataset import SceneGraspDataset
     from ..train.trainer import Trainer
     from ..utils.logger import MetricLogger
 
     dev = resolve_device(args.device, "train_at_scale")
+    mesh = launched_mesh(dev)
+    lead = mesh is None or mesh.get_local_rank() == 0
+
+    def barrier():
+        if mesh is not None:
+            dist.barrier(group=mesh.get_group())
+
     device = str(dev)
     os.makedirs(args.out, exist_ok=True)
+    if not lead:
+        barrier()       # rank 0 writes the catalog's files and the data first
     if args.object_set == "box":
         sizes = [(0.030, 0.030, 0.030), (0.025, 0.025, 0.045),
                  (0.020, 0.035, 0.028), (0.033, 0.022, 0.040)]
@@ -351,7 +369,7 @@ def main(argv=None) -> dict:
     data_dir = os.path.join(args.out, "merged_data")
     val_root = os.path.join(args.out, "val")
     val_dir = os.path.join(val_root, "merged_data")
-    if not args.skip_datagen:
+    if not args.skip_datagen and lead:
         tic = time.time()
         common = dict(num_views=args.views, percentage=1.1,
                       label_capacity=16384, render_wh=(640, 480),
@@ -384,6 +402,8 @@ def main(argv=None) -> dict:
             json.dump(stats, f, indent=1)
         print(f"[datagen] stats -> {stats_path}: "
               + json.dumps(stats["summary"]), flush=True)
+    if lead:
+        barrier()
     if args.datagen_only:
         print("[datagen] done (--datagen-only), exiting before training",
               flush=True)
@@ -414,7 +434,8 @@ def main(argv=None) -> dict:
                                    num_frame_points=512, seed=1, cache=True)
 
     trainer = Trainer(cfg, output_dir=os.path.join(args.out, "train_out"),
-                      steps_per_epoch=steps_per_epoch, device=device)
+                      steps_per_epoch=steps_per_epoch, device=device,
+                      mesh=mesh)
     t0 = time.time()
     state = trainer.fit(ds, val_data=val_ds)
     wall = time.time() - t0
@@ -437,10 +458,13 @@ def main(argv=None) -> dict:
     # Detection QA with the fitted weights at full resolution, on a copy
     # taken BEFORE the steady-state loop below, which trains the model in
     # place.
-    fitted = copy.deepcopy(trainer.net.state_dict())
-    detect_qa = run_detect_qa(fitted, cfg, meshes, specs_of(777),
-                              args.num_points, device=device)
-    print("[detect-qa] " + json.dumps(detect_qa), flush=True)
+    detect_qa = None
+    if lead:
+        fitted = copy.deepcopy(trainer.net.state_dict())
+        detect_qa = run_detect_qa(fitted, cfg, meshes, specs_of(777),
+                                  args.num_points, device=device)
+        print("[detect-qa] " + json.dumps(detect_qa), flush=True)
+    barrier()
 
     # Steady-state step time, measured apart from the fit's wall clock
     # (CUDA events on the card, the host clock on the CPU).  Runs LAST: it
@@ -465,9 +489,10 @@ def main(argv=None) -> dict:
         "num_points": args.num_points,
         "device": device_label(dev),
     }
-    print("[summary] " + json.dumps(summary), flush=True)
-    with open(os.path.join(args.out, "scale_run.json"), "w") as f:
-        json.dump(summary, f, indent=1)
+    if lead:
+        print("[summary] " + json.dumps(summary), flush=True)
+        with open(os.path.join(args.out, "scale_run.json"), "w") as f:
+            json.dump(summary, f, indent=1)
     return summary
 
 

@@ -27,6 +27,8 @@ from typing import Callable, Sequence
 
 import torch
 
+from ..parallel.mesh import global_rows
+
 
 def _rot_z(angle: torch.Tensor) -> torch.Tensor:
     """(...,) angles -> (..., 3, 3) rotations about z."""
@@ -76,16 +78,20 @@ def _apply_rotation(batch: dict, rot: torch.Tensor) -> dict:
     return out
 
 
-# Every draw goes through these two, on the batch's device.
+# Every draw goes through these two, on the batch's device; within
+# `parallel.global_batch` at the global batch's shape, of which this rank
+# keeps its rows (shape[0] is the local batch).
 def _uniform(generator: torch.Generator, shape, like: torch.Tensor
              ) -> torch.Tensor:
     """Uniform in [0, 1)."""
-    return torch.rand(shape, generator=generator, device=like.device)
+    return global_rows(lambda s: torch.rand(s, generator=generator,
+                                            device=like.device), shape)
 
 
 def _normal(generator: torch.Generator, shape, like: torch.Tensor
             ) -> torch.Tensor:
-    return torch.randn(shape, generator=generator, device=like.device)
+    return global_rows(lambda s: torch.randn(s, generator=generator,
+                                             device=like.device), shape)
 
 
 def point_cloud_rotate(generator: torch.Generator, batch: dict) -> dict:

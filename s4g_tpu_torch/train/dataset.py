@@ -230,8 +230,14 @@ def batch_to_tensors(batch: dict, pin_memory: bool = False) -> dict:
         else out
 
 
+def as_tensor(x) -> torch.Tensor:
+    """A batch leaf as a tensor: a tensor as it is, a numpy array in the
+    dtype `batch_to_tensors` gives it."""
+    return x if isinstance(x, torch.Tensor) else _tensor(x)
+
+
 def batch_to_device(batch: dict, device) -> dict:
     """A numpy or tensor batch -> tensors on `device` (non-blocking copies
     from pinned memory)."""
-    return {k: (v if isinstance(v, torch.Tensor) else _tensor(v))
-            .to(device, non_blocking=True) for k, v in batch.items()}
+    return {k: as_tensor(v).to(device, non_blocking=True)
+            for k, v in batch.items()}

@@ -15,25 +15,39 @@ The step's scalars stay on the device until the log period, then come to
 the host in one copy: a copy per step would make every step wait for the
 card.
 
-One device only: the JAX trainer's mesh (data parallelism) is not ported
-yet (ROADMAP.md §1 item 7), so this Trainer takes no mesh.
+Data parallelism (`mesh=`, the JAX trainer's mesh): one process per
+device, each rank handed the global batch, of which it keeps its rows
+(`parallel.shard_batch`).  Forward, losses and metrics run within
+`parallel.global_batch`, so the BatchNorm statistics, the dropout masks,
+the augmentation draws and the loss denominators are the global batch's,
+as in the JAX program's one jitted step; each rank's loss is its share of
+the global loss, and the gradients are summed over the ranks
+(`all_reduce_grads`, one all-reduce per dtype) before the optimizer.  So
+parameters, optimizer moments, BatchNorm buffers and generator states stay
+equal on every rank.  The logged scalars are the global ones.  Rank 0
+alone writes checkpoints, in the single-device format, and logs; a
+barrier follows each checkpoint.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import time
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from ..configs.config import Config
 from ..models import build_loss_and_metric, build_model
+from ..parallel.mesh import (global_batch, launched_mesh, mesh_device,
+                             shard_batch)
 from ..runtime.device import resolve_device
 from ..utils.checkpoint import Checkpointer
 from ..utils.logger import MetricLogger, setup_logger
 from .augmentation import build_augmentation
-from .dataset import batch_to_device
+from .dataset import as_tensor, batch_to_device
 from .optim import build_lr_schedule, build_optimizer, set_learning_rate
 from .state import TrainState
 
@@ -52,14 +66,28 @@ def _to_host(steps: list) -> list:
 class Trainer:
     def __init__(self, cfg: Config, output_dir: str = "output",
                  steps_per_epoch: int = 1, device: Optional[str] = None,
-                 logger=None):
+                 logger=None, mesh=None):
         """`device`: "cuda" (the default) or "cpu" (the tests); without a
         GPU a trainer is only made when the CPU is asked for.
-        `steps_per_epoch` turns the schedule's epochs into steps."""
-        self.device = resolve_device(device, "Trainer")
+        `steps_per_epoch` turns the schedule's epochs into steps.  `mesh`:
+        a `parallel.make_mesh` mesh to train data-parallel over, on its
+        rank's device; None in a launched world of W > 1 ranks is
+        `make_mesh` over it (each rank on `device`: "cuda" is
+        cuda:LOCAL_RANK), as the JAX trainer defaults to every device, and
+        one device otherwise."""
+        if mesh is None:
+            mesh = launched_mesh(device)
+        self.mesh = mesh
+        self.device = (resolve_device(device, "Trainer") if mesh is None
+                       else mesh_device(mesh))
+        self.lead = mesh is None or mesh.get_local_rank() == 0
         self.cfg = cfg
         self.output_dir = output_dir
         os.makedirs(output_dir, exist_ok=True)
+        if not self.lead:           # rank 0 alone logs
+            logger = logging.getLogger(
+                f"S4G.train.rank{mesh.get_local_rank()}")
+            logger.setLevel(logging.WARNING)
         self.logger = logger or setup_logger("S4G.train", output_dir, "train")
         self.loss_fn, self.metric_fn = build_loss_and_metric(cfg)
         self.schedule = build_lr_schedule(cfg, steps_per_epoch)
@@ -79,12 +107,16 @@ class Trainer:
 
     def init_state(self, seed: Optional[int] = None) -> TrainState:
         """A fresh model from `seed` (cfg.RNG_SEED), a fresh optimizer over
-        its trainable parameters, the generator seeded, step 0."""
+        its trainable parameters, the generator seeded, step 0.  Under a
+        mesh every rank builds it and takes rank 0's."""
         seed = self.cfg.RNG_SEED if seed is None else seed
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             net = build_model(self.cfg)
         self.net = net.to(self.device).train()
+        if self.mesh is not None:
+            for t in self.net.state_dict().values():
+                dist.broadcast(t, src=0, group=self.mesh.get_group())
         self.optimizer = build_optimizer(self.cfg, self.net.parameters())
         self.generator.manual_seed(seed)
         self.step = 0
@@ -117,15 +149,24 @@ class Trainer:
 
     # -- steps ---------------------------------------------------------------
 
+    def _on_device(self, batch: dict) -> dict:
+        """The global batch -> this rank's rows on its device (the whole
+        batch without a mesh)."""
+        if self.mesh is None:
+            return batch_to_device(batch, self.device)
+        return shard_batch(self.mesh, {k: as_tensor(v)
+                                       for k, v in batch.items()})
+
     def forward_loss(self, batch: dict) -> tuple:
-        """The batch on the device and augmented, the training-mode
-        forward and the loss dict: (total loss, loss dict, predictions,
-        batch)."""
-        batch = self.augment(self.generator,
-                             batch_to_device(batch, self.device))
-        self.net.train()
-        preds = self.net(batch, generator=self.generator)
-        loss_dict = self.loss_fn(preds, batch)
+        """The (global) batch on the device (this rank's rows) and
+        augmented, the training-mode forward and the loss dict: (total
+        loss, loss dict, predictions, batch); under a mesh the losses are
+        this rank's shares."""
+        with global_batch(self.mesh):
+            batch = self.augment(self.generator, self._on_device(batch))
+            self.net.train()
+            preds = self.net(batch, generator=self.generator)
+            loss_dict = self.loss_fn(preds, batch)
         # The JAX trainer sums the dict's leaves, which come in key order.
         total = sum(loss_dict[k] for k in sorted(loss_dict))
         return total, loss_dict, preds, batch
@@ -133,6 +174,36 @@ class Trainer:
     def backward(self, total: torch.Tensor) -> None:
         self.optimizer.zero_grad(set_to_none=True)
         total.backward()
+        if self.mesh is not None:
+            self.all_reduce_grads()
+
+    def all_reduce_grads(self) -> None:
+        """Sum every gradient over the ranks: one all-reduce of the
+        gradients flattened together, per dtype."""
+        grads = {}
+        for p in self.net.parameters():
+            if p.grad is not None:
+                grads.setdefault(p.grad.dtype, []).append(p.grad)
+        for group in grads.values():
+            flat = torch.cat([g.reshape(-1) for g in group])
+            dist.all_reduce(flat, group=self.mesh.get_group())
+            offset = 0
+            for g in group:
+                g.copy_(flat[offset:offset + g.numel()].view_as(g))
+                offset += g.numel()
+
+    def _global_scalars(self, scalars: dict, losses) -> dict:
+        """Under a mesh, the scalars over the global batch: the loss
+        shares summed over the ranks, the metrics' means averaged (one
+        all-reduce)."""
+        if self.mesh is None:
+            return scalars
+        keys = list(scalars)
+        vec = torch.stack([scalars[k].double() for k in keys])
+        dist.all_reduce(vec, group=self.mesh.get_group())
+        world = self.mesh.size()
+        return {k: (vec[i] if k in losses else vec[i] / world)
+                .to(scalars[k].dtype) for i, k in enumerate(keys)}
 
     def update(self) -> None:
         """The optimizer's step at the schedule's learning rate for the
@@ -147,22 +218,24 @@ class Trainer:
         total, loss_dict, preds, batch = self.forward_loss(batch)
         self.backward(total)
         self.update()
-        with torch.no_grad():
+        with torch.no_grad(), global_batch(self.mesh):
             metrics = self.metric_fn(preds, batch)
             scalars = {k: torch.mean(v.detach().float())
                        for k, v in {**loss_dict, **metrics}.items()}
         scalars["total_loss"] = total.detach()
-        return scalars
+        return self._global_scalars(scalars, {*loss_dict, "total_loss"})
 
     def val_step(self, batch: dict) -> dict:
-        """Losses and metrics' means in eval mode, as device scalars."""
-        batch = batch_to_device(batch, self.device)
+        """Losses and metrics' means in eval mode, as device scalars (over
+        the global batch under a mesh)."""
+        batch = self._on_device(batch)
         self.net.eval()
-        with torch.no_grad():
+        with torch.no_grad(), global_batch(self.mesh):
             preds = self.net(batch)
-            out = {**self.loss_fn(preds, batch),
-                   **self.metric_fn(preds, batch)}
-            return {k: torch.mean(v.float()) for k, v in out.items()}
+            losses = self.loss_fn(preds, batch)
+            out = {**losses, **self.metric_fn(preds, batch)}
+            return self._global_scalars(
+                {k: torch.mean(v.float()) for k, v in out.items()}, losses)
 
     # -- loop ----------------------------------------------------------------
 
@@ -213,9 +286,16 @@ class Trainer:
                 self.logger.info("VAL epoch %d  %s", epoch, val_meters)
 
             if (epoch + 1) % ckpt_period == 0 or epoch + 1 == max_epochs:
-                self.checkpointer.save(f"model_{epoch + 1:03d}",
-                                       self.state().to_checkpoint())
+                self.save_checkpoint(f"model_{epoch + 1:03d}")
         return self.state()
+
+    def save_checkpoint(self, name: str) -> None:
+        """`Checkpointer.save` of the state, by rank 0 alone under a mesh,
+        then a barrier: every rank can read it once this returns."""
+        if self.lead:
+            self.checkpointer.save(name, self.state().to_checkpoint())
+        if self.mesh is not None:
+            dist.barrier(group=self.mesh.get_group())
 
     @staticmethod
     def _log(meters: MetricLogger, pending: list) -> None:

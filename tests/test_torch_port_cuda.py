@@ -12,6 +12,8 @@ JAX (the tests here import no JAX):
         tests/test_torch_port_cuda.py -q
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1269,3 +1271,148 @@ def test_measure_fps_sharded_names_k1_and_k6(cuda, tmp_path):
         names = [row[2] for row in got["kernels"]]
         assert any(name in n for n in names), names
         assert got["device_ms_per_exec"] > 0
+
+
+# -- data parallelism on the card (s4g_tpu_torch.parallel) -----------------------
+
+def _gpu_detector(tmp, name, mesh=None):
+    from test_torch_port_parallel import CANDIDATES, CAPACITY
+    return GraspDetector(model=os.path.join(tmp, "tiny.yaml"),
+                         output_dir=os.path.join(tmp, name),
+                         cloud_capacity=CAPACITY, num_candidates=CANDIDATES,
+                         seed=5, mesh=mesh)
+
+
+def _nccl_rank(rank, world, tmp, port):
+    """A launched world of one: its mesh takes NCCL.  Two train steps and
+    a detect_batch with the mesh and without, under
+    use_deterministic_algorithms (the gather's backward sums with atomics
+    otherwise)."""
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    import torch.distributed as dist
+    from s4g_tpu_torch.parallel import make_mesh
+    from test_torch_port_parallel import NUM_SELECTED, THRESHOLDS, clouds
+    from test_torch_port_parallel_train import (_flat, _steps, tiny_batch,
+                                                tiny_cfg)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    mesh = make_mesh()
+    out = {"backend": dist.get_backend()}
+    for name, m in (("mesh", mesh), ("plain", None)):
+        _flat(f"{name}/train/", _steps(
+            m, tiny_cfg(0.5, ("PointCloudRotate",)),
+            [tiny_batch(4, s) for s in range(2)],
+            os.path.join(tmp, name), device="cuda"), out)
+        det = _gpu_detector(tmp, f"det_{name}", m)
+        for i, (p, s) in enumerate(det.detect_batch(
+                clouds(2), num_selected=NUM_SELECTED, **THRESHOLDS)):
+            out[f"{name}/detect/{i}/poses"] = p
+            out[f"{name}/detect/{i}/scores"] = s
+    np.savez(os.path.join(tmp, "nccl.npz"), **out)
+    dist.destroy_process_group()
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def test_nccl_world_of_one_is_bit_exact(cuda, tmp_path):
+    """A world of one launched as torchrun launches it takes NCCL; two
+    train steps (dropout and augmentation on) and a detect_batch with its
+    mesh are bit for bit the same calls without one."""
+    import torch.multiprocessing as mp
+    import yaml
+    from test_torch_port_parallel import TINY
+    (tmp_path / "tiny.yaml").write_text(yaml.safe_dump(TINY))
+    mp.start_processes(_nccl_rank, args=(1, str(tmp_path), _free_port()),
+                       nprocs=1, start_method="spawn")
+    got = dict(np.load(tmp_path / "nccl.npz"))
+    assert str(got["backend"]) == "nccl"
+    plain = {k[len("plain/"):]: v for k, v in got.items()
+             if k.startswith("plain/")}
+    assert len(plain) > 20
+    for k, v in plain.items():
+        np.testing.assert_array_equal(got[f"mesh/{k}"], v, err_msg=k)
+
+
+def _gloo_rank(rank, world, tmp):
+    """One of two gloo ranks that share cuda:0: two sharded train steps,
+    and detect_batch over 4 scenes with its draws recorded, then a single
+    process's call over this rank's scenes on those draws."""
+    import torch.distributed as dist
+    from s4g_tpu_torch.parallel import make_mesh, shard_rows
+    from test_torch_port_parallel import (NUM_SELECTED, THRESHOLDS, _recording,
+                                          _replaying, _results, _run, clouds)
+    from test_torch_port_parallel_train import (_flat, _steps, tiny_batch,
+                                                tiny_cfg)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous",
+                            rank=rank, world_size=world)
+    mesh = make_mesh(["cuda:0"] * world)
+    out = {"backend": dist.get_backend()}
+    _flat("train/", _steps(mesh, tiny_cfg(0.5, ("PointCloudRotate",)),
+                           [tiny_batch(4, s) for s in range(2)],
+                           os.path.join(tmp, f"train{rank}")), out)
+    det = _gpu_detector(tmp, f"det{rank}", mesh)
+    samples, uniforms = [], []
+    _results("sharded", _run(_recording(samples, uniforms),
+                             lambda: det.detect_batch(
+                                 clouds(4), num_selected=NUM_SELECTED,
+                                 **THRESHOLDS)), out)
+    rows = shard_rows(mesh, 4)
+    single = _gpu_detector(tmp, f"single{rank}")
+    _results("replayed", _run(_replaying(samples, uniforms[0][rows]),
+                              lambda: single.detect_batch(
+                                  clouds(4)[rows], num_selected=NUM_SELECTED,
+                                  **THRESHOLDS)), out)
+    np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
+    dist.destroy_process_group()
+
+
+def test_two_gloo_ranks_share_the_card(cuda, tmp_path):
+    """Two gloo ranks on cuda:0 (NCCL refuses two ranks on one GPU): the
+    ranks' train states, gradients and generators bit for bit equal, the
+    losses and gradients within tests/test_train.py's data-parallel
+    tolerances of one process's steps on the card; detect_batch returns
+    the same four results on both ranks, each rank's scenes bit for bit a
+    single process's call over them on the same draws."""
+    import torch.multiprocessing as mp
+    import yaml
+    from test_torch_port_parallel import TINY
+    from test_torch_port_parallel_train import (_flat, _steps, tiny_batch,
+                                                tiny_cfg)
+    (tmp_path / "tiny.yaml").write_text(yaml.safe_dump(TINY))
+    mp.start_processes(_gloo_rank, args=(2, str(tmp_path)), nprocs=2,
+                       start_method="spawn")
+    ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(2)]
+    assert str(ranks[0]["backend"]) == "gloo"
+    for k, v in ranks[0].items():
+        if k.startswith(("train/grads", "train/state", "train/generator",
+                         "sharded/")):
+            np.testing.assert_array_equal(ranks[1][k], v, err_msg=k)
+    for r, got in enumerate(ranks):
+        for i in range(2):
+            for part in ("poses", "scores"):
+                np.testing.assert_array_equal(
+                    got[f"replayed/{i}/{part}"],
+                    got[f"sharded/{2 * r + i}/{part}"])
+    want = _flat("train/", _steps(None, tiny_cfg(0.5, ("PointCloudRotate",)),
+                                  [tiny_batch(4, s) for s in range(2)],
+                                  str(tmp_path / "single"),
+                                  device="cuda"), {})
+    for k, v in want.items():
+        got = ranks[0][k]
+        if k.startswith("train/scalars"):
+            np.testing.assert_allclose(got, v, rtol=2e-5, atol=1e-7,
+                                       err_msg=k)
+        elif k.startswith("train/grads0"):
+            scale = max(float(np.abs(v).max()), 1e-3)
+            np.testing.assert_allclose(got, v, rtol=2e-3, atol=5e-4 * scale,
+                                       err_msg=k)
