@@ -55,7 +55,11 @@ run, but the run then exits non-zero without printing a result:
    f32 within 1e-5) plus one f32 case at SA2's shape, timed per forward
    beside its twin, its bound, the fused route as the model calls it (the
    packed-operand cache, casts and kernel launches) and the unfused route,
-   with each chain's launches (FP1 and FP2 run one layer a launch);
+   with each chain's launches (FP1 and FP2 run one layer a launch); then
+   K8 (the gathers' fixed-order backward, `_k8_phase`) at each of its
+   eleven calls in a deployed train step at b = 4, bit for bit against
+   its twin, timed beside its bound, the library's atomic `index_add_`
+   and torch's scatter-add under `use_deterministic_algorithms`;
 3. reference: the detect stages at a narrow width that still takes every
    kernel route, on the GPU and on the CPU (plain twins), each stage fed
    the same inputs on both devices (see `_reference_phase`); then the
@@ -70,8 +74,9 @@ run, but the run then exits non-zero without printing a result:
    devices from the same weights and batch: losses, metrics, every
    gradient and the BatchNorm statistics after it
    (`_train_reference_phase`), with the spread of the GPU's gradients
-   between two of its own runs and under `use_deterministic_algorithms`
-   printed beside it; then the detect stages of EDGEPN2D and EDGEPN2DU
+   between two of its own runs (bit for bit) and under
+   `use_deterministic_algorithms` printed beside it; then the detect
+   stages of EDGEPN2D and EDGEPN2DU
    at a narrow four-stage pyramid (`_edge_reference_phase`: K6, K2f, K4,
    K5) and one narrow PN2_LOCAL candidate-mode train step
    (`_local_reference_phase`), GPU vs CPU; then `eval_frames` at the
@@ -114,7 +119,9 @@ run, but the run then exits non-zero without printing a result:
    new Trainer resumed from `last_checkpoint` for epoch 2), one step with
    its host synchronizations counted, one profiled step and one step with
    every augmentation; the median step ms split into forward, backward
-   and optimizer, and the peak device memory; then the other model types
+   and optimizer, and the peak device memory; the deployed step at b = 4
+   twice from one state, bit for bit (`_rerun_phase`); then the other
+   model types
    at full width: EDGEPN2D and EDGEPN2DU served through
    `GraspDetector(<yaml>)` at the reference's four-stage pyramid
    (`_edge_phase`: detect x3, clutter, detect_batch b = 2; K6, K2f, K4
@@ -2097,22 +2104,24 @@ def _train_reference_phase(torch, np, devices=("cpu", "cuda")):
     the deployed train step (NARROW: SA1 through K2, SA2 and SA3 through
     K2f, FP 8192 <- 1024 through K4, FPS nested through K1), f32, dropout
     0, no augmentation, b = 2, on the GPU and on the CPU (plain twins) from
-    the same state_dict and batch (`_compare_steps`; the GPU's gather
-    backward sums with atomics, so nothing is compared bit for bit; each
-    gradient within 2e-2 of its tensor's largest, as train-mode BatchNorm
-    amplifies f32 rounding).  Every comparison is made before the first
-    failure is raised, so the result names the worst of each.
+    the same state_dict and batch (`_compare_steps`; the two devices' sums
+    run in other orders, so GPU vs CPU is not bit for bit; each gradient
+    within 2e-2 of its tensor's largest, as train-mode BatchNorm amplifies
+    f32 rounding).  Every comparison is made before the first failure is
+    raised, so the result names the worst of each.
 
     Where the GPU's gradients part from the CPU's: the GPU step runs twice
-    more, once as before and once under `torch.use_deterministic_algorithms(
-    True, warn_only=True)` (the ops without a deterministic CUDA version
-    warn and run as before; they are counted), and the same step runs in
-    float64 on both devices (`_f64_net`); printed beside the GPU-vs-CPU
-    spread (`_grad_spread`: the largest error over its tensor's largest,
-    and the least cosine): the GPU's spread between its own runs, the
-    float64 steps' spread between the devices (which must be within 1e-6:
-    the two devices compute the same function) and each f32 step's
-    distance from the float64 one.  The 2e-2 gate stays on GPU vs CPU."""
+    more, once as before, which must give the same gradients bit for bit
+    (the gathers' backward is K8, in a fixed order), and once under
+    `torch.use_deterministic_algorithms(True, warn_only=True)` (the ops
+    without a deterministic CUDA version warn and run as before; they are
+    counted), and the same step runs in float64 on both devices
+    (`_f64_net`); printed beside the GPU-vs-CPU spread (`_grad_spread`:
+    the largest error over its tensor's largest, and the least cosine):
+    the GPU's spread between its own runs, the float64 steps' spread
+    between the devices (which must be within 1e-6: the two devices
+    compute the same function) and each f32 step's distance from the
+    float64 one.  The 2e-2 gate stays on GPU vs CPU."""
     import warnings
     from s4g_tpu_torch.configs.config import load_cfg_from_dict
     from s4g_tpu_torch.train.dataset import SceneGraspDataset
@@ -2149,6 +2158,10 @@ def _train_reference_phase(torch, np, devices=("cpu", "cuda")):
                         "cpu_vs_f64": (cpu, cpu64)}.items():
         err, where, cos = _grad_spread(a["grads"], b["grads"])
         spread[key] = {"max_grad_err": err, "at": where, "min_cos": cos}
+    if not all(torch.equal(again["grads"][n], g)
+               for n, g in gpu["grads"].items()):
+        bad.append(f"the GPU's step rerun: gradients differ by "
+                   f"{spread['gpu_vs_gpu']}")
     if spread["f64_gpu_vs_f64_cpu"]["max_grad_err"] > 1e-6:
         bad.append(f"float64 steps: gradients differ by "
                    f"{spread['f64_gpu_vs_f64_cpu']}")
@@ -2165,6 +2178,149 @@ def _train_reference_phase(torch, np, devices=("cpu", "cuda")):
     return res
 
 
+def _k8_per_step(net) -> int:
+    """K8 launches of one train step's backward of `net` (a PointNet2
+    backbone): one for each gather whose source carries a gradient: the
+    grouping of every SA stage that has features (but the global one, which
+    gathers nothing), an edge stage's centroid features where it samples,
+    and an FP stage's 3-NN gathers (one per neighbour; an edge FP stage
+    groups the three in one).  The widest-axis sort and restore are
+    permutations and keep torch.gather."""
+    from s4g_tpu_torch.models.pn2_modules import EdgeFPModule
+    count, features = 0, False
+    for sa in net.sa_modules:
+        if features and sa.num_centroids != 0:
+            count += 1 + int(sa.edge and sa.num_centroids > 0)
+        features = True
+    return count + sum((1 if isinstance(fp, EdgeFPModule) else 3)
+                       for fp in net.fp_modules if fp.num_neighbors == 3)
+
+
+K8_BATCH = 4             # the deployed step's batch in the K8 phase
+
+
+def _k8_cases(torch, np, device: str = "cuda"):
+    """The inputs of every K8 call in one deployed train step at b =
+    K8_BATCH (`_train_config`: full width, bf16, dropout 0.5; the train
+    phase's scene pickles): `ops.gather.gather_backward` wrapped to keep
+    each call's (gradient, index, N), in the backward's order (FP3's
+    three neighbours, FP2's, FP1's, SA3, SA2)."""
+    from s4g_tpu_torch.ops import gather as gt
+    from s4g_tpu_torch.train.dataset import SceneGraspDataset
+    from s4g_tpu_torch.train.trainer import Trainer
+
+    cfg = _train_config(BATCH_SIZE=K8_BATCH)
+    batch = next(iter(SceneGraspDataset(
+        _train_data(np), num_points=cfg.MODEL.PN2.NUM_INPUT,
+        score_classes=cfg.DATA.SCORE_CLASSES, batch_size=K8_BATCH,
+        num_frame_points=TRAIN_FRAME_POINTS, t_classification=True,
+        seed=cfg.RNG_SEED,
+        num_removal_directions=cfg.DATA.NUM_REMOVAL_DIRECTIONS)))
+    tr = Trainer(cfg, output_dir=_output_dir("k8"), device=device,
+                 logger=_train_logger())
+    tr.init_state()
+    cases, real = [], gt.gather_backward
+
+    def keep(grad, index, n):
+        cases.append((grad.detach().clone(), index.clone(), n))
+        return real(grad, index, n)
+
+    gt.gather_backward = keep
+    try:
+        tr.train_step(batch)
+    finally:
+        gt.gather_backward = real
+    if len(cases) != _k8_per_step(tr.net):
+        raise AssertionError(f"K8: {len(cases)} calls in a step, expected "
+                             f"{_k8_per_step(tr.net)}")
+    return cases
+
+
+def _k8_phase(torch, np, extras, device: str = "cuda"):
+    """K8 (the fixed-order gather backward) at each of its calls in a
+    deployed train step at b = K8_BATCH (`_k8_cases`): the kernel on the
+    call's row lists held bit for bit against its twin on the card (the
+    same f32 adds in the same order); timed per call (CUDA-graph replays):
+    the kernel alone, the whole backward with its stable sort and offsets
+    (`gather_backward`), the library's atomic `index_add_` into zeros (the
+    route torch.gather's backward takes, in no fixed order), and torch's
+    scatter-add under `use_deterministic_algorithms` (event-timed: it may
+    wait on the device); the twin event-timed.  The bound: every source
+    gradient read once, every destination written once, the order and
+    offset lists (4 B an entry), over the HBM rate.  Returns the kernels
+    line's tuple, per step (the calls' sums)."""
+    from s4g_tpu_torch import _build
+    from s4g_tpu_torch.ops import gather as gt
+
+    calls, err = [], 0.0
+    for grad, index, n in _k8_cases(torch, np, device):
+        b, m, c = grad.shape
+        g2 = grad.reshape(b * m, c)
+        order, offsets = gt.row_lists(index, n)
+        code = gt._DTYPES[grad.dtype]
+        out = torch.empty(b * n, c, dtype=grad.dtype, device=grad.device)
+
+        def kernel():
+            _build.launch("gather_backward", g2, order, offsets, b * n, c,
+                          code, out)
+
+        kernel()
+        want = gt._fixed_order_sum(g2, order, offsets)
+        err = max(err, _compare(f"gather_backward {b}x{m}x{c} -> {n}",
+                                [out], [want], True))
+        dest = (index.long() + n * torch.arange(
+            b, device=index.device)[:, None]).reshape(-1)
+        scatter_idx = index.long()[..., None].expand(-1, -1, c)
+        k_ms = _graph_ms(kernel)
+        full_ms = _graph_ms(lambda: gt.gather_backward(grad, index, n))
+        lib_ms = _graph_ms(lambda: torch.zeros(
+            b * n, c, dtype=grad.dtype, device=grad.device).index_add_(
+                0, dest, g2))
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            def scatter():
+                return torch.zeros(b, n, c, dtype=grad.dtype,
+                                   device=grad.device).scatter_add_(
+                    1, scatter_idx, grad)
+            det_ms = _event_ms(scatter, reps=5, warmup=1)
+            det_same = torch.equal(scatter().reshape(b * n, c), want)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        p_ms = _event_ms(lambda: gt._fixed_order_sum(g2, order, offsets),
+                         reps=3, warmup=1)
+        es = grad.element_size()
+        nbytes = (b * m + b * n) * c * es + 4 * (b * m + b * n + 1)
+        b_ms = 1e3 * nbytes / PEAK_BYTES
+        sources = (offsets[1:] - offsets[:-1]).long()
+        row = {"shape": f"{b}x{m}x{c} -> {b}x{n}x{c}",
+               "dtype": str(grad.dtype), "ms": k_ms, "backward_ms": full_ms,
+               "bound_ms": b_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+               "deterministic_ms": det_ms,
+               "deterministic_equals_k8": det_same,
+               "most_sources_a_row": int(sources.max()),
+               "rows_without_source": int((sources == 0).sum())}
+        calls.append(row)
+        print(f"kernel gather_backward {row['shape']} ({row['dtype']}): "
+              f"kernel {k_ms:.4f} ms, with its sort {full_ms:.4f}, bound "
+              f"{b_ms:.4f} (bytes), atomic index_add_ {lib_ms:.4f}, "
+              f"deterministic scatter_add_ {det_ms:.4f} (equal to K8: "
+              f"{det_same}), plain {p_ms:.3f}; most sources a row "
+              f"{row['most_sources_a_row']}, rows without one "
+              f"{row['rows_without_source']}", flush=True)
+    step = {k: sum(r[k] for r in calls) for k in (
+        "ms", "backward_ms", "bound_ms", "plain_ms", "library_ms",
+        "deterministic_ms")}
+    extras["gather_backward"] = {
+        "library_ms": step["library_ms"],
+        "backward_ms_per_step": step["backward_ms"],
+        "deterministic_ms_per_step": step["deterministic_ms"],
+        "calls_per_step": calls, "card": _nvidia_smi()}
+    return ("gather_backward", "s4g_tpu_torch/csrc/gather_backward.cu",
+            "none: the backward of s4g_tpu/ops/gather.py:5-7 (XLA "
+            "scatter-add; no Pallas kernel)", err, step["ms"],
+            step["plain_ms"], step["bound_ms"], "bytes")
+
+
 def _cuda_event(torch):
     return torch.cuda.Event(enable_timing=True)
 
@@ -2173,8 +2329,9 @@ def _instrument(trainer, kind_launches, shim, records, torch):
     """Wrap `trainer`'s steps (instance attributes, which `fit` calls): each
     train and val step's launches are counted on their own and must be
     exactly `_deployed_launches` at the batch, given the SA1 overflow the
-    step reported (train: K2, or K2f on overflow; val, eval at b = 2: K3,
-    or K2f on overflow; no K5); a train step's scalars are kept, and CUDA
+    step reported (train: K2, or K2f on overflow, and K8 once per gather
+    with a gradient, `_k8_per_step`; val, eval at b = 2: K3, or K2f on
+    overflow; no K5); a train step's scalars are kept, and CUDA
     events time the whole step and its forward (with the loss), backward
     and optimizer update."""
     from s4g_tpu_torch import _build
@@ -2196,7 +2353,9 @@ def _instrument(trainer, kind_launches, shim, records, torch):
             overflow = (nb.SLAB_FALLBACKS["overflow"]
                         + sf.SA1_FALLBACKS["overflow"]) > over
             want = {**_deployed_launches(shim, b, overflow, fused=fused),
-                    "collision_counts": 0}
+                    "collision_counts": 0,
+                    "gather_backward": (0 if kind == "val"
+                                        else _k8_per_step(trainer.net))}
             if launches != want:
                 raise AssertionError(f"{kind} step: launches {launches}, "
                                      f"expected {want}")
@@ -2257,10 +2416,12 @@ def _train_phase(torch, np, device: str = "cuda"):
     step of a third trainer, resumed, with every augmentation on.  Every
     train and val step's launches are held exactly (`_instrument`); the
     scalars must be finite, and every parameter and BatchNorm running
-    statistic must have moved.  Prints the median step ms after the first,
-    split into forward, backward and optimizer, the peak device memory and
-    the synchronizations per step.  Returns the launches of the train and
-    val steps and those numbers."""
+    statistic must have moved.  Then the deployed step at b = K8_BATCH
+    twice from one state, bit for bit (`_rerun_phase`).  Prints the median
+    step ms after the first, split into forward, backward and optimizer,
+    the peak device memory and the synchronizations per step.  Returns the
+    launches of the train and val steps and of the rerun, and those
+    numbers."""
     from types import SimpleNamespace
     from s4g_tpu_torch.runtime.loader import FileBackedSceneLoader
     from s4g_tpu_torch.train.dataset import SceneGraspDataset
@@ -2328,6 +2489,7 @@ def _train_phase(torch, np, device: str = "cuda"):
     if start.step != 2 * steps_per_epoch:
         raise AssertionError(f"augmented trainer resumed at {start.step}")
     third.train_step(batch)
+    rerun = _rerun_phase(torch, np, device)
 
     for rec in records["train"]:
         bad = [k for k, v in rec["scalars"].items()
@@ -2363,8 +2525,46 @@ def _train_phase(torch, np, device: str = "cuda"):
               for k, v in records["train"][-1]["scalars"].items()),
           flush=True)
     numbers["profile"] = profile
-    return ({"train_step": launches["train"], "val_step": launches["val"]},
-            numbers)
+    numbers["rerun"] = rerun[1]
+    return ({"train_step": launches["train"], "val_step": launches["val"],
+             "train_step_rerun": rerun[0]}, numbers)
+
+
+def _rerun_phase(torch, np, device: str = "cuda"):
+    """The deployed train step (`_train_config`: full width, bf16, dropout
+    0.5) at b = K8_BATCH run twice from one state, the model, the
+    optimizer's moments and the generator restored in between
+    (`tools/train_repeat.rerun`), each step's launches exact
+    (`_instrument`, K8 `_k8_per_step` times): the scalars, every gradient
+    and the state after the update (parameters after Adam, BatchNorm
+    statistics) must be equal bit for bit.  Returns the launches of the
+    two steps and the spread."""
+    from types import SimpleNamespace
+    from s4g_tpu_torch.tools.train_repeat import rerun
+    from s4g_tpu_torch.train.dataset import SceneGraspDataset
+    from s4g_tpu_torch.train.trainer import Trainer
+
+    cfg = _train_config(BATCH_SIZE=K8_BATCH)
+    batch = next(iter(SceneGraspDataset(
+        _train_data(np), num_points=cfg.MODEL.PN2.NUM_INPUT,
+        score_classes=cfg.DATA.SCORE_CLASSES, batch_size=K8_BATCH,
+        num_frame_points=TRAIN_FRAME_POINTS, t_classification=True,
+        seed=cfg.RNG_SEED,
+        num_removal_directions=cfg.DATA.NUM_REMOVAL_DIRECTIONS)))
+    tr = Trainer(cfg, output_dir=_output_dir("train_rerun"), device=device,
+                 logger=_train_logger())
+    tr.init_state()
+    launches, records = {"train": {}, "val": {}}, {"train": [], "val": []}
+    _instrument(tr, launches, SimpleNamespace(
+        cfg=cfg, num_input=cfg.MODEL.PN2.NUM_INPUT), records, torch)
+    spread = rerun(tr, batch)
+    print(f"train rerun ({_nvidia_smi()}): the deployed step at b = "
+          f"{K8_BATCH} twice from one state: {json.dumps(spread)}; "
+          f"launches of the two {launches['train']}", flush=True)
+    if not all(v["bit_equal"] for v in spread.values()):
+        raise AssertionError(f"the deployed train step does not repeat: "
+                             f"{spread}")
+    return launches["train"], spread
 
 
 # -- the other model types ---------------------------------------------------
@@ -4219,8 +4419,9 @@ def _train_cli_phase(torch, np, device: str = "cuda"):
     """`tools/train` at full width (the port's curvature_model.yaml, b = 2)
     for one epoch of `_train_data`'s six pickles in its own directory,
     validating on two of them copied into another (`--val-dir`): 3 steps,
-    each step's launches exact and timed with CUDA events (the class's
-    `train_step` wrapped for the call), then one validation step at b = 2,
+    each step's launches exact (K8 `_k8_per_step` times) and timed with
+    CUDA events (the class's `train_step` wrapped for the call), then one
+    validation step at b = 2,
     its launches exact (SA1 through K3 in eval mode), then the checkpoint
     it wrote (`model_001`, through `last_checkpoint`) read back equal to
     the final weights.  Returns the launches and the numbers."""
@@ -4249,7 +4450,8 @@ def _train_cli_phase(torch, np, device: str = "cuda"):
         result = real(self, batch)
         end.record()
         launches = {k: _build.LAUNCHES[k] - before[k] for k in before}
-        want = _forward_launches(2, 1, _overflows() - over, fused=False)
+        want = {**_forward_launches(2, 1, _overflows() - over, fused=False),
+                "gather_backward": _k8_per_step(self.net)}
         if launches != want:
             raise AssertionError(f"train CLI step: launches {launches}, "
                                  f"expected {want}")
@@ -4336,7 +4538,8 @@ KERNEL_NAMES = {"fps_lane": ("fps_nested_kernel", "fps_lane_kernel"),
                 "three_nn": ("three_nn_kernel",),
                 "collision_counts": ("collision_counts_kernel",),
                 "mlp_chain": ("mlp_chain_kernel", "mlp_wg_kernel",
-                              "mlp_wide_kernel")}
+                              "mlp_wide_kernel"),
+                "gather_backward": ("gather_backward_kernel",)}
 
 
 def _trace_phase(torch, np, scene, device: str = "cuda"):
@@ -4505,6 +4708,7 @@ def _kernel_twins():
     tool run here reaches K7, and K3 only trace_forward at b = 2 on the
     tabletop, the shape the kernels phase holds (`_k3_phase`)."""
     from s4g_tpu_torch.models import pointnet2
+    from s4g_tpu_torch.ops import gather as gt
     from s4g_tpu_torch.ops import neighbors as nb
     from s4g_tpu_torch.ops import sampling as sp
     from s4g_tpu_torch.pipeline import collision as col
@@ -4520,7 +4724,9 @@ def _kernel_twins():
                                          radius * radius, num_neighbours,
                                          stratified)
 
-    return [("fps_exact", sp, "fps_exact", sp._fps_plain),
+    return [("gather_backward", gt, "gather_backward",
+             gt._gather_backward_plain),
+            ("fps_exact", sp, "fps_exact", sp._fps_plain),
             ("fps_exact", sp, "fps_sharded", sp._fps_sharded_plain),
             ("fps_lane", sp, "fps_lane_sharded", sp._fps_sharded_plain),
             ("fps_lane", pointnet2, "fps_lane_nested", sp._fps_nested_plain),
@@ -4623,11 +4829,13 @@ def _tool_launches(label):
     """Zero the launch counters and hold every launch of a tool's run in
     the block to its cause: each PN2_CLS forward launches exactly its
     route's kernels (`_net_launches`, with the SA1 overflow it reported),
-    each `grade_object` K2f twice (normals and frames), each collision
-    check K5 once where its pose-point pairs reach the kernel's threshold
+    each train step's backward K8 once per gather with a gradient
+    (`_k8_per_step`), each `grade_object` K2f twice (normals and frames),
+    each collision check K5 once where its pose-point pairs reach the
+    kernel's threshold
     (else nothing), and nothing launches outside them: the totals must
     equal the sum.  Yields the record (counts of forwards, their batch
-    sizes, grades, collision checks, K5s); after the block
+    sizes, backwards, grades, collision checks, K5s); after the block
     record["launches"] holds the totals, and record["held"] the calls held
     against the plain twins (`_held_kernels`): the tool's own kernel
     shapes, compared after its run, so a phase reads the tool's times and
@@ -4637,12 +4845,13 @@ def _tool_launches(label):
     from s4g_tpu_torch.models.pointnet2 import PointNet2CLS
     from s4g_tpu_torch.ops.neighbors import KERNEL_MIN_PAIRS
     from s4g_tpu_torch.pipeline import collision
+    from s4g_tpu_torch.train.trainer import Trainer
 
     zero = {k: 0 for k in _build.LAUNCHES}
     rec = {"forwards": 0, "batches": [], "grades": 0, "collisions": 0,
-           "k5": 0, "expected": dict(zero)}
+           "k5": 0, "backwards": 0, "expected": dict(zero)}
     real = (PointNet2CLS.forward, generate.grade_object,
-            collision.batch_view_non_collision)
+            collision.batch_view_non_collision, Trainer.backward)
 
     def held(what, before, want):
         got = {k: _build.LAUNCHES[k] - before[k] for k in before}
@@ -4677,23 +4886,32 @@ def _tool_launches(label):
         rec["k5"] += k5
         return out
 
+    def backward(self, total):
+        before = dict(_build.LAUNCHES)
+        real[3](self, total)
+        held("a train step's backward", before,
+             {**zero, "gather_backward": _k8_per_step(self.net)})
+        rec["backwards"] += 1
+
     _build.reset_launches()
     PointNet2CLS.forward = forward
     generate.grade_object = grade_object
     collision.batch_view_non_collision = batch_view_non_collision
+    Trainer.backward = backward
     try:
         with _held_kernels(label) as twins_held:
             yield rec
     finally:
         (PointNet2CLS.forward, generate.grade_object,
-         collision.batch_view_non_collision) = real
+         collision.batch_view_non_collision, Trainer.backward) = real
     rec["held"] = twins_held
     rec["launches"] = dict(_build.LAUNCHES)
     if rec["launches"] != rec["expected"]:
         raise AssertionError(f"{label}: launches {rec['launches']}, "
                              f"expected {rec['expected']}")
     print(f"{label}: {rec['forwards']} forwards (batches "
-          f"{sorted(set(rec['batches']))}), {rec['grades']} objects graded, "
+          f"{sorted(set(rec['batches']))}), {rec['backwards']} backwards, "
+          f"{rec['grades']} objects graded, "
           f"{rec['collisions']} collision checks ({rec['k5']} on K5); "
           f"launches {rec['launches']}", flush=True)
 
@@ -5340,16 +5558,14 @@ def _multi_rank(rank, world, init, workdir):
 def _nccl_world_of_one(workdir, port):
     """A launched world of one (torchrun's variables set here) whose mesh
     takes NCCL: two train steps and a detect_batch at b = 2 with the mesh
-    and without, under `use_deterministic_algorithms` (the gather's
-    backward sums with atomics otherwise); results into workdir."""
+    and without, in the default mode (the gathers' backward is K8, in a
+    fixed order); results into workdir."""
     os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
-                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
-                      CUBLAS_WORKSPACE_CONFIG=":4096:8")
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
     import numpy as np
     import torch
     import torch.distributed as dist
     _multi_setup(torch)
-    torch.use_deterministic_algorithms(True, warn_only=True)
     from s4g_tpu_torch.parallel import make_mesh
     from s4g_tpu_torch.pipeline.detector import GraspDetector
     from s4g_tpu_torch.train.trainer import Trainer
@@ -5406,7 +5622,8 @@ def _multi_device_phase(torch, np):
     state after the step before), its gradients and BatchNorm statistics
     against one process's printed
     (`_compare_steps`' numbers, rank 0's gradients being summed over the
-    ranks) beside one process's first step against itself; both ranks'
+    ranks) beside one process's first step against itself (bit for bit:
+    the gathers' backward is K8, in a fixed order); both ranks'
     states and generators equal after each step; each rank's launches per
     step equal to the single step's.  Then one float64 step of NARROW_F64
     (`_f64_step`: every kernel route of the deployed step, dropout on) on
@@ -5485,8 +5702,9 @@ def _multi_device_phase(torch, np):
                                      ["gather_ms"] for r in ranks]
 
     # Training: rank 0 against one process on the same batches, and one
-    # process against itself (its first step again, from the same state:
-    # the card's gather backward sums with atomics).
+    # process against itself (its first step again, from the same state),
+    # which must be bit for bit: the gathers' backward is K8, in a fixed
+    # order.
     def single_steps(steps):
         """One process's steps, each after the first from rank 0's
         parameters and buffers after the step before (one Adam step turns
@@ -5501,10 +5719,15 @@ def _multi_device_phase(torch, np):
             if i:
                 single.net.load_state_dict(ranks[0]["steps"][i - 1]["state"])
             out += _multi_steps(single, [batch], torch, True)[0]
-        return out
+        return out, _k8_per_step(single.net)
 
-    want_steps = single_steps(batches)
-    again = single_steps(batches[:1])[0]
+    want_steps, k8 = single_steps(batches)
+    again = single_steps(batches[:1])[0][0]
+    if not all(torch.equal(again["grads"][n], g) for n, g in
+               want_steps[0]["grads"].items()) or again["sha"] != \
+            want_steps[0]["sha"]:
+        bad.append("one process's step 0 run twice from one state: the "
+                   "gradients or the state after it differ")
     train = []
     for i, want in enumerate(want_steps):
         got = ranks[0]["steps"][i]
@@ -5524,6 +5747,10 @@ def _multi_device_phase(torch, np):
                     other["generator"], got["generator"]):
                 bad.append(f"step {i}: rank {r}'s state or generator is not "
                            "rank 0's")
+        if want["launches"]["gather_backward"] != k8:
+            bad.append(f"step {i}: K8 launched "
+                       f"{want['launches']['gather_backward']} times, "
+                       f"expected {k8}")
         for r, rank in enumerate(ranks):
             if rank["steps"][i]["launches"] != want["launches"]:
                 bad.append(f"step {i}: rank {r} launched "
@@ -5662,6 +5889,7 @@ def main() -> int:
         k7, k7_extras = _k7_phase(_chain_inputs(det, torch, np), torch)
         extras.setdefault("mlp_chain", {}).update(k7_extras)
         rep.append(k7)
+        rep.append(_k8_phase(torch, np, extras))
         for name, _, _, err, ms, plain, bound, by in rep:
             print(f"kernel {name}: max|kernel-plain|={err:.3g} kernel "
                   f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.5f} ms "

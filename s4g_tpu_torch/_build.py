@@ -68,6 +68,9 @@ _SIGNATURES = {
     # relu_mask, pool_k, bf16, out (P or P/pool_k, C_out)
     "s4g_mlp_chain": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _I, _I, _I, _I, _I, _I, _I, _P, _P),
+    # grad_out (P,C), order (P,) int32, offsets (rows+1,) int32, rows, c,
+    # dtype (0 f32, 1 bf16, 2 f64), grad_x (rows,C)
+    "s4g_gather_backward": (_P, _P, _P, _I, _I, _I, _P, _P),
 }
 
 # C entry points that launch nothing (argtypes, no stream): a launcher's

@@ -29,6 +29,7 @@ import torch
 from torch import nn
 
 from .. import ops
+from ..ops.gather import gather_rows
 from ..ops.interpolate import interpolation_weights
 from ..ops.neighbors import _axis_keys
 from ..ops.sampling import fps_sharding_applies
@@ -42,26 +43,29 @@ def _cf(x: torch.Tensor) -> torch.Tensor:
 
 
 def gather_cl(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
-    """Gather rows: (B, N, C) x (B, M) -> (B, M, C)."""
-    c = x.shape[2]
-    return torch.gather(x, 1, index.long()[..., None].expand(-1, -1, c))
+    """Gather rows: (B, N, C) x (B, M) -> (B, M, C), with a fixed-order
+    backward (`ops.gather.gather_rows`)."""
+    return gather_rows(x, index)
 
 
 def group_cl(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
-    """Group rows: (B, N, C) x (B, M, K) -> (B, M, K, C)."""
+    """Group rows: (B, N, C) x (B, M, K) -> (B, M, K, C), with a
+    fixed-order backward."""
     b, _, c = x.shape
     m, k = index.shape[1], index.shape[2]
-    return gather_cl(x, index.reshape(b, m * k)).reshape(b, m, k, c)
+    return gather_rows(x, index.reshape(b, m * k)).reshape(b, m, k, c)
 
 
 def interpolate_cl(feature: torch.Tensor, index: torch.Tensor,
                    weight: torch.Tensor) -> torch.Tensor:
     """3-NN interpolation, channels-last: (B, N2, C) features, (B, N1, 3)
     indices and weights -> (B, N1, C), a per-neighbour gather-then-fma
-    accumulated ((t0 + t1) + t2)."""
+    accumulated ((t0 + t1) + t2).  Each neighbour's gather has its own
+    fixed-order backward and autograd adds the three, as JAX's transpose
+    adds its three scatter-adds."""
     out = None
-    for j in range(3):
-        term = gather_cl(feature, index[:, :, j]) * weight[:, :, j:j + 1]
+    for j in range(index.shape[-1]):
+        term = gather_rows(feature, index[:, :, j]) * weight[:, :, j:j + 1]
         out = term if out is None else out + term
     return out
 

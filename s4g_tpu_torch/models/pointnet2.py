@@ -32,9 +32,8 @@ from torch import nn
 from . import functional as F
 from .functional import rot6d_to_mat9
 from .nn_layers import SharedMLP
-from .pn2_modules import (EdgeFPModule, PointnetFPModule, PointNetSAModule,
-                          gather_cl)
-from ..ops.neighbors import invert_permutation
+from .pn2_modules import EdgeFPModule, PointnetFPModule, PointNetSAModule
+from ..ops.neighbors import flat_gather_rows, invert_permutation
 from ..ops.sampling import fps_lane_nested, fps_nesting_applies
 from ..parallel.mesh import batch_mean
 
@@ -89,7 +88,10 @@ class PointNet2Backbone(nn.Module):
             keys = torch.gather(xyz, 2, sorted_axis[:, None, None]
                                 .expand(-1, xyz.shape[1], 1))[..., 0]
             order = torch.argsort(keys, dim=1, stable=True)
-            xyz = gather_cl(xyz, order)
+            # The sort and the restore below are permutations: each row is
+            # written once by torch.gather's backward, with no collision to
+            # order, so they keep torch.gather (no K8 launch).
+            xyz = flat_gather_rows(xyz, order)
 
         # A sorted forward whose SA stages all take 128-shard FPS nests
         # them: every stage's indices in one K1 launch.  A pyramid with a
@@ -118,8 +120,8 @@ class PointNet2Backbone(nn.Module):
                                 sparse_feature)
             sparse_xyz = dense_xyz
         if order is not None:
-            sparse_feature = gather_cl(sparse_feature,
-                                       invert_permutation(order))
+            sparse_feature = flat_gather_rows(sparse_feature,
+                                              invert_permutation(order))
         return sparse_feature
 
 

@@ -1,9 +1,12 @@
-"""3-NN feature interpolation (port of s4g_tpu/ops/interpolate.py, forward
-only)."""
+"""3-NN feature interpolation (port of s4g_tpu/ops/interpolate.py).  Its
+backward sums in a fixed order (`ops.gather.gather_rows`), as the JAX
+package's XLA scatter-add does."""
 
 from __future__ import annotations
 
 import torch
+
+from .gather import gather_points
 
 
 def feature_interpolate(feature: torch.Tensor, index: torch.Tensor,
@@ -14,11 +17,9 @@ def feature_interpolate(feature: torch.Tensor, index: torch.Tensor,
     Args: feature (B, C, N2); index (B, N1, K) into N2; weight (B, N1, K).
     Returns: (B, C, N1).
     """
-    c = feature.shape[1]
     out = None
     for j in range(index.shape[-1]):
-        idx = index[:, None, :, j].long().expand(-1, c, -1)
-        term = torch.gather(feature, 2, idx) * weight[:, None, :, j]
+        term = gather_points(feature, index[:, :, j]) * weight[:, None, :, j]
         out = term if out is None else out + term
     return out
 

@@ -1,9 +1,31 @@
-"""SE(3) math utilities (port of the torch-relevant half of
-s4g_tpu/utils/math_utils.py)."""
+"""SE(3) math utilities (port of s4g_tpu/utils/math_utils.py): numpy
+helpers for single transforms and their torch counterparts, batched."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def transformation_inv(transformation: np.ndarray) -> np.ndarray:
+    """Inverse of a single SE(3) matrix (numpy), avoiding a general inverse:
+    R^T and -R^T t."""
+    assert transformation.shape == (4, 4), transformation.shape
+    result = np.eye(4, dtype=transformation.dtype)
+    rot_inv = transformation[:3, :3].T
+    result[:3, :3] = rot_inv
+    result[:3, 3:4] = -rot_inv @ transformation[:3, 3:4]
+    return result
+
+
+def transform_numpy_points(cloud_array: np.ndarray,
+                           transformation_matrix) -> np.ndarray:
+    """Apply a 4x4 transform to a (3, N) numpy cloud, returning (3, N)."""
+    assert cloud_array.shape[0] == 3 and cloud_array.ndim == 2
+    homo = np.concatenate(
+        [cloud_array, np.ones([1, cloud_array.shape[1]],
+                              dtype=cloud_array.dtype)], axis=0)
+    return (transformation_matrix @ homo)[:3, :]
 
 
 def batch_transformation_inv(transformation: torch.Tensor) -> torch.Tensor:
@@ -15,6 +37,19 @@ def batch_transformation_inv(transformation: torch.Tensor) -> torch.Tensor:
                           device=transformation.device)
     bottom = bottom.expand(*transformation.shape[:-2], 1, 4)
     return torch.cat([top, bottom], dim=-2)
+
+
+def transform_points(points: torch.Tensor,
+                     transformation: torch.Tensor) -> torch.Tensor:
+    """Apply 4x4 transforms (..., 4, 4) to (..., 3, N) points, returning
+    (..., 3, N): R . points + t, written out as elementwise products and
+    sums, ((r0 x + r1 y) + r2 z) + t, so that no TF32 matmul touches it (the
+    JAX version runs at HIGHEST precision) and the card's result is the
+    CPU's."""
+    rot = transformation[..., :3, :3]
+    t = transformation[..., :3, 3:]
+    x, y, z = points[..., 0:1, :], points[..., 1:2, :], points[..., 2:3, :]
+    return (rot[..., 0:1] * x + rot[..., 1:2] * y) + rot[..., 2:3] * z + t
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

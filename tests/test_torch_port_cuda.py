@@ -1416,3 +1416,76 @@ def test_two_gloo_ranks_share_the_card(cuda, tmp_path):
             scale = max(float(np.abs(v).max()), 1e-3)
             np.testing.assert_allclose(got, v, rtol=2e-3, atol=5e-4 * scale,
                                        err_msg=k)
+
+
+def _collision_index(rng, b, n, m, case):
+    """(B, M) int32 indices into N: "heavy" sends 70 % of the positions to
+    three rows, "lone" every position to row 3, "sparse" leaves most rows
+    without a source, "random" is uniform."""
+    if case == "lone":
+        return np.full((b, m), 3, np.int32)
+    idx = rng.randint(0, n, (b, m))
+    if case == "heavy":
+        idx = np.where(rng.rand(b, m) < 0.7, rng.randint(0, 3, (b, m)), idx)
+    elif case == "sparse":
+        idx = rng.randint(0, max(n // 50, 1), (b, m)) * 50
+    return idx.astype(np.int32)
+
+
+@pytest.mark.parametrize("b,n,m,c,dtype,case", [
+    (2, 50, 4000, 131, torch.float32, "heavy"),     # SA2's 259 less, ragged
+    (1, 300, 2000, 3, torch.float32, "random"),     # C below a warp
+    (2, 64, 5000, 640, torch.bfloat16, "heavy"),    # five channel passes
+    (3, 100, 1000, 7, torch.float64, "heavy"),
+    (1, 40, 800, 33, torch.bfloat16, "lone"),       # one row takes all
+    (2, 5000, 300, 129, torch.float32, "sparse"),   # rows with no source
+    (4, 1024, 3 * 5120, 512, torch.float32, "random"),  # FP2's 3-NN shape
+])
+def test_gather_backward_kernel_matches_plain(cuda, b, n, m, c, dtype,
+                                              case):
+    """K8 on the card equals its plain twin on the CPU bit for bit: both add
+    each row's sources in ascending order in f32 (f64 for f64) and round
+    once; a row with no source is 0."""
+    from s4g_tpu_torch.ops import gather as gt
+    rng = np.random.RandomState(m + c)
+    idx = torch.from_numpy(_collision_index(rng, b, n, m, case))
+    grad = torch.from_numpy(rng.randn(b, m, c)).to(dtype)
+    want = gt.gather_backward(grad, idx, n)
+    before = _build.LAUNCHES["gather_backward"]
+    got = gt.gather_backward(grad.to(cuda), idx.to(cuda), n)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["gather_backward"] == before + 1
+    assert got.dtype == dtype and got.shape == (b, n, c)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_narrow_train_step_repeats_bit_for_bit(cuda, tmp_path):
+    """A narrow bf16 train step with dropout, run twice on the card from one
+    state (model, optimizer moments, generator): the scalars, every
+    gradient and the state after the update (parameters after Adam,
+    BatchNorm statistics) equal bit for bit, K8 launched once per gather
+    that carries a gradient (SA2, SA3 and each FP stage's three
+    neighbours)."""
+    import pickle
+    from chip_smoke import NARROW_TRAIN, train_scene
+    from s4g_tpu_torch.tools.train_repeat import rerun
+    from s4g_tpu_torch.train.dataset import SceneGraspDataset
+    from s4g_tpu_torch.train.trainer import Trainer
+    data = tmp_path / "data"
+    data.mkdir()
+    for i in range(2):
+        with open(data / f"{i}_view_0.p", "wb") as f:
+            pickle.dump(train_scene(np.random.RandomState(200 + i)), f)
+    spec = {**NARROW_TRAIN, "MODEL": {
+        **NARROW_TRAIN["MODEL"], "COMPUTE_DTYPE": "bfloat16",
+        "PN2": {**NARROW_TRAIN["MODEL"]["PN2"], "DROPOUT_PROB": 0.5}}}
+    cfg = load_cfg_from_dict(spec)
+    batch = next(iter(SceneGraspDataset(
+        str(data), num_points=cfg.MODEL.PN2.NUM_INPUT, batch_size=2,
+        num_frame_points=128, seed=0)))
+    tr = Trainer(cfg, output_dir=str(tmp_path / "out"), device="cuda")
+    tr.init_state()
+    before = _build.LAUNCHES["gather_backward"]
+    spread = rerun(tr, batch)
+    assert _build.LAUNCHES["gather_backward"] == before + 2 * 11
+    assert all(v["bit_equal"] for v in spread.values()), spread
