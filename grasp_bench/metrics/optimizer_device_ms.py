@@ -1,0 +1,11 @@
+"""The train step's optimizer update on the device clock: the device time
+of the program's `train.update` span (between two CUDA events, nothing
+synchronized), median over the profiled stretch's steps."""
+
+from ._spans import median_per_call
+
+UNIT = "ms"
+
+
+def read(run, name):
+    return median_per_call("train.update", "device_ms")

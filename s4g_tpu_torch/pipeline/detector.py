@@ -55,6 +55,7 @@ from ..runtime.device import resolve_device
 from ..utils.checkpoint import (Checkpointer, load_torch_checkpoint,
                                 model_state_dict)
 from ..utils.math_utils import batch_transformation_inv
+from ..utils.profiling import span
 from .collision import batch_view_non_collision
 from .postprocessing import (REAL2TRAIN, importance_sample,
                              post_process_predictions,
@@ -88,21 +89,23 @@ def prep_one(cloud: torch.Tensor, cloud_valid: torch.Tensor, num_input: int,
     """(capacity, 3) padded camera-frame points -> (num_input, 3)
     train-frame model input.  The sample indices are `sample_idx` when
     given, else drawn from `generator`."""
-    real2train = torch.tensor(REAL2TRAIN[:3, :3], device=cloud.device)
-    train_cloud = torch.matmul(cloud, real2train.t())
-    if enable_voxel:
-        pre = preprocess_cloud(
-            train_cloud, num_points=num_input,
-            voxel_size=proc_cfg.VOXEL_SIZE,
-            outlier_radius=proc_cfg.RADIUS_THRESHOLD,
-            outlier_min_neighbors=(proc_cfg.NUM_POINTS_THRESHOLD
-                                   if enable_outlier else 1),
-            capacity=cloud.shape[0], sample_idx=sample_idx,
-            generator=generator)
-        return pre.points
-    if sample_idx is None:
-        sample_idx = random_sample_fixed(cloud_valid, num_input, generator)
-    return train_cloud[sample_idx.long()]
+    with span("detect.prep"):
+        real2train = torch.tensor(REAL2TRAIN[:3, :3], device=cloud.device)
+        train_cloud = torch.matmul(cloud, real2train.t())
+        if enable_voxel:
+            pre = preprocess_cloud(
+                train_cloud, num_points=num_input,
+                voxel_size=proc_cfg.VOXEL_SIZE,
+                outlier_radius=proc_cfg.RADIUS_THRESHOLD,
+                outlier_min_neighbors=(proc_cfg.NUM_POINTS_THRESHOLD
+                                       if enable_outlier else 1),
+                capacity=cloud.shape[0], sample_idx=sample_idx,
+                generator=generator)
+            return pre.points
+        if sample_idx is None:
+            sample_idx = random_sample_fixed(cloud_valid, num_input,
+                                             generator)
+        return train_cloud[sample_idx.long()]
 
 
 def post_one(points: torch.Tensor, preds: dict, cloud: torch.Tensor,
@@ -116,21 +119,24 @@ def post_one(points: torch.Tensor, preds: dict, cloud: torch.Tensor,
         PN2's (the regression translation); cloud/cloud_valid: the padded
         camera-frame cloud; uniforms (num_selected,) draws in [0, 1).
     """
-    if "score" in preds:
-        post = post_process_predictions(
-            points.t(), preds["score"], preds["frame_R"], preds["frame_t"],
-            score_threshold, vertical_threshold,
-            num_candidates=num_candidates)
-    else:
-        post = post_process_predictions_regression(
-            points.t(), preds["scene_score_logits"], preds["frame_R"],
-            preds["frame_t"], score_threshold, vertical_threshold,
-            num_candidates=num_candidates)
+    with span("post.candidates"):
+        if "score" in preds:
+            post = post_process_predictions(
+                points.t(), preds["score"], preds["frame_R"],
+                preds["frame_t"], score_threshold, vertical_threshold,
+                num_candidates=num_candidates)
+        else:
+            post = post_process_predictions_regression(
+                points.t(), preds["scene_score_logits"], preds["frame_R"],
+                preds["frame_t"], score_threshold, vertical_threshold,
+                num_candidates=num_candidates)
     valid = post.valid
     if collision_check:
         # Collision vs the ORIGINAL camera-frame cloud.
-        g2l = batch_transformation_inv(post.poses)
-        valid = valid & batch_view_non_collision(g2l, cloud, cloud_valid)
+        with span("post.collision"):
+            g2l = batch_transformation_inv(post.poses)
+            valid = valid & batch_view_non_collision(g2l, cloud,
+                                                     cloud_valid)
     sel = importance_sample(post.scores, valid, uniforms)
     return {"poses": post.poses, "scores": post.scores, "valid": valid,
             "selected": sel, "num_valid": valid.sum()}
@@ -315,8 +321,9 @@ class GraspDetector:
         importance uniforms), and start the copies of the outputs into the
         host buffers `host` (pinned on CUDA; reused by the caller once the
         returned event has fired).  Nothing here waits for the device
-        except where an op reads a device value on the host.  `timed`
-        synchronizes after each stage for `timings`.
+        except where an op reads a device value on the host (the span
+        `detect.submit` counts those waits).  `timed` synchronizes after
+        each stage for `timings`.
 
         `rows`: run only these scenes of `arrays` (a rank's), with the
         draws the whole batch would give them: every scene is fitted to
@@ -329,44 +336,51 @@ class GraspDetector:
                 self._sync()
                 clock.append(time.perf_counter())
 
-        rows = slice(0, len(arrays)) if rows is None else rows
-        arrays = [self._fit_capacity(a) for a in arrays]
-        padded, valids = zip(*(self._pad_cloud(a) for a in arrays[rows]))
-        padded, valids = torch.stack(padded), torch.stack(valids)
-        lap()
-        with torch.no_grad():
-            self._skip_draws(rows.start)
-            points = prep_batch(padded, valids, self.num_input,
-                                generator=self.generator,
-                                enable_voxel=self._enable_voxel,
-                                enable_outlier=self._enable_outlier)
-            self._skip_draws(len(arrays) - rows.stop)
+        with span("detect.submit", waits=self.device) as submit:
+            with span("detect.fit"):
+                rows = slice(0, len(arrays)) if rows is None else rows
+                arrays = [self._fit_capacity(a) for a in arrays]
+                padded, valids = zip(*(self._pad_cloud(a)
+                                       for a in arrays[rows]))
+                padded, valids = torch.stack(padded), torch.stack(valids)
             lap()
-            preds = self.net({"scene_points":
-                              points.transpose(1, 2).contiguous()})
-            lap()
-            uniforms = _uniforms(self.generator, (len(arrays), num_selected),
-                                 self.device)[rows]
-            out = post_batch(points, preds, padded, valids, uniforms,
-                             float(score_threshold),
-                             float(verticalness_threshold),
-                             self.num_candidates, collision_check)
-        host = {} if host is None else host
-        event = None
-        if self.device.type == "cuda":
-            for k, v in out.items():
-                if k not in host or host[k].shape != v.shape \
-                        or host[k].dtype != v.dtype:
-                    host[k] = torch.empty(v.shape, dtype=v.dtype,
-                                          pin_memory=True)
-                host[k].copy_(v, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-        else:
-            host.update(out)
+            with torch.no_grad():
+                self._skip_draws(rows.start)
+                points = prep_batch(padded, valids, self.num_input,
+                                    generator=self.generator,
+                                    enable_voxel=self._enable_voxel,
+                                    enable_outlier=self._enable_outlier)
+                self._skip_draws(len(arrays) - rows.stop)
+                lap()
+                with span("detect.model"):
+                    preds = self.net({"scene_points":
+                                      points.transpose(1, 2).contiguous()})
+                lap()
+                with span("detect.post"):
+                    uniforms = _uniforms(self.generator,
+                                         (len(arrays), num_selected),
+                                         self.device)[rows]
+                    out = post_batch(points, preds, padded, valids,
+                                     uniforms, float(score_threshold),
+                                     float(verticalness_threshold),
+                                     self.num_candidates, collision_check)
+            host = {} if host is None else host
+            event = None
+            if self.device.type == "cuda":
+                for k, v in out.items():
+                    if k not in host or host[k].shape != v.shape \
+                            or host[k].dtype != v.dtype:
+                        host[k] = torch.empty(v.shape, dtype=v.dtype,
+                                              pin_memory=True)
+                    host[k].copy_(v, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record()
+            else:
+                host.update(out)
         return {"host": host, "event": event, "clock": clock,
                 "scenes": rows.stop - rows.start,
-                "num_selected": num_selected}
+                "num_selected": num_selected,
+                "call": None if submit is None else submit.call}
 
     def _skip_draws(self, scenes: int) -> None:
         """Advance the generator past `scenes` scenes' sample draws."""
@@ -377,8 +391,9 @@ class GraspDetector:
     def _materialize(self, job: dict) -> List[Tuple[np.ndarray, np.ndarray]]:
         """The second half of `detect_batch`: wait for the job's copies,
         then build each scene's (poses, scores) as `_grasps` does."""
-        if job["event"] is not None:
-            job["event"].synchronize()
+        with span("detect.wait", call=job["call"]):
+            if job["event"] is not None:
+                job["event"].synchronize()
         out = {k: v.numpy() for k, v in job["host"].items()}
         self.last_num_valid = [int(v) for v in out["num_valid"]]
         return [_grasps({k: v[i] for k, v in out.items()},

@@ -14,6 +14,8 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from ..utils.profiling import span
+
 _INT32_MAX = 2 ** 31 - 1
 _HASH_PRIME = 1_000_003
 
@@ -171,14 +173,19 @@ def preprocess_cloud(points: torch.Tensor, num_points: int = 25600,
 
     Give either `sample_idx` ((num_points,) indices into the voxel array,
     e.g. injected draws) or a `generator` to draw them from."""
-    valid = torch.ones(points.shape[0], dtype=torch.bool, device=points.device)
-    if workspace is not None:
-        valid &= workspace_crop_mask(points, workspace)
-    vox = voxel_downsample(points, valid, voxel_size, capacity)
-    keep = radius_outlier_mask(vox.points, vox.valid, outlier_radius,
-                               outlier_min_neighbors)
-    if sample_idx is None:
-        if generator is None:
-            raise ValueError("pass sample_idx or a generator")
-        sample_idx = random_sample_fixed(keep, num_points, generator)
-    return PreprocessResult(vox.points[sample_idx.long()], vox.points, keep)
+    if sample_idx is None and generator is None:
+        raise ValueError("pass sample_idx or a generator")
+    with span("prep.voxel"):
+        valid = torch.ones(points.shape[0], dtype=torch.bool,
+                           device=points.device)
+        if workspace is not None:
+            valid &= workspace_crop_mask(points, workspace)
+        vox = voxel_downsample(points, valid, voxel_size, capacity)
+    with span("prep.outlier", device=points.device):
+        keep = radius_outlier_mask(vox.points, vox.valid, outlier_radius,
+                                   outlier_min_neighbors)
+    with span("prep.sample"):
+        if sample_idx is None:
+            sample_idx = random_sample_fixed(keep, num_points, generator)
+        return PreprocessResult(vox.points[sample_idx.long()], vox.points,
+                                keep)

@@ -6,6 +6,11 @@ Each yields device-ready batches: the dataset's numpy arrays as tensors in
 the dtypes the model and the losses take (`train.dataset.
 batch_to_tensors`), in pinned host memory where a GPU is present, so the
 trainer's copy to the card does not block the host.
+
+`AsyncSceneLoader` marks two spans (`utils.profiling`), each with the
+loader's batch number as its call id: `loader.collate`, one batch drawn
+from the dataset by the feeder thread, and `loader.wait`, the consumer's
+wait for the next batch.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import numpy as np
 import torch
 
 from ..train.dataset import batch_to_tensors
+from ..utils.profiling import span
 
 
 def _device_ready(batch: dict) -> dict:
@@ -31,6 +37,8 @@ class AsyncSceneLoader:
         self.dataset = dataset
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
+        # Batches drawn from the dataset and handed out, over all passes.
+        self._drawn = self._served = 0
 
     def __len__(self):
         return len(self.dataset)
@@ -44,9 +52,13 @@ class AsyncSceneLoader:
         # shuffles, so workers pull pre-built batches from a feeder thread.
         def feeder():
             try:
-                for batch in self.dataset:
-                    if stop.is_set():
+                batches = iter(self.dataset)
+                while True:
+                    with span("loader.collate", call=self._drawn):
+                        batch = next(batches, None)
+                    if batch is None or stop.is_set():
                         break
+                    self._drawn += 1
                     idx_q.put(batch)
             finally:
                 for _ in range(self.num_workers):
@@ -69,10 +81,12 @@ class AsyncSceneLoader:
         finished = 0
         try:
             while finished < self.num_workers:
-                item = out_q.get()
+                with span("loader.wait", call=self._served):
+                    item = out_q.get()
                 if item is None:
                     finished += 1
                     continue
+                self._served += 1
                 yield item
         finally:
             stop.set()

@@ -46,6 +46,7 @@ from ..parallel.mesh import (global_batch, launched_mesh, mesh_device,
 from ..runtime.device import resolve_device
 from ..utils.checkpoint import Checkpointer
 from ..utils.logger import MetricLogger, setup_logger
+from ..utils.profiling import span
 from .augmentation import build_augmentation
 from .dataset import as_tensor, batch_to_device
 from .optim import build_lr_schedule, build_optimizer, set_learning_rate
@@ -162,7 +163,8 @@ class Trainer:
         augmented, the training-mode forward and the loss dict: (total
         loss, loss dict, predictions, batch); under a mesh the losses are
         this rank's shares."""
-        with global_batch(self.mesh):
+        with span("train.forward_loss", device=self.device), \
+                global_batch(self.mesh):
             batch = self.augment(self.generator, self._on_device(batch))
             self.net.train()
             preds = self.net(batch, generator=self.generator)
@@ -172,10 +174,11 @@ class Trainer:
         return total, loss_dict, preds, batch
 
     def backward(self, total: torch.Tensor) -> None:
-        self.optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        if self.mesh is not None:
-            self.all_reduce_grads()
+        with span("train.backward", device=self.device):
+            self.optimizer.zero_grad(set_to_none=True)
+            total.backward()
+            if self.mesh is not None:
+                self.all_reduce_grads()
 
     def all_reduce_grads(self) -> None:
         """Sum every gradient over the ranks: one all-reduce of the
@@ -208,22 +211,26 @@ class Trainer:
     def update(self) -> None:
         """The optimizer's step at the schedule's learning rate for the
         updates made so far."""
-        set_learning_rate(self.optimizer, self.schedule(self.step))
-        self.optimizer.step()
-        self.step += 1
+        with span("train.update", device=self.device):
+            set_learning_rate(self.optimizer, self.schedule(self.step))
+            self.optimizer.step()
+            self.step += 1
 
     def train_step(self, batch: dict) -> dict:
         """One update; returns the losses, the metrics' means and
-        "total_loss" as device scalars."""
-        total, loss_dict, preds, batch = self.forward_loss(batch)
-        self.backward(total)
-        self.update()
-        with torch.no_grad(), global_batch(self.mesh):
-            metrics = self.metric_fn(preds, batch)
-            scalars = {k: torch.mean(v.detach().float())
-                       for k, v in {**loss_dict, **metrics}.items()}
-        scalars["total_loss"] = total.detach()
-        return self._global_scalars(scalars, {*loss_dict, "total_loss"})
+        "total_loss" as device scalars.  The span `train.step` (call id:
+        the step) counts the host's waits on the device in it."""
+        with span("train.step", call=self.step, waits=self.device):
+            total, loss_dict, preds, batch = self.forward_loss(batch)
+            self.backward(total)
+            self.update()
+            with torch.no_grad(), global_batch(self.mesh):
+                metrics = self.metric_fn(preds, batch)
+                scalars = {k: torch.mean(v.detach().float())
+                           for k, v in {**loss_dict, **metrics}.items()}
+            scalars["total_loss"] = total.detach()
+            return self._global_scalars(scalars,
+                                        {*loss_dict, "total_loss"})
 
     def val_step(self, batch: dict) -> dict:
         """Losses and metrics' means in eval mode, as device scalars (over
@@ -264,19 +271,17 @@ class Trainer:
                              self.step)
         meters = MetricLogger(delimiter="  ")
         for epoch in range(start_epoch, max_epochs):
-            tic = time.time()
+            period = tic = time.perf_counter()
             pending = []
             for it, batch in enumerate(train_data):
-                data_time = time.time() - tic
-                scalars = self.train_step(batch)
-                batch_time = time.time() - tic
-                tic = time.time()
-                pending.append((batch_time, data_time, scalars))
+                data_time = time.perf_counter() - tic
+                pending.append((data_time, self.train_step(batch)))
                 if (it + 1) % log_period == 0:
-                    self._log(meters, pending)
+                    period = self._log(meters, pending, period)
                     self.logger.info("epoch %d iter %d  %s", epoch, it + 1,
                                      meters)
-            self._log(meters, pending)
+                tic = time.perf_counter()
+            self._log(meters, pending, period)
 
             if val_data is not None and (epoch + 1) % val_period == 0:
                 val_meters = MetricLogger(delimiter="  ")
@@ -298,10 +303,17 @@ class Trainer:
             dist.barrier(group=self.mesh.get_group())
 
     @staticmethod
-    def _log(meters: MetricLogger, pending: list) -> None:
-        """Move the pending steps' scalars to the host (one copy) into
-        `meters`, and empty `pending`."""
-        host = _to_host([scalars for _, _, scalars in pending])
-        for (bt, dt, _), scalars in zip(pending, host):
-            meters.update(time=bt, data=dt, **scalars)
+    def _log(meters: MetricLogger, pending: list, start: float) -> float:
+        """Move the pending (data wait, scalars) steps to the host (one
+        copy, which waits for the device) into `meters`, and empty
+        `pending`.  Each step's "time" is the log period's wall time, from
+        `start` (the previous period's end, `time.perf_counter`) to the
+        copy's end, over its steps: the device's time a step, not the
+        host's enqueue time.  Returns the period's end."""
+        host = _to_host([scalars for _, scalars in pending])
+        end = time.perf_counter()
+        for (data_time, _), scalars in zip(pending, host):
+            meters.update(time=(end - start) / len(pending), data=data_time,
+                          **scalars)
         pending.clear()
+        return end

@@ -2,70 +2,181 @@
 
 The reference instruments with wall-clock deltas and per-run txt appends
 (reference: grasp_detector.py:188-253, grasp_proposal_test.py:69-78,
-file_logger_cls.py:202,234-235).  This module keeps those measurement points
-(StageTimer + append_timing) and adds what the reference lacks:
-torch.profiler traces (a Chrome trace of the host and the card's kernels)
-and timing helpers that are correct over asynchronous CUDA launches (CUDA
-events, CUDA-graph replays, synchronized host clocks).
+file_logger_cls.py:202,234-235).  This module keeps the txt appends
+(`append_timing`) and adds what the reference lacks: torch.profiler traces
+(a Chrome trace of the host and the card's kernels), the program's spans
+and counters on the profiler's clock, and timing helpers that are correct
+over asynchronous CUDA launches (CUDA events, CUDA-graph replays,
+synchronized host clocks).
+
+Spans.  `span(name)` marks a stage of the program.  It records only while
+a torch.profiler records (`trace()`, or any `torch.profiler.profile`);
+otherwise it is one flag check and a shared no-op context.  A recorded
+span also opens a `torch.profiler.record_function`, so the Chrome trace
+holds it as a `user_annotation` on the kernels' clock.  The spans stay in
+memory, in a ring of `SPAN_CAPACITY`, read by `spans()` and `per_call()`.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
-import logging
+import itertools
 import os
 import statistics
 import tempfile
+import threading
 import time
+import warnings
 from typing import Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+SPAN_CAPACITY = 65536
+_SPANS: collections.deque = collections.deque(maxlen=SPAN_CAPACITY)
+_OPEN = threading.local()          # each thread's stack of open spans
+_CALLS = itertools.count()         # ids of calls that no caller named
+_OFF = contextlib.nullcontext()
+# What torch.cuda.set_sync_debug_mode("warn") says of each host wait.
+_SYNC_WARNING = "called a synchronizing CUDA operation"
 
 
-def _leaves(tree):
-    if isinstance(tree, torch.Tensor):
-        yield tree
-    elif isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
+def _is_cuda(device) -> bool:
+    return device is not None and torch.device(device).type == "cuda"
 
 
-def sync(tree) -> None:
-    """Block until every CUDA tensor in a nested structure (tensors inside
-    dicts, lists and tuples) is computed: synchronizes each of their
-    devices."""
-    devices = {t.device for t in _leaves(tree) if t.is_cuda}
-    for dev in devices:
-        torch.cuda.synchronize(dev)
+class Span:
+    """One recorded span: its `name`, the `parent` span's name on the same
+    thread (None for a root), the `call` id (the request it serves), the
+    `thread`'s name, host start and end (`t0`, `t1`,
+    `time.perf_counter_ns`), a pair of CUDA `events` recorded on the
+    current stream at its ends (None without a CUDA `device`) and the
+    `counts` added inside it."""
+
+    __slots__ = ("name", "parent", "call", "thread", "t0", "t1", "events",
+                 "counts", "_waits", "_record", "_caught", "_log", "_mode")
+
+    def __init__(self, name: str, call=None, device=None, waits=None):
+        self.name, self.call = name, call
+        self.parent = self.thread = self.t0 = self.t1 = None
+        self.events = ((torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+                       if _is_cuda(device) else None)
+        self.counts: dict = {}
+        self._waits = _is_cuda(waits)
+
+    @property
+    def host_ms(self) -> Optional[float]:
+        return None if self.t1 is None else (self.t1 - self.t0) / 1e6
+
+    def device_ms(self) -> Optional[float]:
+        """Device time between the span's two events (waits for the
+        second); None without events or before the span ended."""
+        if self.events is None or self.t1 is None:
+            return None
+        start, end = self.events
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    def __enter__(self) -> "Span":
+        stack = getattr(_OPEN, "stack", None)
+        if stack is None:
+            stack = _OPEN.stack = []
+        if stack:
+            self.parent = stack[-1].name
+            if self.call is None:
+                self.call = stack[-1].call
+        elif self.call is None:
+            self.call = next(_CALLS)
+        self.thread = threading.current_thread().name
+        self._record = torch.profiler.record_function(self.name)
+        self._record.__enter__()
+        if self._waits:
+            self._caught = warnings.catch_warnings(record=True)
+            self._log = self._caught.__enter__()
+            warnings.filterwarnings("always", message=_SYNC_WARNING)
+            self._mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("warn")
+        if self.events is not None:
+            self.events[0].record()
+        stack.append(self)
+        _SPANS.append(self)
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.t1 = time.perf_counter_ns()
+        if self.events is not None:
+            self.events[1].record()
+        if self._waits:
+            torch.cuda.set_sync_debug_mode(self._mode)
+            self._caught.__exit__(None, None, None)
+            waits = 0
+            for w in self._log:
+                if _SYNC_WARNING in str(w.message):
+                    waits += 1
+                else:
+                    warnings.warn_explicit(w.message, w.category,
+                                           w.filename, w.lineno,
+                                           source=w.source)
+            count("host_waits", waits)
+        _OPEN.stack.pop()
+        self._record.__exit__(*exc)
 
 
-class StageTimer:
-    """Named stage timing with the reference's log format."""
+def span(name: str, call=None, device=None, waits=None):
+    """A span of the program, recorded while a torch.profiler records (a
+    no-op otherwise).  `call`: the id of the request it serves; by default
+    the enclosing span's, or a new one for a root span.  `device`: where it
+    is CUDA, the span's device time is taken between two CUDA events
+    recorded on the current stream (read only by `Span.device_ms`).
+    `waits`: where it is a CUDA device, the host's waits on the device
+    inside the span (the warnings of `torch.cuda.set_sync_debug_mode
+    ("warn")`: device values read on the host, copies from pageable
+    memory; not `torch.cuda.synchronize()` or an event's wait) are counted
+    as its `host_waits`.  Yields the Span, or None when off."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return Span(name, call, device, waits)
 
-    def __init__(self, logger: Optional[logging.Logger] = None):
-        self.logger = logger or logging.getLogger("S4G.profiling")
-        self.stages: dict[str, float] = {}
-        self._tic = time.perf_counter()
-        self._start = self._tic
 
-    def stage(self, name: str, result=None) -> float:
-        """Mark the end of a stage; optionally sync on `result` first."""
-        if result is not None:
-            sync(result)
-        now = time.perf_counter()
-        elapsed = now - self._tic
-        self._tic = now
-        self.stages[name] = elapsed
-        self.logger.info("%s finish, cost ***%.4fs***", name, elapsed)
-        return elapsed
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to the counter `name` of this thread's innermost open span
+    (nothing when no span is open)."""
+    stack = getattr(_OPEN, "stack", None)
+    if stack:
+        counts = stack[-1].counts
+        counts[name] = counts.get(name, 0) + n
 
-    def overall(self) -> float:
-        total = time.perf_counter() - self._start
-        self.logger.info("Overall time cost: ***%.4fs***", total)
-        return total
+
+def spans() -> list:
+    """The recorded spans, oldest first (at most SPAN_CAPACITY)."""
+    return list(_SPANS)
+
+
+def clear() -> None:
+    """Forget the recorded spans."""
+    _SPANS.clear()
+
+
+def per_call(name: str, what: str = "host_ms") -> list:
+    """One value a call, in call order, summed over the ended spans `name`
+    of the call: `what` is "host_ms", "device_ms" or a counter's name.
+    Spans without the value (no events, no such counter) add nothing."""
+    sums: dict = {}
+    for s in spans():
+        if s.name != name or s.t1 is None:
+            continue
+        if what == "host_ms":
+            value = s.host_ms
+        elif what == "device_ms":
+            value = s.device_ms()
+        else:
+            value = s.counts.get(what)
+        if value is not None:
+            sums[s.call] = sums.get(s.call, 0) + value
+    return list(sums.values())
 
 
 def append_timing(filename: str, milliseconds: float) -> None:
@@ -82,11 +193,14 @@ def trace(log_dir: Optional[str] = None, enabled: bool = True):
     (`trace_<pid>_<ns>.json`, for chrome://tracing or Perfetto) into
     `log_dir` (default: `s4g_trace` in the temporary directory).  Yields the
     profiler (its `key_averages()` hold the device times; after the block
-    its `trace_file` is the trace's path), or None when not `enabled`."""
+    its `trace_file` is the trace's path), or None when not `enabled`.
+    Forgets the spans recorded before it (`clear`)."""
     if not enabled:
         yield None
         return
     from torch.profiler import ProfilerActivity, profile
+
+    clear()
 
     log_dir = log_dir or os.path.join(tempfile.gettempdir(), "s4g_trace")
     os.makedirs(log_dir, exist_ok=True)
@@ -98,13 +212,6 @@ def trace(log_dir: Optional[str] = None, enabled: bool = True):
     prof.trace_file = os.path.join(
         log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
     prof.export_chrome_trace(prof.trace_file)
-
-
-@contextlib.contextmanager
-def annotate(name: str):
-    """Named region inside a trace (shows up on the trace's timeline)."""
-    with torch.profiler.record_function(name):
-        yield
 
 
 def device_kernel_times(prof) -> list:
@@ -194,16 +301,3 @@ def wall_times(fn, device: torch.device, reps: int = 10,
         run()
         times.append(1e3 * (time.perf_counter() - t0))
     return times
-
-
-def timed_scalar(fn, *args, iters: int = 10) -> float:
-    """Per-call seconds for a fn returning a scalar tensor: warms up,
-    loops, syncs by fetching the final scalar (`.item()`: the device runs
-    its launches in order, so the last one's value waits for them all)."""
-    fn(*args).item()
-    t0 = time.perf_counter()
-    out = None
-    for _ in range(iters):
-        out = fn(*args)
-    out.item()
-    return (time.perf_counter() - t0) / iters

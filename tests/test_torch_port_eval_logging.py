@@ -475,30 +475,15 @@ def test_vision_client_parses_like_jax():
 # -- profiling ------------------------------------------------------------------------
 
 def test_stage_timer_and_append_timing(tmp_path):
-    timer = tprof.StageTimer()
-    t = torch.ones(3)
-    assert timer.stage("a", result={"x": [t, (t, 1)]}) >= 0
-    assert timer.stage("b") >= 0
-    assert list(timer.stages) == ["a", "b"] and timer.overall() >= 0
     path = str(tmp_path / "times.txt")
     tprof.append_timing(path, 1.23456)
     tprof.append_timing(path, 7)
     assert open(path).read() == "1.2346\n7.0000\n"
 
 
-def test_timed_scalar_warms_up_and_loops():
-    calls = []
-
-    def fn(x):
-        calls.append(1)
-        return x.sum()
-    sec = tprof.timed_scalar(fn, torch.arange(10.0), iters=4)
-    assert sec >= 0 and len(calls) == 5
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
     with tprof.trace(str(tmp_path / "tr")) as prof:
-        with tprof.annotate("s4g_region"):
+        with tprof.span("s4g_region"):
             torch.ones(64).cumsum(0)
     files = os.listdir(tmp_path / "tr")
     assert [os.path.join(tmp_path / "tr", f) for f in files] \
