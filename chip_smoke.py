@@ -59,7 +59,11 @@ run, but the run then exits non-zero without printing a result:
    K8 (the gathers' fixed-order backward, `_k8_phase`) at each of its
    eleven calls in a deployed train step at b = 4, bit for bit against
    its twin, timed beside its bound, the library's atomic `index_add_`
-   and torch's scatter-add under `use_deterministic_algorithms`;
+   and torch's scatter-add under `use_deterministic_algorithms`; then K9
+   (preprocessing's radius-outlier counts, `_k9_phase`) on a voxelised
+   640 x 480 tabletop frame at the detector's 65,536-row capacity, counts
+   and mask bit for bit against its twin, timed beside its bound and the
+   chunked matmul route that the CPU keeps;
 3. reference: the detect stages at a narrow width that still takes every
    kernel route, on the GPU and on the CPU (plain twins), each stage fed
    the same inputs on both devices (see `_reference_phase`); then the
@@ -181,7 +185,9 @@ run, but the run then exits non-zero without printing a result:
    out of the kernels line's launches), and every kernel must
    launch exactly its count per forward (`_deployed_launches`,
    `_parity_launches`, `FUSED_K7_LAUNCHES`), given the SA1 overflows the
-   run reported (the stream: per frame); over the counted fused-chain runs the packed-operand
+   run reported (the stream: per frame), and K9 once a scene that a call
+   preprocesses (each radius-outlier test on the card, in a tool's run);
+   over the counted fused-chain runs the packed-operand
    cache must hit on every chain and pack none;
 5. profile: one detect, one detect_batch at b = 2, one parity detect and
    one fused-chain detect under torch.profiler (and a train step, in
@@ -1888,7 +1894,7 @@ def _stream_phase(det, sdet, torch, np):
             launches = dict(_build.LAUNCHES)
             n_over = nb.SLAB_FALLBACKS["overflow"] - over
             expected = {k: STREAM_FRAMES * v for k, v in
-                        _deployed_launches(sdet, 1).items()}
+                        _deployed_launches(sdet, 1, scenes=1).items()}
             expected["ball_query_slab"] -= n_over
             expected["ball_query_full"] += n_over
             _expect(f"detect_stream depth 2, {STREAM_FRAMES} frames",
@@ -2321,6 +2327,60 @@ def _k8_phase(torch, np, extras, device: str = "cuda"):
             step["plain_ms"], step["bound_ms"], "bytes")
 
 
+def _k9_phase(det, torch, np, extras, device: str = "cuda"):
+    """K9 (preprocessing's radius-outlier counts) on what `detect` hands
+    it: a seeded 640 x 480 tabletop frame (307,200 points) subset to the
+    detector's capacity, rotated to the train frame and voxelised as
+    `prep_one` does.  Counts and keep mask held bit for bit against the
+    plain twin on the card (the stated rounding, the kernel's tiles);
+    timed per call (CUDA-graph replays) beside the chunked matmul route
+    that the CPU keeps (`_radius_outlier_matmul`, event-timed: every
+    capacity row against every other) and the bound, 9 f32 operations a
+    (valid query, valid key) pair over the f32 peak.  Returns the kernels
+    line's tuple."""
+    from s4g_tpu_torch.configs import processing_config as proc_cfg
+    from s4g_tpu_torch.ops import neighbors as nb
+    from s4g_tpu_torch.pipeline import preprocessing as tpre
+    from s4g_tpu_torch.pipeline.postprocessing import REAL2TRAIN
+
+    cap = det.cloud_capacity
+    radius, least = proc_cfg.RADIUS_THRESHOLD, proc_cfg.NUM_POINTS_THRESHOLD
+    frame = tabletop_cloud(np.random.RandomState(0), n_plane=268800,
+                           n_box=38400)
+    sub = frame[np.random.RandomState(1).choice(len(frame), cap,
+                                                replace=False)]
+    cloud = torch.matmul(torch.from_numpy(sub).to(device), torch.tensor(
+        REAL2TRAIN[:3, :3], device=device).t())
+    vox = tpre.voxel_downsample(cloud, torch.ones(cap, dtype=torch.bool,
+                                                  device=device),
+                                proc_cfg.VOXEL_SIZE, cap)
+    points, valid = vox.points.contiguous(), vox.valid.contiguous()
+    keep, counts = nb.radius_outlier_counts(points, valid, radius, least)
+    want = nb._radius_outlier_counts_plain(points, valid,
+                                           nb._f32(radius * radius))
+    err = _compare(f"radius_outlier {cap} rows", [counts, keep],
+                   [want, valid & (want >= least)], True)
+    chunked = tpre._radius_outlier_matmul(points, valid, radius, least)
+    flips = int((chunked != keep).sum())
+    n_valid = int(valid.sum())
+    k_ms = _graph_ms(lambda: nb.radius_outlier_counts(points, valid, radius,
+                                                      least))
+    p_ms = _event_ms(lambda: tpre._radius_outlier_matmul(
+        points, valid, radius, least), reps=3, warmup=1)
+    b_ms, by = _bound_ms(9.0 * n_valid * n_valid, 18.0 * cap)
+    extras["radius_outlier"] = {
+        "rows": cap, "valid_rows": n_valid, "kept": int(keep.sum()),
+        "flips_against_chunked": flips, "card": _nvidia_smi()}
+    print(f"kernel radius_outlier {cap} rows, {n_valid} valid: kernel "
+          f"{k_ms:.4f} ms, chunked matmul route {p_ms:.3f} ms, bound "
+          f"{b_ms:.4f} ms ({by}); keeps {int(keep.sum())}, "
+          f"{flips} flips against the chunked route", flush=True)
+    return ("radius_outlier", "s4g_tpu_torch/csrc/radius_outlier.cu",
+            "none: the radius-outlier test of s4g_tpu/pipeline/"
+            "preprocessing.py (XLA matmul chunks; no Pallas kernel)", err,
+            k_ms, p_ms, b_ms, by)
+
+
 def _cuda_event(torch):
     return torch.cuda.Event(enable_timing=True)
 
@@ -2619,7 +2679,8 @@ def _edge_launches(det, b: int) -> dict:
     """Launches per forward of an edge detector at batch `b` (its section
     unsorted, the PN2Config default): K6 for each SA stage with centroids
     > 0, K2f for each but the global stage, K4 for each 3-NN FP stage at or
-    above its pair threshold, K5 once per scene; never K1, K2, K3 or K7."""
+    above its pair threshold, K5 and K9 once per scene; never K1, K2, K3
+    or K7."""
     from s4g_tpu_torch import _build
     from s4g_tpu_torch.ops.neighbors import KERNEL_MIN_PAIRS
     sec = getattr(det.cfg.MODEL, det.cfg.MODEL.TYPE)
@@ -2633,7 +2694,7 @@ def _edge_launches(det, b: int) -> dict:
     return {**{k: 0 for k in _build.LAUNCHES},
             "fps_exact": sum(m > 0 for m in sec.NUM_CENTROIDS),
             "ball_query_full": sum(m != 0 for m in sec.NUM_CENTROIDS),
-            "three_nn": fp, "collision_counts": b}
+            "three_nn": fp, "collision_counts": b, "radius_outlier": b}
 
 
 def _edge_kernel_phase(det, torch, np, extras):
@@ -2901,7 +2962,7 @@ def _local_phase(torch, np, device: str = "cuda"):
               for b in (1, 2)}
     ldet.net(inputs[2])
     _build.reset_launches()
-    _, want = _counted(ldet, lambda: ldet.net(inputs[2]), 2)
+    _, want = _counted(ldet, lambda: ldet.net(inputs[2]), 2, scenes=0)
     paths["local_forward_b2"] = dict(_build.LAUNCHES)
     _expect("PN2_LOCAL forward b=2", paths["local_forward_b2"], 1,
             {**want, "collision_counts": 0})
@@ -3162,16 +3223,17 @@ def _fp_kernel_stages(det) -> int:
 def _parity_launches(det, **changes):
     """Launches per parity detect of `det`, with `changes`: K6 and K2f for
     each SA stage, K4 for each FP stage at or above its pair threshold, K5
-    once per scene post-processed; never K1, K2, K3 or K7."""
+    once per scene post-processed, K9 once per scene preprocessed; never
+    K1, K2, K3 or K7."""
     from s4g_tpu_torch import _build
     stages = len(det.cfg.MODEL.PN2.NUM_CENTROIDS)
     return {**{k: 0 for k in _build.LAUNCHES}, "fps_exact": stages,
             "ball_query_full": stages, "three_nn": _fp_kernel_stages(det),
-            "collision_counts": 1, **changes}
+            "collision_counts": 1, "radius_outlier": 1, **changes}
 
 
 def _deployed_launches(det, b: int, overflow: bool = False,
-                       mlp_chain: int = 0, fused=None):
+                       mlp_chain: int = 0, fused=None, scenes: int = 0):
     """Launches per deployed forward of `det` (SORT_POINTS, FPS_SHARDS 128)
     at batch `b`: K1 once for all SA stages where they nest
     (`fps_nesting_applies`), else once per stage; SA1 through K3 where it
@@ -3179,7 +3241,8 @@ def _deployed_launches(det, b: int, overflow: bool = False,
     K2, or, when its key windows `overflow`, through the full-scan
     fallback (K2f); K2f for every other SA stage (inputs below the slab
     capacity); K4 for each FP stage at or above its pair threshold; K5
-    once per scene post-processed; `mlp_chain` K7 chains."""
+    once per scene post-processed; `mlp_chain` K7 chains; K9 once for
+    each of the `scenes` preprocessed."""
     from s4g_tpu_torch import _build
     from s4g_tpu_torch.ops.sampling import fps_nesting_applies
     pn2 = det.cfg.MODEL.PN2
@@ -3190,6 +3253,7 @@ def _deployed_launches(det, b: int, overflow: bool = False,
     out.update(fps_lane=1 if nested else len(sizes) - 1,
                three_nn=_fp_kernel_stages(det),
                collision_counts=b, mlp_chain=mlp_chain,
+               radius_outlier=scenes,
                ball_query_full=sum(n <= SLAB_CAPACITY for n in sizes[:-1]))
     if overflow:
         out["ball_query_full"] += 1
@@ -3203,10 +3267,12 @@ def _add(total: dict, more: dict) -> dict:
     return {k: total.get(k, 0) + v for k, v in more.items()}
 
 
-def _counted(det, call, b: int, mlp_chain: int = 0, fused=None):
+def _counted(det, call, b: int, mlp_chain: int = 0, fused=None,
+             scenes=None):
     """Run `call()` once; return its result and the launches it should have
     made, `_deployed_launches` with the SA1 overflow that the run reported
-    (the slab route's fallback, the fused stage's)."""
+    (the slab route's fallback, the fused stage's) and `scenes` scenes
+    preprocessed (by default b: a detector's call; 0 for the net alone)."""
     from s4g_tpu_torch.ops import neighbors as nb
     from s4g_tpu_torch.ops import sa_fused as sf
 
@@ -3214,7 +3280,8 @@ def _counted(det, call, b: int, mlp_chain: int = 0, fused=None):
     out = call()
     overflow = (nb.SLAB_FALLBACKS["overflow"] + sf.SA1_FALLBACKS["overflow"]
                 > before)
-    return out, _deployed_launches(det, b, overflow, mlp_chain, fused)
+    return out, _deployed_launches(det, b, overflow, mlp_chain, fused,
+                                   b if scenes is None else scenes)
 
 
 @contextlib.contextmanager
@@ -3264,7 +3331,7 @@ def _parity_phase(det, torch, np):
     _check_grasps("parity detect_batch", det.detect_batch(pair, **kw))
     paths["parity_batch"] = dict(_build.LAUNCHES)
     _expect("parity detect_batch b=2", paths["parity_batch"], 1,
-            _parity_launches(det, collision_counts=2))
+            _parity_launches(det, collision_counts=2, radius_outlier=2))
     medians["detect_batch b=2"] = _stage_medians("parity detect_batch b=2",
                                                  [det.timings])
 
@@ -3298,6 +3365,7 @@ def _sort_only_phase(det, torch, np):
     launches = dict(_build.LAUNCHES)
     _expect("sort-only detect_batch b=2", launches, 1,
             _parity_launches(det, sa1_fused=1, collision_counts=2,
+                             radius_outlier=2,
                              ball_query_full=len(
                                  det.cfg.MODEL.PN2.NUM_CENTROIDS) - 1))
     return launches, _stage_medians("sort-only detect_batch b=2",
@@ -4241,16 +4309,18 @@ def _deployed_shim():
 
 
 def _forward_launches(b: int, forwards: int, overflows: int,
-                      collision: int = 0, fused=None) -> dict:
+                      collision: int = 0, fused=None,
+                      scenes: int = 0) -> dict:
     """Launches of `forwards` deployed forwards at batch `b`, `overflows`
-    of which overflowed SA1's key windows (their SA1 through K2f), and
-    `collision` K5 launches."""
+    of which overflowed SA1's key windows (their SA1 through K2f),
+    `collision` K5 launches and `scenes` preprocessed (K9 each)."""
     base = _deployed_launches(_deployed_shim(), b, fused=fused)
     out = {k: v * forwards for k, v in base.items()}
     sa1 = "ball_query_slab" if base["ball_query_slab"] else "sa1_fused"
     out[sa1] -= overflows
     out["ball_query_full"] += overflows
     out["collision_counts"] = collision
+    out["radius_outlier"] = scenes
     return out
 
 
@@ -4311,7 +4381,7 @@ def _proposal_phase(det, torch, np, scene, device: str = "cuda"):
         got, launches = _counted_tool(
             "grasp_proposal_test", lambda: grasp_proposal_test.main(
                 ["--scene", scene, "--output", out, "--device", device]),
-            lambda over: _forward_launches(1, 2, over))
+            lambda over: _forward_launches(1, 2, over, scenes=1))
     step = os.path.join(out, "test_step00000")
     names = ["scene_points.xyz", "scene_score_logits.txt", "pred_frame_R.txt",
              "pred_frame_t.txt", "pred_scene_score.txt", "pred_pts.ply"]
@@ -4410,7 +4480,8 @@ def _measure_stream_phase(torch, np, scene, frames: int = STREAM_FRAMES,
                 [str(frames), str(depth), "--scene", scene, "--output", out,
                  "--device", device]),
             lambda over: _forward_launches(1, detects, over,
-                                           collision=detects))
+                                           collision=detects,
+                                           scenes=detects))
         total = _add(total, launches)
     return total, lines
 
@@ -4539,7 +4610,8 @@ KERNEL_NAMES = {"fps_lane": ("fps_nested_kernel", "fps_lane_kernel"),
                 "collision_counts": ("collision_counts_kernel",),
                 "mlp_chain": ("mlp_chain_kernel", "mlp_wg_kernel",
                               "mlp_wide_kernel"),
-                "gather_backward": ("gather_backward_kernel",)}
+                "gather_backward": ("gather_backward_kernel",),
+                "radius_outlier": ("radius_outlier_count_kernel",)}
 
 
 def _trace_phase(torch, np, scene, device: str = "cuda"):
@@ -4724,6 +4796,11 @@ def _kernel_twins():
                                          radius * radius, num_neighbours,
                                          stratified)
 
+    def outlier(points, valid, radius, min_neighbors):
+        counts = nb._radius_outlier_counts_plain(
+            points, valid, nb._f32(radius * radius))
+        return valid & (counts >= min_neighbors), counts
+
     return [("gather_backward", gt, "gather_backward",
              gt._gather_backward_plain),
             ("fps_exact", sp, "fps_exact", sp._fps_plain),
@@ -4734,7 +4811,8 @@ def _kernel_twins():
             ("ball_query_slab", nb, "ball_query_fused_slab", bq_slab),
             ("three_nn", nb, "three_nn_fused", nb._three_nn_plain),
             ("collision_counts", col, "collision_counts",
-             col._collision_counts_plain)]
+             col._collision_counts_plain),
+            ("radius_outlier", nb, "radius_outlier_counts", outlier)]
 
 
 def _signature(x):
@@ -4833,7 +4911,8 @@ def _tool_launches(label):
     (`_k8_per_step`), each `grade_object` K2f twice (normals and frames),
     each collision check K5 once where its pose-point pairs reach the
     kernel's threshold
-    (else nothing), and nothing launches outside them: the totals must
+    (else nothing), each radius-outlier test on the card K9 once, and
+    nothing launches outside them: the totals must
     equal the sum.  Yields the record (counts of forwards, their batch
     sizes, backwards, grades, collision checks, K5s); after the block
     record["launches"] holds the totals, and record["held"] the calls held
@@ -4843,15 +4922,18 @@ def _tool_launches(label):
     from s4g_tpu_torch import _build
     from s4g_tpu_torch.datagen import generate
     from s4g_tpu_torch.models.pointnet2 import PointNet2CLS
+    from s4g_tpu_torch.ops import neighbors as nb
     from s4g_tpu_torch.ops.neighbors import KERNEL_MIN_PAIRS
     from s4g_tpu_torch.pipeline import collision
     from s4g_tpu_torch.train.trainer import Trainer
 
     zero = {k: 0 for k in _build.LAUNCHES}
     rec = {"forwards": 0, "batches": [], "grades": 0, "collisions": 0,
-           "k5": 0, "backwards": 0, "expected": dict(zero)}
+           "k5": 0, "outlier_tests": 0, "backwards": 0,
+           "expected": dict(zero)}
     real = (PointNet2CLS.forward, generate.grade_object,
-            collision.batch_view_non_collision, Trainer.backward)
+            collision.batch_view_non_collision, Trainer.backward,
+            nb.radius_outlier_counts)
 
     def held(what, before, want):
         got = {k: _build.LAUNCHES[k] - before[k] for k in before}
@@ -4893,17 +4975,27 @@ def _tool_launches(label):
              {**zero, "gather_backward": _k8_per_step(self.net)})
         rec["backwards"] += 1
 
+    def radius_outlier_counts(points, *args, **kwargs):
+        before = dict(_build.LAUNCHES)
+        out = real[4](points, *args, **kwargs)
+        held("a radius-outlier test", before,
+             {**zero, "radius_outlier": int(points.is_cuda)})
+        rec["outlier_tests"] += 1
+        return out
+
     _build.reset_launches()
     PointNet2CLS.forward = forward
     generate.grade_object = grade_object
     collision.batch_view_non_collision = batch_view_non_collision
     Trainer.backward = backward
+    nb.radius_outlier_counts = radius_outlier_counts
     try:
         with _held_kernels(label) as twins_held:
             yield rec
     finally:
         (PointNet2CLS.forward, generate.grade_object,
-         collision.batch_view_non_collision, Trainer.backward) = real
+         collision.batch_view_non_collision, Trainer.backward,
+         nb.radius_outlier_counts) = real
     rec["held"] = twins_held
     rec["launches"] = dict(_build.LAUNCHES)
     if rec["launches"] != rec["expected"]:
@@ -4912,7 +5004,8 @@ def _tool_launches(label):
     print(f"{label}: {rec['forwards']} forwards (batches "
           f"{sorted(set(rec['batches']))}), {rec['backwards']} backwards, "
           f"{rec['grades']} objects graded, "
-          f"{rec['collisions']} collision checks ({rec['k5']} on K5); "
+          f"{rec['collisions']} collision checks ({rec['k5']} on K5), "
+          f"{rec['outlier_tests']} radius-outlier tests; "
           f"launches {rec['launches']}", flush=True)
 
 
@@ -4965,9 +5058,10 @@ def _scale_phase(torch, np, device: str = "cuda"):
     `Trainer.fit` for 6 steps at b = 4, the validation pass, the detection
     QA on the fitted weights and the steady-state loop.  Every launch held
     to its cause (`_tool_launches`): per forward K6 3, K2f 3, K4 2; per
-    graded object K2f 2; the QA's collision check K5 1; each held against
-    its plain twin at the run's shapes (b = 4 in training and validation,
-    b = 1 in the QA, each object's self queries).  Each train step
+    graded object K2f 2; the QA's collision check K5 1 and its
+    radius-outlier test K9 1; each held against its plain twin at the
+    run's shapes (b = 4 in training and validation, b = 1 in the QA, each
+    object's self queries).  Each train step
     timed with CUDA events; the QA's weights must hash to the checkpoint
     fit saved.  Returns (launches, numbers, output directory, QA dict)."""
     from s4g_tpu_torch.tools import train_at_scale
@@ -5890,6 +5984,7 @@ def main() -> int:
         extras.setdefault("mlp_chain", {}).update(k7_extras)
         rep.append(k7)
         rep.append(_k8_phase(torch, np, extras))
+        rep.append(_k9_phase(det, torch, np, extras))
         for name, _, _, err, ms, plain, bound, by in rep:
             print(f"kernel {name}: max|kernel-plain|={err:.3g} kernel "
                   f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.5f} ms "

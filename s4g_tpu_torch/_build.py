@@ -71,6 +71,9 @@ _SIGNATURES = {
     # grad_out (P,C), order (P,) int32, offsets (rows+1,) int32, rows, c,
     # dtype (0 f32, 1 bf16, 2 f64), grad_x (rows,C)
     "s4g_gather_backward": (_P, _P, _P, _I, _I, _I, _P, _P),
+    # points (N,3) f32, valid (N,) bool, n, r2, min_neighbors, counts (N,)
+    # int32 (zeroed by the call), keep (N,) bool
+    "s4g_radius_outlier": (_P, _P, _I, _F, _I, _P, _P),
 }
 
 # C entry points that launch nothing (argtypes, no stream): a launcher's

@@ -24,7 +24,10 @@ Routes, as in the JAX package's "auto" (`neighbors.py:482-496, 684-693`):
   route never changes a result;
 * 3-NN with N1 * N2 >= 2^22 selects with the CUDA kernel
   `csrc/three_nn.cu` (K4) (plain twin on CPU); smaller stages select with
-  matmul-form distances, the twin of `_three_nn_select_xla`.
+  matmul-form distances, the twin of `_three_nn_select_xla`;
+* the radius-outlier counts of preprocessing launch `csrc/radius_outlier.cu`
+  (K9) on CUDA tensors, its plain twin `_radius_outlier_counts_plain` on
+  CPU tensors.
 """
 
 from __future__ import annotations
@@ -550,3 +553,75 @@ def three_nn(query_xyz: torch.Tensor, key_xyz: torch.Tensor,
     else:
         idx = _three_nn_select_matmul(query_xyz, key_xyz, chunk)
     return _exact_resort3(idx, query_xyz, key_xyz)
+
+
+# K9's tiles: a block takes RO_TILE_Q queries and RO_TILE_K keys
+# (`csrc/radius_outlier.cu`).
+RO_TILE_Q = 512
+RO_TILE_K = 1024
+
+
+def _valid_tiles(valid: torch.Tensor, tile: int) -> list:
+    """The valid rows of each `tile`-row tile that holds one, ascending."""
+    idx = torch.nonzero(valid)[:, 0]
+    edges = torch.searchsorted(idx, torch.arange(
+        0, valid.shape[0] + tile, tile, device=valid.device)).tolist()
+    return [idx[a:b] for a, b in zip(edges[:-1], edges[1:]) if b > a]
+
+
+def _radius_outlier_counts_plain(points: torch.Tensor, valid: torch.Tensor,
+                                 r2: float, tile_q: int = RO_TILE_Q,
+                                 tile_k: int = RO_TILE_K) -> torch.Tensor:
+    """Plain twin of K9, in its tiles and its rounding: for each valid
+    query, the valid keys j with d < r2, itself included, where every f32
+    operation is rounded on its own:
+    |p|^2 = (x*x + y*y) + z*z, q.k = (q0*k0 + q1*k1) + q2*k2,
+    d = (|q|^2 + |k|^2) - 2*(q.k).  Tiles without a valid row are skipped
+    (an invalid key never counts), and the tiles' integer partial counts are
+    summed, so the counts do not depend on the tiles.
+
+    Args: points (N, 3) f32; valid (N,) bool; r2 an f32 value.
+    Returns: counts (N,) int32, 0 for an invalid row."""
+    x, y, z = points[:, 0], points[:, 1], points[:, 2]
+    sq = (x * x + y * y) + z * z
+    counts = torch.zeros(points.shape[0], dtype=torch.int32,
+                         device=points.device)
+    key_tiles = _valid_tiles(valid, tile_k)
+    for qi in _valid_tiles(valid, tile_q):
+        q = points[qi]
+        for ki in key_tiles:
+            k = points[ki]
+            dot = ((q[:, 0, None] * k[None, :, 0]
+                    + q[:, 1, None] * k[None, :, 1])
+                   + q[:, 2, None] * k[None, :, 2])
+            d = (sq[qi, None] + sq[None, ki]) - 2.0 * dot
+            counts[qi] += (d < r2).sum(dim=1, dtype=torch.int32)
+    return counts
+
+
+def radius_outlier_counts(points: torch.Tensor, valid: torch.Tensor,
+                          radius: float, min_neighbors: int):
+    """Radius-outlier test (K9): for each valid row, the valid rows within
+    `radius` (strict < on the f32 rounding of radius * radius), itself
+    included, on matmul-form f32 distances in the rounding that
+    `_radius_outlier_counts_plain` states.
+
+    Args: points (N, 3) f32; valid (N,) bool.
+    Returns: keep (N,) bool = valid & (count >= min_neighbors), and counts
+    (N,) int32 (0 for an invalid row).  CUDA tensors launch
+    `csrc/radius_outlier.cu` (one call, no host synchronisation); CPU
+    tensors take `_radius_outlier_counts_plain`."""
+    n = points.shape[0]
+    if n < 1:
+        raise ValueError("the radius-outlier test needs N >= 1")
+    r2 = _f32(radius * radius)
+    if not _build.on_cuda(points, valid):
+        counts = _radius_outlier_counts_plain(points, valid, r2)
+        return valid & (counts >= min_neighbors), counts
+    _build.check(points, "points", torch.float32, (n, 3))
+    _build.check(valid, "valid", torch.bool, (n,))
+    counts = torch.empty(n, dtype=torch.int32, device=points.device)
+    keep = torch.empty(n, dtype=torch.bool, device=points.device)
+    _build.launch("radius_outlier", points, valid, n, r2, int(min_neighbors),
+                  counts, keep)
+    return keep, counts

@@ -14,6 +14,8 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from .. import _build
+from ..ops import neighbors as nb
 from ..utils.profiling import span
 
 _INT32_MAX = 2 ** 31 - 1
@@ -108,9 +110,25 @@ def radius_outlier_mask(points: torch.Tensor, valid: torch.Tensor,
                         radius: float, min_neighbors: int,
                         chunk: int = 1024) -> torch.Tensor:
     """Keep points with >= min_neighbors valid points within radius (self
-    included) — Open3D remove_radius_outlier semantics.  Matmul-form f32
-    distances as in the JAX package (full f32: TF32 must be off); the chunk
-    only bounds memory, the result does not depend on it."""
+    included) — Open3D remove_radius_outlier semantics, on matmul-form f32
+    distances as in the JAX package.  CUDA tensors launch the count kernel
+    K9 (`ops.neighbors.radius_outlier_counts`; its twin
+    `_radius_outlier_counts_plain` states the rounding of q.k); CPU tensors
+    take `_radius_outlier_matmul`, whose memory `chunk` bounds (K9 has no
+    chunks)."""
+    if _build.on_cuda(points, valid):
+        return nb.radius_outlier_counts(points.contiguous(),
+                                        valid.contiguous(), radius,
+                                        min_neighbors)[0]
+    return _radius_outlier_matmul(points, valid, radius, min_neighbors, chunk)
+
+
+def _radius_outlier_matmul(points: torch.Tensor, valid: torch.Tensor,
+                           radius: float, min_neighbors: int,
+                           chunk: int = 1024) -> torch.Tensor:
+    """The test in the JAX package's shape: every row against every row in
+    chunks of matmul-form f32 distances (full f32: TF32 must be off); the
+    chunk only bounds memory, the result does not depend on it."""
     r2 = torch.tensor(radius * radius, dtype=torch.float32).item()
     sq = (points[:, 0] * points[:, 0] + points[:, 1] * points[:, 1]
           + points[:, 2] * points[:, 2])

@@ -27,8 +27,11 @@ from s4g_tpu_torch.ops import neighbors as nb
 from s4g_tpu_torch.ops import sa_fused as sf
 from s4g_tpu_torch.ops import sampling as sp
 from s4g_tpu_torch.pipeline import collision as col
+from s4g_tpu_torch.pipeline import preprocessing as tpre
 from s4g_tpu_torch.pipeline.detector import GraspDetector, prep_one
 from s4g_tpu_torch.utils.checkpoint import Checkpointer
+
+from outlier_boundary import outlier_flips
 
 pytestmark = pytest.mark.cuda
 
@@ -417,6 +420,97 @@ def test_collision_kernel_matches_plain(cuda, g, n):
     assert float(want[0].sum()) > 0 and float(want[1].sum()) > 0
 
 
+def _outlier_operands(case, n):
+    """(points (N, 3), valid (N,)) for K9: random rows in an 8 cm box, a
+    table's 18,000 valid rows as a prefix of garbage rows, a table with
+    rows valid at random, no valid row, a 5 mm lattice (pairs at 2 cm
+    exactly, up to rounding), or a random cloud with 700 rows at 1e6 (the
+    padding `detect` counts valid)."""
+    rng = np.random.RandomState(n % 1000 + len(case))
+    pts = rng.rand(n, 3) * 0.08 + [0.1, -0.05, 0.7]
+    valid = rng.rand(n) < 0.8
+    valid[0] = True
+    if case in ("prefix", "scattered"):
+        pts = np.column_stack([rng.rand(n, 2) * [0.69, 0.51],
+                               0.75 + rng.normal(0, 0.002, n)])
+        valid = (np.arange(n) < 18000 if case == "prefix"
+                 else rng.rand(n) < 0.3)
+        if case == "prefix":
+            pts[18000:] = rng.rand(n - 18000, 3) * 10.0
+    elif case == "invalid":
+        valid[:] = False
+    elif case == "lattice":
+        g = np.arange(24) * 0.005
+        pts = np.stack(np.meshgrid(g, g, g[:4], indexing="ij"), -1) \
+            .reshape(-1, 3) + [0.1, -0.05, 0.7]
+        valid = np.ones(len(pts), bool)
+    elif case == "pad":
+        pts[-700:] = 1e6
+        valid[-700:] = True
+    return (torch.from_numpy(np.ascontiguousarray(pts, np.float32)),
+            torch.from_numpy(valid))
+
+
+@pytest.mark.parametrize("case,n", [
+    ("random", 1), ("random", 129), ("random", 4099),   # ragged tiles
+    ("prefix", 65536), ("scattered", 65536), ("invalid", 4099),
+    ("lattice", 2304), ("pad", 3700)])
+def test_radius_outlier_kernel_matches_plain(cuda, case, n):
+    pts, valid = _outlier_operands(case, n)
+    r2 = nb._f32(0.02 * 0.02)
+    want = nb._radius_outlier_counts_plain(pts, valid, r2)
+    keep, counts = nb.radius_outlier_counts(pts.to(cuda), valid.to(cuda),
+                                            0.02, 32)
+    torch.cuda.synchronize()
+    assert torch.equal(counts.cpu(), want)
+    assert torch.equal(keep.cpu(), valid & (want >= 32))
+    if case in ("prefix", "scattered", "pad"):
+        assert 0 < int(keep.sum()) < int(valid.sum())
+
+
+def test_radius_outlier_route_launches_k9_once_a_scene(cuda, tmp_path):
+    """`preprocess_cloud` on the card runs its outlier test in one K9
+    call, and `detect_batch` at b = 4 in one a scene."""
+    before = _build.LAUNCHES["radius_outlier"]
+    tpre.preprocess_cloud(
+        torch.from_numpy(_table(np.random.RandomState(6))).to(cuda),
+        num_points=1024, capacity=32768,
+        generator=torch.Generator(device=cuda).manual_seed(0))
+    assert _build.LAUNCHES["radius_outlier"] == before + 1
+    det = _narrow_detector(tmp_path, NARROW_DEPLOYED, "cuda")
+    frames = [_table(np.random.RandomState(s)) for s in range(4)]
+    before = _build.LAUNCHES["radius_outlier"]
+    det.detect_batch(frames, score_threshold=0.0, verticalness_threshold=-1e9)
+    assert _build.LAUNCHES["radius_outlier"] == before + 4
+
+
+def test_radius_outlier_kernel_flips_against_the_chunked_route(cuda):
+    """K9 against the chunked matmul route (cuBLAS's rounding of q.k) on a
+    benchmark frame (`grasp_bench/scenes.py`: a 640 x 480 table subset to
+    65,536 rows as `detect` does, rotated and voxelised as `prep_one`
+    does): every flip hangs on a pair at the radius."""
+    from grasp_bench import scenes
+    from s4g_tpu_torch.pipeline.postprocessing import REAL2TRAIN
+
+    frame = scenes.tabletop_cloud(scenes.rng(4200000001, 1, 0),
+                                  n_plane=268800, n_box=38400)
+    sub = frame[np.random.RandomState(0).choice(len(frame), 65536,
+                                                replace=False)]
+    cloud = torch.from_numpy(sub).to(cuda)
+    train = torch.matmul(cloud, torch.tensor(REAL2TRAIN[:3, :3],
+                                              device=cuda).t())
+    vox = tpre.voxel_downsample(train, torch.ones(65536, dtype=torch.bool,
+                                                  device=cuda), 0.005, 65536)
+    got = tpre.radius_outlier_mask(vox.points, vox.valid, 0.02, 32)
+    want = tpre._radius_outlier_matmul(vox.points, vox.valid, 0.02, 32)
+    valid = vox.valid.cpu().numpy()
+    flips = outlier_flips(vox.points.cpu().numpy(), valid,
+                          got.cpu().numpy(), want.cpu().numpy())
+    print(f"K9 against the chunked route: {flips} flips in {valid.sum()} "
+          "voxels")
+    assert flips <= 1e-3 * valid.sum()
+
+
 def _k3_operands(rng, b, n, m, radius, shift=0.0, c3=256):
     """Sorted scenes, sorted centroids among their points (moved by
     `shift`), the fused stage's windows and folded affines."""
@@ -548,9 +642,24 @@ def test_wrappers_check_their_operands(cuda):
         nb.three_nn_fused(pts[:, :, ::2], pts[:, :, :16].contiguous())
     with pytest.raises(ValueError, match="mixed devices"):
         nb.three_nn_fused(pts, pts.cpu())
+    rows = torch.rand(64, 3, device=cuda)
+    ok = torch.ones(64, dtype=torch.bool, device=cuda)
+    with pytest.raises(TypeError):
+        nb.radius_outlier_counts(rows.double(), ok, 0.02, 32)
+    with pytest.raises(TypeError):
+        nb.radius_outlier_counts(rows, ok.int(), 0.02, 32)
+    with pytest.raises(ValueError, match="contiguous"):
+        nb.radius_outlier_counts(torch.rand(3, 64, device=cuda).t(), ok,
+                                 0.02, 32)
+    with pytest.raises(ValueError, match="shape"):
+        nb.radius_outlier_counts(rows, ok[:10].contiguous(), 0.02, 32)
+    with pytest.raises(ValueError, match="mixed devices"):
+        nb.radius_outlier_counts(rows, ok.cpu(), 0.02, 32)
     before = dict(_build.LAUNCHES)
     nb.three_nn_fused(pts, pts[:, :, :16].contiguous())
+    nb.radius_outlier_counts(rows, ok, 0.02, 32)
     assert _build.LAUNCHES["three_nn"] == before["three_nn"] + 1
+    assert _build.LAUNCHES["radius_outlier"] == before["radius_outlier"] + 1
 
 
 def _chain(rng, p, widths, zero_rows=False):

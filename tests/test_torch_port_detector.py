@@ -24,12 +24,15 @@ from s4g_tpu.pipeline import preprocessing as jpre
 from s4g_tpu.pipeline.detector import GraspDetector as JaxDetector
 from s4g_tpu.utils import math_utils as jmath
 
+from s4g_tpu_torch.ops import neighbors as nb
 from s4g_tpu_torch.ops import sa_fused as sf
 from s4g_tpu_torch.pipeline import detector as tdet
 from s4g_tpu_torch.pipeline import postprocessing as tpost
 from s4g_tpu_torch.pipeline import preprocessing as tpre
 from s4g_tpu_torch.utils import math_utils as tmath
 from s4g_tpu_torch.utils.weights import state_dict_from_flax
+
+from outlier_boundary import outlier_flips
 
 TINY = {
     "MODEL": {"TYPE": "PN2_CLS", "COMPUTE_DTYPE": "float32", "PN2": {
@@ -90,6 +93,67 @@ def test_preprocessing_stages_match_jax():
     np.testing.assert_array_equal(
         tpre.workspace_crop_mask(_t(pts), crop).numpy(),
         np.asarray(jpre.workspace_crop_mask(jnp.asarray(pts), crop)))
+
+
+def _outlier_cloud(case):
+    """(points, valid) for the radius-outlier tests: the voxels of the
+    clutter cloud of `test_preprocessing_stages_match_jax` (with its 1e6
+    pad rows), or a random cloud whose neighbour counts straddle 32."""
+    if case == "clutter":
+        pts = clutter_cloud(np.random.RandomState(0))[:, [1, 0, 2]] \
+            * [1, 1, -1]
+        pts = np.concatenate([pts, np.full((700, 3), 1e6)]).astype(
+            np.float32)
+        vox = tpre.voxel_downsample(_t(pts), torch.ones(len(pts),
+                                                        dtype=torch.bool),
+                                    0.005, len(pts))
+        return vox.points, vox.valid
+    rng = np.random.RandomState(1 if case == "cube" else 2)
+    if case == "cube":                    # 3,000 rows in a 12 cm cube
+        pts = rng.rand(3000, 3) * 0.12 + [0.1, -0.2, 0.7]
+        valid = np.ones(3000, bool)
+    else:                                 # a 2 cm Gaussian, 1 in 5 invalid
+        pts = rng.randn(2500, 3) * 0.02 + [-0.1, 0.05, 0.6]
+        valid = rng.rand(2500) < 0.8
+    return _t(pts.astype(np.float32)), _t(valid)
+
+
+@pytest.mark.parametrize("case", ["clutter", "cube", "blob"])
+def test_radius_outlier_twin_matches_jax_and_the_cpu_route(case):
+    """K9's rounding, as its twin evaluates it, keeps the points that the
+    JAX package's `radius_outlier_mask` keeps, and those that the port's
+    CPU route keeps, bar points whose decision hangs on a pair at the
+    radius."""
+    points, valid = _outlier_cloud(case)
+    keep, counts = nb.radius_outlier_counts(points, valid, 0.02, 32)
+    want_jax = np.asarray(jpre.radius_outlier_mask(
+        jnp.asarray(points.numpy()), jnp.asarray(valid.numpy()), 0.02, 32))
+    want = tpre.radius_outlier_mask(points, valid, 0.02, 32)
+    assert 0 < int(want_jax.sum()) < int(valid.sum())
+    for route in (want_jax, want.numpy()):
+        flips = outlier_flips(points.numpy(), valid.numpy(), keep.numpy(),
+                              route)
+        assert flips <= 1e-3 * len(valid)
+    assert torch.equal(keep, valid & (counts >= 32))
+    assert bool((counts[~valid] == 0).all()) and bool(
+        (counts[valid] >= 1).all())
+
+
+@pytest.mark.parametrize("tile_q,tile_k", [(512, 1024), (1, 64), (37, 5),
+                                           (4096, 4096)])
+def test_radius_outlier_counts_do_not_depend_on_the_tiles(tile_q, tile_k):
+    """The twin's integer partial counts over any tiles sum to the counts
+    of one tile over the whole cloud (ragged tiles, tiles with no valid
+    row)."""
+    rng = np.random.RandomState(5)
+    pts = _t((rng.rand(700, 3) * 0.06).astype(np.float32))
+    valid = _t(rng.rand(700) < 0.7)
+    valid[100:300] = False                # whole tiles without a valid row
+    r2 = nb._f32(0.02 * 0.02)
+    want = nb._radius_outlier_counts_plain(pts, valid, r2, 700, 700)
+    got = nb._radius_outlier_counts_plain(pts, valid, r2, tile_q, tile_k)
+    assert torch.equal(got, want)
+    assert int(want.max()) > 32 > int(want[valid].min())
 
 
 def test_random_sample_fixed_is_a_valid_sample():

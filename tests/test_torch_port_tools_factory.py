@@ -41,6 +41,7 @@ from s4g_tpu_torch.tools import (datagen_mesh_qa, demo_full_system,
 from s4g_tpu_torch.utils.checkpoint import Checkpointer, model_state_dict
 from s4g_tpu_torch.utils.weights import state_dict_from_flax
 
+from outlier_boundary import outlier_flips
 from test_torch_port_model import _perturb
 from test_torch_port_train import write_scenes
 from tools import parity_at_speed as j_parity
@@ -154,28 +155,6 @@ def test_qa_draw_matches_jax(catalogs, seed):
 
 
 # -- run_detect_qa, stage by stage ------------------------------------------------
-
-def outlier_flips(points, valid, got, want, radius=0.02, min_neighbors=32,
-                  ulps=8):
-    """The count of points whose radius-outlier decisions differ, each
-    asserted to hang on a pair within `ulps` f32 ulps (of |q|^2 + |k|^2)
-    of the radius: the matmul form's q.k is a 3-term dot product whose
-    rounding the two BLAS libraries (XLA's and torch's) do in their own
-    order.  Such a point's neighbour count lies at the threshold within the
-    boundary pairs."""
-    bad = np.nonzero(got != want)[0]
-    pts = points.astype(np.float64)
-    sq = (pts * pts).sum(1)
-    r2 = np.float64(np.float32(radius * radius))
-    for i in bad:
-        d = ((pts - pts[i]) ** 2).sum(1)
-        tol = ulps * np.finfo(np.float32).eps * (sq[i] + sq)
-        sure = ((d < r2 - tol) & valid).sum()
-        maybe = ((np.abs(d - r2) <= tol) & valid).sum()
-        assert valid[i] and maybe and sure < min_neighbors <= sure + maybe, (
-            i, sure, maybe)
-    return len(bad)
-
 
 @pytest.fixture
 def small_qa(monkeypatch):
