@@ -33,6 +33,7 @@ from ..ops.gather import gather_rows
 from ..ops.interpolate import interpolation_weights
 from ..ops.neighbors import _axis_keys
 from ..ops.sampling import fps_sharding_applies
+from ..utils.profiling import span
 from . import nn_layers
 from .nn_layers import SharedMLP
 
@@ -125,16 +126,25 @@ class PointNetSAModule(nn.Module):
         if self.num_centroids == 0:
             # Global stage: one centroid at the origin, the group is every
             # point with its absolute xyz.
-            new_xyz = xyz.new_zeros((xyz.shape[0], 1, 3))
-            return new_xyz, self._pool(torch.cat([xyz, feature],
-                                                 dim=-1)[:, None])
+            with span("model.sa", device=xyz.device):
+                new_xyz = xyz.new_zeros((xyz.shape[0], 1, 3))
+                return new_xyz, self._pool(torch.cat([xyz, feature],
+                                                     dim=-1)[:, None])
         if self.num_centroids == -1:
             index = None
             new_xyz = xyz
         else:
-            index = self._sample(xyz, sorted_axis, fps_index)
-            new_xyz = gather_cl(xyz, index)
+            with span("model.sample", device=xyz.device):
+                index = self._sample(xyz, sorted_axis, fps_index)
+                new_xyz = gather_cl(xyz, index)
+        with span("model.sa", device=xyz.device):
+            return new_xyz, self._group_pool(xyz, feature, new_xyz, index,
+                                             sorted_axis)
 
+    def _group_pool(self, xyz, feature, new_xyz, index, sorted_axis
+                    ) -> torch.Tensor:
+        """The stage after its sampling: ball query, grouping (with edge
+        features where the stage has them), the MLP and the pool."""
         csorted = sorted_axis is not None
         if feature is not None:
             nbr_index, _ = ops.ball_query(
@@ -155,11 +165,10 @@ class PointNetSAModule(nn.Module):
             # "1"): the whole stage is one kernel (K3), as in the JAX
             # package.
             pts_cf, cent_cf = _cf(xyz).contiguous(), _cf(new_xyz).contiguous()
-            new_feature = self.mlp.sa1_fused_eval(
+            return self.mlp.sa1_fused_eval(
                 pts_cf, cent_cf, _axis_keys(pts_cf, sorted_axis),
                 _axis_keys(cent_cf, sorted_axis), self.radius,
                 self.num_neighbours, sorted_axis=sorted_axis)
-            return new_xyz, new_feature
         else:
             # xyz-only stage, unfused (batch 1, SA1_FUSE "0", or a stage K3
             # does not take).
@@ -168,7 +177,7 @@ class PointNetSAModule(nn.Module):
                 sorted_axis=sorted_axis, centroids_sorted=csorted,
                 stratified=csorted)
             group_feature = group_feature.to(xyz.dtype)
-        return new_xyz, self._pool(group_feature)
+        return self._pool(group_feature)
 
     def _sample(self, xyz, sorted_axis, fps_index) -> torch.Tensor:
         """This stage's centroid indices: `fps_index`, else its FPS (kept

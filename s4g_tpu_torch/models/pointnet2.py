@@ -36,6 +36,7 @@ from .pn2_modules import EdgeFPModule, PointnetFPModule, PointNetSAModule
 from ..ops.neighbors import flat_gather_rows, invert_permutation
 from ..ops.sampling import fps_lane_nested, fps_nesting_applies
 from ..parallel.mesh import batch_mean
+from ..utils.profiling import span
 
 
 class PointNet2Backbone(nn.Module):
@@ -75,7 +76,12 @@ class PointNet2Backbone(nn.Module):
         self.fp_modules = nn.ModuleList(fp)
 
     def backbone(self, xyz: torch.Tensor) -> torch.Tensor:
-        """xyz (B, N, 3) channels-last -> per-point features (B, N, C)."""
+        """xyz (B, N, 3) channels-last -> per-point features (B, N, C).
+        Under a profiler each stage records spans (`utils.profiling.span`,
+        with CUDA events on the card): `model.sample` (a stage's FPS and
+        centroid gather, or the nested K1 launch of every stage),
+        `model.sa` (its query, grouping, MLP and pool) and `model.fp` (an
+        FP stage's 3-NN, interpolation and MLP)."""
         sorted_axis = None
         order = None
         if self.sort_points:
@@ -100,8 +106,9 @@ class PointNet2Backbone(nn.Module):
         fps_index = [None] * len(centroids)
         if self.sort_points and fps_nesting_applies(
                 xyz.shape[1], centroids, self.fps_shards):
-            fps_index = fps_lane_nested(xyz.transpose(1, 2).contiguous(),
-                                        centroids)
+            with span("model.sample", device=xyz.device):
+                fps_index = fps_lane_nested(
+                    xyz.transpose(1, 2).contiguous(), centroids)
 
         inter_xyz = [xyz]
         inter_feature: list[Optional[torch.Tensor]] = [None]
@@ -116,8 +123,9 @@ class PointNet2Backbone(nn.Module):
         sparse_xyz, sparse_feature = cur_xyz, feature
         for i, fp in enumerate(self.fp_modules):
             dense_xyz = inter_xyz[-2 - i]
-            sparse_feature = fp(dense_xyz, sparse_xyz, inter_feature[-2 - i],
-                                sparse_feature)
+            with span("model.fp", device=dense_xyz.device):
+                sparse_feature = fp(dense_xyz, sparse_xyz,
+                                    inter_feature[-2 - i], sparse_feature)
             sparse_xyz = dense_xyz
         if order is not None:
             sparse_feature = flat_gather_rows(sparse_feature,

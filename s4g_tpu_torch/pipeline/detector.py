@@ -63,7 +63,7 @@ from .postprocessing import (REAL2TRAIN, importance_sample,
 from .preprocessing import (preprocess_cloud, random_sample_fixed,
                             sample_draws)
 
-_SUPPORTED_MODELS = ("curvature_model", "contact_model")
+_SUPPORTED_MODELS = ("curvature_model", "contact_model", "edgepn2du_model")
 _CONFIG_DIR = os.path.join(os.path.dirname(__file__), "..", "configs")
 
 logger = logging.getLogger(__name__)
@@ -215,7 +215,8 @@ class GraspDetector:
                  seed: int = 0, state_dict: Optional[dict] = None,
                  enable_voxel_downsample: bool = True,
                  enable_outlier_removal: bool = True, mesh=None):
-        """`model`: "curvature_model", "contact_model" or a YAML path.
+        """`model`: "curvature_model", "contact_model", "edgepn2du_model"
+        (EDGEPN2DU, the edge-convolution model) or a YAML path.
         `device`: "cuda" (the default) or "cpu" (the tests); without a GPU a
         detector is only made when the CPU is asked for.  `output_dir`
         (created here) holds checkpoints (`last_checkpoint`) and `detect`'s

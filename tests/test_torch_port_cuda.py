@@ -1598,3 +1598,47 @@ def test_narrow_train_step_repeats_bit_for_bit(cuda, tmp_path):
     spread = rerun(tr, batch)
     assert _build.LAUNCHES["gather_backward"] == before + 2 * 11
     assert all(v["bit_equal"] for v in spread.values()), spread
+
+
+def test_edge_model_detect_batch_holds_to_the_plain_reference(cuda,
+                                                               tmp_path):
+    """`GraspDetector(model="edgepn2du_model").detect_batch` at the
+    published widths on two benchmark frames (`grasp_bench/scenes.py`: 640
+    x 480 tables, subset to the capacity as `detect_batch` does), with the
+    benchmark's seeded weights: each scene's predictions, taken at the
+    net, against `grasp_bench/reference/edge.py` on the same model input,
+    within the cell's `model_error` limit (bf16 products summed in other
+    orders); the forward launches K6 for the three sampled stages and K2f
+    for the three queried ones, and each frame returns min(5, its valid
+    candidates) grasps."""
+    from grasp_bench import check, harness, scenes
+    from grasp_bench.reference import edge
+
+    cell, config, _ = harness.cell_files("edgepn2du.detect_batch_edge.vga_b4")
+    cfg = config["model"]
+    sd = edge.make_weights(cfg, 4200000011, cuda)
+    det = GraspDetector(model="edgepn2du_model", device="cuda",
+                        output_dir=str(tmp_path), state_dict=sd)
+    frames = [scenes.tabletop_cloud(scenes.rng(4200000011, 1, i),
+                                    n_plane=268800, n_box=38400)
+              for i in range(2)]
+    got = {}
+    det.net.register_forward_hook(lambda module, inputs, output: got.update(
+        points=inputs[0]["scene_points"], **output))
+    before = dict(_build.LAUNCHES)
+    results = det.detect_batch(frames, score_threshold=0.0,
+                               verticalness_threshold=-1e9)
+    torch.cuda.synchronize()
+    ran = {k: _build.LAUNCHES[k] - before[k] for k in before}
+    assert (ran["fps_exact"], ran["ball_query_full"]) == (3, 3), ran
+    assert not any(ran[k] for k in ("fps_lane", "ball_query_slab",
+                                    "sa1_fused", "mlp_chain")), ran
+    assert [len(poses) for poses, _ in results] == [
+        min(5, n) for n in det.last_num_valid]
+    for b in range(2):
+        pts = got["points"][b].t().float()
+        ref = edge.forward(sd, cfg, pts)
+        errs = check.head_errors(
+            {k: v[b] for k, v in got.items() if k != "points"}, ref, pts)
+        print(f"edge model, scene {b}: head errors {errs}")
+        assert max(errs.values()) <= cell["limits"]["model_error"], errs

@@ -1,8 +1,8 @@
 """The port's spans and counters (`s4g_tpu_torch.utils.profiling.span`) on
 the CPU: off without a profiler (one flag check, nothing recorded, no
 `record_function`, CUDA event or sync-debug mode); under a CPU
-torch.profiler the detector's, trainer's and loader's spans with their
-parents and call ids, in the Chrome trace as `user_annotation` events;
+torch.profiler the detector's, model's, trainer's and loader's spans with
+their parents and call ids, in the Chrome trace as `user_annotation` events;
 outputs bit for bit the same with tracing on and off; the benchmark's
 readers of the spans (`grasp_bench/metrics/`) on synthetic stores; and
 `grasp_bench.devtrace` naming a span for an idle gap inside it."""
@@ -40,9 +40,13 @@ DETECT_SPANS = {       # span -> its parent
     "detect.model": "detect.submit", "detect.post": "detect.submit",
     "post.candidates": "detect.post", "post.collision": "detect.post",
     "detect.wait": None}
+# The model's spans a forward of the two-stage TINY and TINY_PN2 pyramids:
+# span -> how many (one a stage).
+MODEL_SPANS = {"model.sample": 2, "model.sa": 2, "model.fp": 2}
 TRAIN_SPANS = {"train.step": None, "train.forward_loss": "train.step",
                "train.backward": "train.step", "train.update": "train.step",
-               "loader.wait": None, "loader.collate": None}
+               "loader.wait": None, "loader.collate": None,
+               **{name: "train.forward_loss" for name in MODEL_SPANS}}
 
 
 def _profiled():
@@ -165,11 +169,15 @@ def detect_run(tmp_path_factory):
 def test_detect_records_its_spans_with_parents_and_one_call(detect_run):
     spans = detect_run["spans"]
     first = [s for s in spans if s.call == spans[0].call]
-    assert {s.name: s.parent for s in first} == DETECT_SPANS
+    assert {s.name: s.parent for s in first} == {
+        **DETECT_SPANS, **{name: "detect.model" for name in MODEL_SPANS}}
     assert all(s.t1 is not None and s.thread == "MainThread"
                for s in spans)
-    # One scene: one span of each stage a call.
-    assert sorted(s.name for s in first) == sorted(DETECT_SPANS)
+    # One scene: one span of each stage a call, and the model's one a
+    # stage of its forward.
+    assert sorted(s.name for s in first) == sorted(
+        [*DETECT_SPANS, *(name for name, n in MODEL_SPANS.items()
+                          for _ in range(n))])
     assert not any("host_waits" in s.counts for s in spans)   # the CPU
 
 
@@ -298,6 +306,9 @@ READERS = [   # metric, span, value
     ("backward_host_ms.train", "train.backward", "host_ms"),
     ("loader_wait_ms.train", "loader.wait", "host_ms"),
     ("collate_ms.train", "loader.collate", "host_ms"),
+    ("sample_ms.edge", "model.sample", "device_ms"),
+    ("sa_ms.edge", "model.sa", "device_ms"),
+    ("fp_ms.edge", "model.fp", "device_ms"),
 ]
 
 
