@@ -62,6 +62,7 @@ from .postprocessing import (REAL2TRAIN, importance_sample,
                              post_process_predictions_regression)
 from .preprocessing import (preprocess_cloud, random_sample_fixed,
                             sample_draws)
+from .subset_draws import SubsetDraws
 
 _SUPPORTED_MODELS = ("curvature_model", "contact_model", "edgepn2du_model")
 _CONFIG_DIR = os.path.join(os.path.dirname(__file__), "..", "configs")
@@ -255,6 +256,7 @@ class GraspDetector:
         self._enable_voxel = enable_voxel_downsample
         self._enable_outlier = enable_outlier_removal
         self._np_rng = np.random.RandomState(seed)
+        self._subsets = SubsetDraws(cloud_capacity)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.timings: dict = {}
@@ -286,18 +288,22 @@ class GraspDetector:
 
     # -- host side ------------------------------------------------------------
 
-    def _fit_capacity(self, cloud_array: np.ndarray) -> np.ndarray:
-        """(n, 3) -> at most `cloud_capacity` of its points (a seeded
-        random subset when it has more)."""
-        n = cloud_array.shape[0]
-        if n > self.cloud_capacity:
-            sel = self._np_rng.choice(n, self.cloud_capacity, replace=False)
-            cloud_array = cloud_array[sel]
-        return cloud_array
+    def _fit(self, arrays: List[np.ndarray],
+             rows: slice = slice(None)) -> List[np.ndarray]:
+        """(n_i, 3) clouds -> the clouds `rows`, each cut to at most
+        `cloud_capacity` points: a cloud of more keeps a seeded random
+        subset, `_np_rng`'s draw for it.  Every cloud of `arrays` draws, in
+        order, through `SubsetDraws`, which makes the next call's draws
+        ahead for clouds of this call's sizes: clouds whose sizes change
+        from call to call draw inline, as before, and waste the worker's
+        draw."""
+        subsets = self._subsets.draws(self._np_rng, [len(a) for a in arrays])
+        return [a if s is None else np.take(a, s, axis=0)
+                for a, s in zip(arrays[rows], subsets[rows])]
 
-    def _pad_cloud(self, cloud_array: np.ndarray):
-        """(n, 3) -> padded (capacity, 3) + valid mask, on the device."""
-        cloud_array = self._fit_capacity(cloud_array)
+    def _pad(self, cloud_array: np.ndarray):
+        """(n, 3), n <= capacity -> padded (capacity, 3) + valid mask, on
+        the device."""
         n = cloud_array.shape[0]
         out = np.zeros((self.cloud_capacity, 3), np.float32)
         out[:n] = cloud_array
@@ -307,6 +313,10 @@ class GraspDetector:
         valid[:n] = True
         return (torch.from_numpy(out).to(self.device),
                 torch.from_numpy(valid).to(self.device))
+
+    def _pad_cloud(self, cloud_array: np.ndarray):
+        """(n, 3) -> fitted to the capacity (`_fit`), then `_pad`ded."""
+        return self._pad(self._fit([cloud_array])[0])
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -327,9 +337,9 @@ class GraspDetector:
         each stage for `timings`.
 
         `rows`: run only these scenes of `arrays` (a rank's), with the
-        draws the whole batch would give them: every scene is fitted to
-        the capacity, and the other scenes' sample draws are drawn and
-        dropped, in the unsharded order."""
+        draws the whole batch would give them: every scene draws its
+        subset (`_fit`; only the rows' are gathered), and the other scenes'
+        sample draws are drawn and dropped, in the unsharded order."""
         clock = [time.perf_counter()]
 
         def lap():
@@ -340,9 +350,7 @@ class GraspDetector:
         with span("detect.submit", waits=self.device) as submit:
             with span("detect.fit"):
                 rows = slice(0, len(arrays)) if rows is None else rows
-                arrays = [self._fit_capacity(a) for a in arrays]
-                padded, valids = zip(*(self._pad_cloud(a)
-                                       for a in arrays[rows]))
+                padded, valids = zip(*map(self._pad, self._fit(arrays, rows)))
                 padded, valids = torch.stack(padded), torch.stack(valids)
             lap()
             with torch.no_grad():

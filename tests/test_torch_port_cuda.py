@@ -1642,3 +1642,38 @@ def test_edge_model_detect_batch_holds_to_the_plain_reference(cuda,
             {k: v[b] for k, v in got.items() if k != "points"}, ref, pts)
         print(f"edge model, scene {b}: head errors {errs}")
         assert max(errs.values()) <= cell["limits"]["model_error"], errs
+
+
+def test_vga_subsets_drawn_ahead_equal_the_benchmark_replay(cuda, tmp_path):
+    """Three 640 x 480 benchmark frames (`grasp_bench/scenes.py`: 307,200
+    points) through `detect` at the deployed capacity: each cloud fitted is
+    its frame's rows at `grasp_bench.reference.draws.replay`'s subset, bit
+    for bit, and each call after the first takes the subset drawn ahead on
+    the worker (`detect.fit`'s `ahead_hits`)."""
+    from grasp_bench import scenes
+    from grasp_bench.reference import draws
+    from s4g_tpu_torch.utils import profiling
+
+    seed = 4200002201
+    det = GraspDetector(model="curvature_model", device="cuda",
+                        output_dir=str(tmp_path), seed=seed)
+    frames = [scenes.tabletop_cloud(scenes.rng(seed, 1, i), n_plane=268800,
+                                    n_box=38400) for i in range(3)]
+    fitted, pad = [], det._pad
+    det._pad = lambda cloud: (fitted.append(cloud), pad(cloud))[1]
+    pad_ms = []
+    with profiling.trace(str(tmp_path / "trace")):
+        for frame in frames:
+            det.detect(frame, score_threshold=0.0,
+                       verticalness_threshold=-1e9)
+            pad_ms.append(det.timings["pad_ms"])
+    print(f"vga detect: pad_ms a call {pad_ms} (profiled)")
+    want = draws.replay(seed, cuda, [[len(f)] for f in frames],
+                        det.cloud_capacity, det.num_input, 5, {0, 1, 2})
+    assert len(fitted) == 3
+    for call, frame in enumerate(frames):
+        ((subset, _, _),), _ = want[call]
+        np.testing.assert_array_equal(fitted[call], frame[subset])
+    counts = [s.counts for s in profiling.spans() if s.name == "detect.fit"]
+    assert counts == [{"ahead_misses": 1}, {"ahead_hits": 1},
+                      {"ahead_hits": 1}], counts

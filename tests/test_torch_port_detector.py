@@ -29,7 +29,9 @@ from s4g_tpu_torch.ops import sa_fused as sf
 from s4g_tpu_torch.pipeline import detector as tdet
 from s4g_tpu_torch.pipeline import postprocessing as tpost
 from s4g_tpu_torch.pipeline import preprocessing as tpre
+from s4g_tpu_torch.pipeline import subset_draws
 from s4g_tpu_torch.utils import math_utils as tmath
+from s4g_tpu_torch.utils import profiling
 from s4g_tpu_torch.utils.weights import state_dict_from_flax
 
 from outlier_boundary import outlier_flips
@@ -379,6 +381,93 @@ def test_detect_runs_on_cpu_when_asked(tmp_path):
     np.testing.assert_allclose(np.einsum("nij,nkj->nik", r, r),
                                np.broadcast_to(np.eye(3), r.shape), atol=1e-5)
     assert set(det.timings) >= {"prep_ms", "model_ms", "post_ms", "total_ms"}
+
+
+def _cloud_of(n, seed):
+    """A clutter cloud of exactly n points."""
+    return clutter_cloud(np.random.RandomState(seed),
+                         n_per_object=-(-n // 6))[:n]
+
+
+# Steps of a detector's life ("detect" / "eval" of a cloud of n points, a
+# "batch" of clouds of these sizes, the generator "replaced" by a new one
+# of this seed, as the benchmark reseeds it) and each `detect.fit` span's
+# (ahead_hits, ahead_misses): a scene drawn counts one.
+SUBSET_CASES = {
+    "equal_sizes": ([("detect", 2000)] * 3, [(0, 1), (1, 0), (1, 0)]),
+    "size_change": ([("detect", 2000), ("detect", 2000), ("detect", 3000),
+                     ("detect", 3000)], [(0, 1), (1, 0), (0, 1), (1, 0)]),
+    "under_capacity": ([("detect", 2000), ("detect", 300), ("detect", 2000)],
+                       [(0, 1), (0, 0), (1, 0)]),
+    "generator_replaced": ([("detect", 2000), ("detect", 2000),
+                            ("replaced", 9), ("detect", 2000),
+                            ("detect", 2000)],
+                           [(0, 1), (1, 0), (0, 1), (1, 0)]),
+    "mixed_batch": ([("batch", (2000, 3000, 300)),
+                     ("batch", (2000, 3000, 300)), ("detect", 2000)],
+                    [(0, 2), (2, 0), (0, 1)]),
+    "eval_between": ([("detect", 2000), ("eval", 3000), ("detect", 2000)],
+                     [(0, 1), (0, 1)]),
+    # The worker's route where numpy's Generator would not repeat the
+    # legacy draws: a RandomState of its own.
+    "legacy_worker": ([("detect", 2000)] * 3, [(0, 1), (1, 0), (1, 0)]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SUBSET_CASES))
+def test_capacity_subsets_drawn_ahead_equal_inline_draws(tmp_path,
+                                                        monkeypatch, case):
+    """The clouds `detect`, `detect_batch` and `eval` fit to a capacity of
+    512 are, call after call, those a bare `RandomState(seed).choice(n,
+    512, replace=False)` gives drawing inline, and the generator ends in
+    its state; `detect.fit` counts the draws made ahead that were used
+    (hits) and those drawn inline (misses)."""
+    steps, counts = SUBSET_CASES[case]
+    if case == "legacy_worker":
+        monkeypatch.setattr(subset_draws, "_generator_is_legacy",
+                            lambda: False)
+    else:       # the worker's draws release the interpreter lock
+        assert subset_draws._generator_is_legacy()
+    cfg_file = tmp_path / "tiny.yaml"
+    cfg_file.write_text(yaml.safe_dump(TINY))
+    det = tdet.GraspDetector(model=str(cfg_file), device="cpu",
+                             output_dir=str(tmp_path), cloud_capacity=512,
+                             num_candidates=64, seed=3)
+    fitted, pad = [], det._pad
+    det._pad = lambda cloud: (fitted.append(cloud), pad(cloud))[1]
+    bare, want = np.random.RandomState(3), []
+
+    def expect(cloud):
+        n = len(cloud)
+        want.append(cloud if n <= 512
+                    else cloud[bare.choice(n, 512, replace=False)])
+
+    with profiling.trace(str(tmp_path / "trace")):
+        for i, (kind, arg) in enumerate(steps):
+            if kind == "replaced":
+                det._np_rng = np.random.RandomState(arg)
+                bare = np.random.RandomState(arg)
+                continue
+            clouds = [_cloud_of(n, 10 * i + j) for j, n in enumerate(
+                arg if kind == "batch" else (arg,))]
+            for cloud in clouds:
+                expect(cloud)
+            if kind == "batch":
+                det.detect_batch(clouds, score_threshold=0.0,
+                                 verticalness_threshold=-1e9)
+            elif kind == "detect":
+                det.detect(clouds[0], score_threshold=0.0,
+                           verticalness_threshold=-1e9)
+            else:
+                det.eval(clouds[0])
+    assert len(fitted) == len(want)
+    for got, w in zip(fitted, want):
+        np.testing.assert_array_equal(got, w)
+    state, bare_state = det._np_rng.get_state(), bare.get_state()
+    np.testing.assert_array_equal(state[1], bare_state[1])
+    assert state[2:] == bare_state[2:]
+    assert [(s.counts.get("ahead_hits", 0), s.counts.get("ahead_misses", 0))
+            for s in profiling.spans() if s.name == "detect.fit"] == counts
 
 
 def test_detector_without_device_needs_a_gpu():

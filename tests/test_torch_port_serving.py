@@ -65,37 +65,47 @@ def _detector(cfg_file, out_dir, seed=0, **kw):
 # -- detect_stream ------------------------------------------------------------------
 
 FRAMES = [clutter_cloud(np.random.RandomState(s)) for s in (11, 12, 13)]
+# Frames of 9,000 points, above the capacity: each is fitted to a subset
+# drawn ahead on the detector's worker thread.
+LARGE_FRAMES = [clutter_cloud(np.random.RandomState(s), n_per_object=1500)
+                for s in (11, 12, 13)]
 
 
 @functools.lru_cache(maxsize=None)
-def _sequential(model_type: str, tmp: str):
-    """Sequential `detect` over FRAMES on a fresh seed-0 detector: each
-    frame's (poses, scores, num_valid)."""
+def _sequential(model_type: str, tmp: str, large: bool = False):
+    """Sequential `detect` over FRAMES (LARGE_FRAMES) on a fresh seed-0
+    detector: each frame's (poses, scores, num_valid)."""
     cfg = TINY if model_type == "PN2_CLS" else _contact(TINY)
     os.makedirs(tmp, exist_ok=True)
     det = _detector(_write_cfg(Path(tmp) / "seq.yaml", cfg), tmp)
     out = []
-    for frame in FRAMES:
+    for frame in LARGE_FRAMES if large else FRAMES:
         poses, scores = det.detect(frame, **STREAM_KW[model_type])
         out.append((poses, scores, det.last_num_valid))
     return out
 
 
-@pytest.mark.parametrize("model_type,depth,frames", [
-    ("PN2_CLS", 1, 3), ("PN2_CLS", 2, 3), ("PN2_CLS", 3, 3),
-    ("PN2_CLS", 4, 2),                  # fewer frames than depth
-    ("PN2", 2, 3),                      # the contact model
+@pytest.mark.parametrize("model_type,depth,frames,large", [
+    pytest.param("PN2_CLS", 1, 3, False, id="PN2_CLS-1-3"),
+    pytest.param("PN2_CLS", 2, 3, False, id="PN2_CLS-2-3"),
+    pytest.param("PN2_CLS", 3, 3, False, id="PN2_CLS-3-3"),
+    # fewer frames than depth
+    pytest.param("PN2_CLS", 4, 2, False, id="PN2_CLS-4-2"),
+    pytest.param("PN2", 2, 3, False, id="PN2-2-3"),     # the contact model
+    # frames above the capacity: subsets drawn ahead
+    pytest.param("PN2_CLS", 2, 3, True, id="PN2_CLS-2-3-large"),
 ])
 def test_detect_stream_equals_sequential_detect(tmp_path_factory, model_type,
-                                                depth, frames):
+                                                depth, frames, large):
     """Frame for frame, exactly, what `detect` gives on a detector with
     the same seed; one frame given as (3, n)."""
     want = _sequential(model_type, str(tmp_path_factory.getbasetemp()
-                                       / f"seq_{model_type}"))
+                                       / f"seq_{model_type}_{large}"), large)
     cfg = TINY if model_type == "PN2_CLS" else _contact(TINY)
     out = tmp_path_factory.mktemp("stream")
     det = _detector(_write_cfg(out / "s.yaml", cfg), out)
-    clouds = [FRAMES[0].T] + FRAMES[1:frames]
+    source = LARGE_FRAMES if large else FRAMES
+    clouds = [source[0].T] + source[1:frames]
     got = []
     for poses, scores in det.detect_stream(iter(clouds), depth=depth,
                                            **STREAM_KW[model_type]):

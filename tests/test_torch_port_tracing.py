@@ -171,8 +171,18 @@ def test_detect_records_its_spans_with_parents_and_one_call(detect_run):
     first = [s for s in spans if s.call == spans[0].call]
     assert {s.name: s.parent for s in first} == {
         **DETECT_SPANS, **{name: "detect.model" for name in MODEL_SPANS}}
-    assert all(s.t1 is not None and s.thread == "MainThread"
-               for s in spans)
+    main = [s for s in spans if s.thread == "MainThread"]
+    assert all(s.t1 is not None for s in main)
+    # The next call's subsets, drawn ahead on the worker thread, one call
+    # of its own each: every fit but the last was handed its draw, so
+    # those draws have ended.
+    ahead = [s for s in spans if s not in main]
+    fits = [s for s in main if s.name == "detect.fit"]
+    assert all(s.name == "fit.ahead" and s.parent is None
+               and s.thread.startswith("subset-draws") for s in ahead)
+    assert len(fits) - 1 <= sum(s.t1 is not None for s in ahead) \
+        <= len(ahead) <= len(fits)
+    assert not {s.call for s in ahead} & {s.call for s in main}
     # One scene: one span of each stage a call, and the model's one a
     # stage of its forward.
     assert sorted(s.name for s in first) == sorted(
