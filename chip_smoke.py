@@ -695,7 +695,12 @@ def _batch_sa1_inputs(det, torch, np, clutter: bool = True):
 def _k3_phase(inp, torch):
     """K3 against its plain twin on the card, then timed beside the twin, its
     bound and (for information) the unfused SA1 route at the same b: K2 +
-    gather + the three PointConv layers + max."""
+    gather + the three PointConv layers + max.  The whole stage as the
+    model runs it (`sa_fused.sa1_stage`: keys, windows, one host read of
+    the overflow flag, K3 on the module's cached operands) must give the
+    kernel's bits where the windows fit, and take its fallback where they
+    overflow; it is event-timed beside the kernel."""
+    from s4g_tpu_torch import _build
     from s4g_tpu_torch.ops import neighbors as nb
     from s4g_tpu_torch.ops import sa_fused as sf
 
@@ -722,6 +727,25 @@ def _k3_phase(inp, torch):
                              f"1e-2 x max |plain| = {1e-2 * scale}")
     differ = float((got != want).double().mean())
 
+    def stage():
+        return sf.sa1_stage(pts, cents, inp["axis"], r, k,
+                            mlp.packed_operands(sf.pack_sa1_weights),
+                            torch.float32)
+
+    with torch.no_grad():
+        launched, fallbacks = (_build.LAUNCHES["sa1_fused"],
+                               sf.SA1_FALLBACKS["overflow"])
+        whole = stage()
+        torch.cuda.synchronize()
+        launched = _build.LAUNCHES["sa1_fused"] - launched
+        fallbacks = sf.SA1_FALLBACKS["overflow"] - fallbacks
+    if (launched, fallbacks) != ((0, 1) if inp["overflow"] else (1, 0)):
+        raise AssertionError(f"sa1_stage: {launched} K3 launches, "
+                             f"{fallbacks} fallbacks (windows overflow="
+                             f"{inp['overflow']})")
+    if not inp["overflow"] and not torch.equal(whole, got):
+        raise AssertionError("sa1_stage: not the kernel's bits")
+
     def unfused():
         idx, cnt2 = nb.ball_query_fused_slab(pts, cents, inp["lo_k2"], r, k,
                                              True)
@@ -735,6 +759,7 @@ def _k3_phase(inp, torch):
         ms = _graph_ms(lambda: sf.sa1_fused_slab(*args))
         plain = _event_ms(lambda: sf._sa1_fused_plain(*args), reps=5)
         unfused_ms = _graph_ms(unfused)
+        stage_ms = _event_ms(stage)
     # Work this run's data needs: each centroid's `count` distinct slots
     # through the chain (a repeated slot never changes the max); 9 f32
     # operations per (centroid, key) that the selection must test
@@ -758,7 +783,9 @@ def _k3_phase(inp, torch):
     print(f"kernel sa1_fused: max|kernel-plain|={err:.3g} (max|plain| "
           f"{scale:.3g}), entries that differ {differ:.3e}; unfused SA1 "
           f"route (K2 + gather + 3 PointConv + max) at b={b}: "
-          f"{unfused_ms:.4f} ms", flush=True)
+          f"{unfused_ms:.4f} ms; the stage as the model runs it "
+          f"(sa1_stage, event-timed, host work included): {stage_ms:.4f} "
+          f"ms", flush=True)
     return ("sa1_fused", "s4g_tpu_torch/csrc/sa1_fused.cu",
             "s4g_tpu/ops/pallas/sa_fused_kernels.py:84", err, ms, plain, bound,
             by)
@@ -774,7 +801,8 @@ def _setting_kernel_phase(binp, torch, extras):
     from s4g_tpu_torch.ops import neighbors as nb
 
     one = {**binp, **{key: binp[key][:1].contiguous()
-                      for key in ("pts", "cents", "lo_tile", "lo_k2")}}
+                      for key in ("pts", "cents", "lo_tile", "lo_k2",
+                                  "axis")}}
     _, _, _, err, ms, plain, bound, by = _k3_phase(one, torch)
     extras.setdefault("sa1_fused", {}).update(
         b1_ms=ms, b1_max_abs_err=err, b1_plain_ms=plain, b1_bound_ms=bound,
@@ -1231,7 +1259,9 @@ def _k2f_phase(inp, torch, path, fallback, extras):
     clutter scene (`fallback`, whose K3 windows overflow), bit for bit,
     timed with the promise (detect_batch's route) and without it (the
     route before detect_batch handed it on: the tile kernel)."""
+    from s4g_tpu_torch import _build
     from s4g_tpu_torch.ops import neighbors as nb
+    from s4g_tpu_torch.ops import sa_fused as sf
 
     st_d, axis = path["stages"], path["axis"]
     dcalls = [(st_d[i], st_d[i + 1], path["radii"][i], path["ks"][i])
@@ -1271,6 +1301,22 @@ def _k2f_phase(inp, torch, path, fallback, extras):
     f_ms = _graph_ms(lambda: nb.ball_query_full_scan(p, c, r, k, True,
                                                      sorted_axis=fa))
     fu_ms = _graph_ms(lambda: nb.ball_query_full_scan(p, c, r, k, True))
+    # The same fallback as the model runs it (`sa1_stage`): one K2f launch
+    # handed the promise, no K2, no K3.
+    before = dict(_build.LAUNCHES)
+    fallbacks = sf.SA1_FALLBACKS["overflow"]
+    with torch.no_grad():
+        sf.sa1_stage(p, c, fa, r, k, fallback["mlp"].packed_operands(
+            sf.pack_sa1_weights), torch.float32)
+    launched = {key: _build.LAUNCHES[key] - before[key]
+                for key in ("ball_query_full", "ball_query_slab",
+                            "sa1_fused")}
+    want = {"ball_query_full": int(fallback["overflow"]),
+            "ball_query_slab": 0, "sa1_fused": int(not fallback["overflow"])}
+    if launched != want or (sf.SA1_FALLBACKS["overflow"] - fallbacks
+                            != int(fallback["overflow"])):
+        raise AssertionError(f"sa1_stage on the fallback's input: launches "
+                             f"{launched}, expected {want}")
     f_tested = _scene_slab_keys(p, c, fa, r * r)
     f_bound, f_by = _bound_ms(9.0 * f_tested, p.shape[0] * (
         12 * (p.shape[2] + c.shape[2]) + 4 * c.shape[2] * (k + 1)))
@@ -2333,11 +2379,10 @@ def _k9_phase(det, torch, np, extras, device: str = "cuda"):
     detector's capacity, rotated to the train frame and voxelised as
     `prep_one` does.  Counts and keep mask held bit for bit against the
     plain twin on the card (the stated rounding, the kernel's tiles);
-    timed per call (CUDA-graph replays) beside the chunked matmul route
-    that the CPU keeps (`_radius_outlier_matmul`, event-timed: every
-    capacity row against every other) and the bound, 9 f32 operations a
-    (valid query, valid key) pair over the f32 peak.  Returns the kernels
-    line's tuple."""
+    timed per call (CUDA-graph replays) beside that twin (event-timed,
+    the route CPU tensors take) and the bound, 9 f32 operations a (valid
+    query, valid key) pair over the f32 peak.  Returns the kernels line's
+    tuple."""
     from s4g_tpu_torch.configs import processing_config as proc_cfg
     from s4g_tpu_torch.ops import neighbors as nb
     from s4g_tpu_torch.pipeline import preprocessing as tpre
@@ -2355,26 +2400,23 @@ def _k9_phase(det, torch, np, extras, device: str = "cuda"):
                                                   device=device),
                                 proc_cfg.VOXEL_SIZE, cap)
     points, valid = vox.points.contiguous(), vox.valid.contiguous()
+    r2 = nb._f32(radius * radius)
     keep, counts = nb.radius_outlier_counts(points, valid, radius, least)
-    want = nb._radius_outlier_counts_plain(points, valid,
-                                           nb._f32(radius * radius))
+    want = nb._radius_outlier_counts_plain(points, valid, r2)
     err = _compare(f"radius_outlier {cap} rows", [counts, keep],
                    [want, valid & (want >= least)], True)
-    chunked = tpre._radius_outlier_matmul(points, valid, radius, least)
-    flips = int((chunked != keep).sum())
     n_valid = int(valid.sum())
     k_ms = _graph_ms(lambda: nb.radius_outlier_counts(points, valid, radius,
                                                       least))
-    p_ms = _event_ms(lambda: tpre._radius_outlier_matmul(
-        points, valid, radius, least), reps=3, warmup=1)
+    p_ms = _event_ms(lambda: nb._radius_outlier_counts_plain(
+        points, valid, r2), reps=3, warmup=1)
     b_ms, by = _bound_ms(9.0 * n_valid * n_valid, 18.0 * cap)
     extras["radius_outlier"] = {
         "rows": cap, "valid_rows": n_valid, "kept": int(keep.sum()),
-        "flips_against_chunked": flips, "card": _nvidia_smi()}
+        "card": _nvidia_smi()}
     print(f"kernel radius_outlier {cap} rows, {n_valid} valid: kernel "
-          f"{k_ms:.4f} ms, chunked matmul route {p_ms:.3f} ms, bound "
-          f"{b_ms:.4f} ms ({by}); keeps {int(keep.sum())}, "
-          f"{flips} flips against the chunked route", flush=True)
+          f"{k_ms:.4f} ms, plain twin {p_ms:.3f} ms, bound {b_ms:.4f} ms "
+          f"({by}); keeps {int(keep.sum())}", flush=True)
     return ("radius_outlier", "s4g_tpu_torch/csrc/radius_outlier.cu",
             "none: the radius-outlier test of s4g_tpu/pipeline/"
             "preprocessing.py (XLA matmul chunks; no Pallas kernel)", err,

@@ -41,7 +41,7 @@ import torch
 from ..configs import gripper_config as G
 from ..ops.neighbors import _f32
 from ..pipeline.eval_cloud import CHUNK_PAIRS, eval_frames, transform_rows
-from ..pipeline.preprocessing import _INT32_MAX, _voxel_ids, workspace_crop_mask
+from ..pipeline.preprocessing import _voxel_groups, workspace_crop_mask
 from ..runtime.device import resolve_device
 from .grading import (DATAGEN_BOTTOM_LENGTH, DATAGEN_CLOSE_REGION_MIN_POINTS,
                       DATAGEN_NUM_POINTS_THRESHOLD, LENGTH_SEARCH,
@@ -99,29 +99,11 @@ def processing_and_trace(points: torch.Tensor, capacity: int = 32768,
     points: (N, 3) noisy view cloud.
     """
     valid = workspace_crop_mask(points, workspace)
-    origin = torch.amin(torch.where(valid[:, None], points, float("inf")),
-                        dim=0)
-    ids = torch.where(valid, _voxel_ids(points, VOXEL_SIZE, origin),
-                      _INT32_MAX)
-    order = torch.argsort(ids, stable=True)
-    ids_s = ids[order]
-    is_new = torch.ones_like(ids_s, dtype=torch.bool)
-    is_new[1:] = ids_s[1:] != ids_s[:-1]
-    is_new &= ids_s != _INT32_MAX
-    group = torch.cumsum(is_new, dim=0) - 1
-    # Invalid points and voxels past capacity land in the dropped row.
-    group = torch.where(ids_s == _INT32_MAX, capacity,
-                        torch.clamp(group, max=capacity))
-    counts = torch.bincount(group, minlength=capacity + 1)
-    # Each voxel summed in sorted order from 0, as the JAX scatter-add.
-    sums = torch.segment_reduce(points[order], "sum", lengths=counts,
-                                axis=0, unsafe=True)
+    order, group, mean, num_voxels = _voxel_groups(points, valid, VOXEL_SIZE,
+                                                   capacity)
     max_idx = torch.full((capacity + 1,), -1, dtype=torch.int64,
                          device=points.device)
     max_idx.scatter_reduce_(0, group, order, "amax")
-    mean = sums[:capacity] / torch.clamp(counts[:capacity],
-                                         min=1).to(points.dtype)[:, None]
-    num_voxels = is_new.sum()
     vox_valid = (torch.arange(capacity, device=points.device)
                  < torch.clamp(num_voxels, max=capacity))
     keep = _outlier_mask(mean, vox_valid, OUTLIER_RADIUS,

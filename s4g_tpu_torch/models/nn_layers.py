@@ -28,18 +28,14 @@ flax `nn.Dropout(broadcast_dims=...)`.  `MLP` is the same stack over
 (B, C) vectors, and `batch_norm` the BatchNorm formula alone (the
 baselines' Dense + BatchNorm layers use it).
 
-`SharedMLP.sa1_fused_eval` is the other route of an xyz-only SA stage: the
-whole stage as one kernel (K3, `ops/sa_fused.py`) with BatchNorm folded
-into each layer and bf16 rounding between layers, as the JAX package runs
-SA1 at batch >= 2.
-
 `SharedMLP.fused_eval` is the fused-chain route: the whole chain, and the
 SA stages' max over the neighbours, as one kernel (K7, `ops/mlp_chain.py`)
 with BatchNorm folded in, hidden activations rounded to the compute dtype
 and the result cast to it (so the next stage gets bf16 features where the
 unfused route hands it f32), as JAX's `_fused_eval`.  Its folded and
 packed operands are made once per weights (`SharedMLP.packed_operands`,
-counted in `PACK_CACHE`).  `fuses_chain` is
+counted in `PACK_CACHE`, which also serves K3, the whole xyz-only SA
+stage as one kernel: `ops/sa_fused.sa1_stage`).  `fuses_chain` is
 JAX's rule for taking it (`nn_layers.py:201-224`), read from three module
 settings, the counterparts of JAX's S4G_MLP_* flags (the port reads no
 environment variable; set the attributes, as the tests do):
@@ -64,14 +60,12 @@ S4G_SA1_FUSE (`nn_layers.py:35, 42`):
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
 
-from ..ops import sa_fused
 from ..ops.mlp_chain import _pack, mlp_chain
-from ..ops.neighbors import ball_query_grouped
 from ..parallel.mesh import global_ranks, global_rows, sum_over_ranks
 
 BN_EPS = 1e-5
@@ -227,6 +221,7 @@ class SharedMLP(nn.ModuleList):
         super().__init__(layers)
         self.dropout_prob = dropout_prob
         self.channel_dropout = channel_dropout
+        self._packed = {}   # packed_operands' entries, one per kernel
         self.eval()
 
     def forward(self, x: torch.Tensor, max_pool_k: Optional[int] = None,
@@ -278,23 +273,27 @@ class SharedMLP(nn.ModuleList):
                                layer.bn.bias, layer.bn.running_mean,
                                layer.bn.running_var))
 
-    def packed_operands(self, compute_dtype: torch.dtype) -> tuple:
-        """(folded_params(), K7's packed operands `_pack`) for
-        `compute_dtype`, made once per weights: kept while every conv
-        weight and BatchNorm tensor keeps its version and storage (any
-        in-place change, `load_state_dict` included, or a move to another
-        device re-packs).  Nothing is kept in training mode."""
-        key = (self._weight_key(), compute_dtype,
-               self[0].conv.weight.device)
-        cached = getattr(self, "_packed", None)
+    def packed_operands(self, pack: Callable, *args) -> tuple:
+        """(folded_params(), pack(folded_params(), *args)), made once per
+        weights and kernel: one entry per pack function (K7's
+        `mlp_chain._pack`, K3's `sa_fused.pack_sa1_weights`), kept while
+        every conv weight and BatchNorm tensor keeps its version and
+        storage and `args` are the same (any in-place change,
+        `load_state_dict` included, or a move to another device re-packs).
+        Nothing is kept in training mode."""
+        key = (self._weight_key(), args, self[0].conv.weight.device)
+        cached = self._packed.get(pack)
         if not self.training and cached is not None and cached[0] == key:
             PACK_CACHE["hits"] += 1
             return cached[1], cached[2]
         PACK_CACHE["packs"] += 1
         with torch.no_grad():
             params = self.folded_params()
-            packed = _pack(params, params[0][0].shape[0], compute_dtype)
-        self._packed = None if self.training else (key, params, packed)
+            packed = pack(params, *args)
+        if self.training:
+            self._packed.clear()
+        else:
+            self._packed[pack] = (key, params, packed)
         return params, packed
 
     def fused_eval(self, x: torch.Tensor,
@@ -305,7 +304,8 @@ class SharedMLP(nn.ModuleList):
 
         Returns the chain's output cast to the compute dtype, (..., C_out),
         without the pooled axis when pooling."""
-        params, packed = self.packed_operands(self[0].dtype)
+        params, packed = self.packed_operands(
+            _pack, self[0].conv.in_channels, self[0].dtype)
         lead = x.shape[:-1]
         out = mlp_chain(x.reshape(-1, x.shape[-1]), params,
                         (True,) * len(params), max_pool_k, self[0].dtype,
@@ -313,51 +313,6 @@ class SharedMLP(nn.ModuleList):
         if max_pool_k is not None:
             lead = lead[:-1]
         return out.to(self[0].dtype).reshape(*lead, out.shape[-1])
-
-    def sa1_fused_eval(self, points: torch.Tensor, centroids: torch.Tensor,
-                       pkeys: torch.Tensor, ckeys: torch.Tensor,
-                       radius: float, k: int, stratified: bool = True,
-                       sorted_axis: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
-        """A whole xyz-only SA stage as one kernel (port of
-        `_sa1_fused_eval`): slab ball query, grouping, this 3-layer chain
-        and the max over the K neighbours (K3).
-
-        The window overflow flag is read on the host once for the whole
-        batch, as JAX's `lax.cond` decides once: on overflow the stage takes
-        a full-scan ball query (K2f, handed `sorted_axis` so that it scans
-        only each ball's slab) and runs the chain with the same folded
-        weights and bf16 rounding (counted in `sa_fused.SA1_FALLBACKS`).
-
-        Args: points (B, 3, N) sorted along each scene's axis; centroids
-            (B, 3, M) sorted the same way; pkeys / ckeys (B, N) / (B, M)
-            their keys along that axis; sorted_axis optional (B,) tensor,
-            that axis.
-        Returns: (B, M, C3) pooled features in the compute dtype."""
-        (w1, b1), (w2, b2), (w3, b3) = self.folded_params()
-        lo_tile, overflow = sa_fused.sa1_slab_setup(pkeys, ckeys, radius,
-                                                    points.shape[2])
-        if bool(overflow):
-            sa_fused.SA1_FALLBACKS["overflow"] += 1
-            # The full scan, as JAX's fallback (slab_capacity = N keeps it
-            # off the slab route); the promise only narrows K2f's scan.
-            _, cnt, rel = ball_query_grouped(
-                points, centroids, radius, k, sorted_axis=sorted_axis,
-                slab_capacity=points.shape[2], stratified=stratified)
-            h = rel.to(torch.bfloat16)
-            for w, b in ((w1, b1), (w2, b2), (w3, b3)):
-                # bf16 x bf16 products are exact in f32: an f32 matmul of
-                # the rounded operands is the f32-accumulating bf16 matmul.
-                w16 = w.to(torch.bfloat16).float()
-                h = torch.relu(torch.matmul(h.float(), w16) + b) \
-                    .to(torch.bfloat16)
-            pooled = torch.amax(h.float(), dim=2)
-            out = torch.where(cnt[..., None] > 0, pooled, 0.0)
-        else:
-            out = sa_fused.sa1_fused_slab(
-                points.contiguous(), centroids.contiguous(), lo_tile, radius,
-                k, w1, b1, (w2, w3), (b2, b3), stratified=stratified)
-        return out.to(self[0].dtype)
 
 
 class MLP(SharedMLP):

@@ -31,6 +31,7 @@ from torch import nn
 from .. import ops
 from ..ops.gather import gather_rows
 from ..ops.interpolate import interpolation_weights
+from ..ops import sa_fused
 from ..ops.neighbors import _axis_keys
 from ..ops.sampling import fps_sharding_applies
 from ..utils.profiling import span
@@ -164,11 +165,11 @@ class PointNetSAModule(nn.Module):
             # xyz-only stage at batch >= 2 (or any batch under SA1_FUSE
             # "1"): the whole stage is one kernel (K3), as in the JAX
             # package.
-            pts_cf, cent_cf = _cf(xyz).contiguous(), _cf(new_xyz).contiguous()
-            return self.mlp.sa1_fused_eval(
-                pts_cf, cent_cf, _axis_keys(pts_cf, sorted_axis),
-                _axis_keys(cent_cf, sorted_axis), self.radius,
-                self.num_neighbours, sorted_axis=sorted_axis)
+            return sa_fused.sa1_stage(
+                _cf(xyz), _cf(new_xyz), sorted_axis, self.radius,
+                self.num_neighbours,
+                self.mlp.packed_operands(sa_fused.pack_sa1_weights),
+                self.mlp[0].dtype)
         else:
             # xyz-only stage, unfused (batch 1, SA1_FUSE "0", or a stage K3
             # does not take).

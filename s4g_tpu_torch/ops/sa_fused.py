@@ -16,9 +16,14 @@ max over the K neighbours.  The JAX package runs SA1 this way at batch >= 2
 * the output is the max over the K slots, (B, M, C3) f32, and a zero row
   where no key is in range.
 
-`sa1_fused_slab` launches the CUDA kernel `csrc/sa1_fused.cu` (K3) on CUDA
-tensors, with W2 and W3 packed once per call by `pack_sa1_weights` into the
-layout the kernel's shared memory takes; CPU tensors take its plain twin
+`sa1_stage` is the whole route as the model runs it: the keys along the
+sort axis, the key windows, one host read of their overflow flag, then
+either the kernel or, on overflow, a full-scan ball query and the chain in
+torch with the same folded weights and rounding.  `sa1_fused_slab`
+launches the CUDA kernel `csrc/sa1_fused.cu` (K3) on CUDA tensors, with W2
+and W3 packed by `pack_sa1_weights` into the layout the kernel's shared
+memory takes (the model hands them in, packed once per weights by
+`SharedMLP.packed_operands`); CPU tensors take its plain twin
 `_sa1_fused_plain`.  K3 holds widths 128/128/C3 <= 256 and K <= 128; a
 stage outside that range computes the same function through two other
 hand-written kernels (`_sa1_wide`: K2's selection on the stage's own
@@ -34,9 +39,9 @@ import torch
 
 from .. import _build
 from .mlp_chain import mlp_chain
-from .neighbors import (BQ_C_TILE, BQ_K_TILE, BQ_SLAB_TILES,
+from .neighbors import (BQ_C_TILE, BQ_K_TILE, BQ_SLAB_TILES, _axis_keys,
                         _ball_query_slab_plain, _f32, ball_query_fused_slab,
-                        flat_gather_rows, tile_windows)
+                        ball_query_grouped, flat_gather_rows, tile_windows)
 
 # Tile geometry of the TPU kernel; the same as the slab ball query's, so
 # the two scan the same key windows.
@@ -106,11 +111,11 @@ def pack_b_operand(w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def pack_sa1_weights(w1, b1, w23, b23):
-    """K3's operands, packed once per call: `wpack` bf16, W2 then W3 in the
-    B-operand layout; `fpack` f32, the bf16-rounded W1 (3, C1) row-major,
-    then b1, b2, b3."""
-    (w2, w3), (b2, b3) = w23, b23
+def pack_sa1_weights(params):
+    """K3's operands from the folded [(w1, b1), (w2, b2), (w3, b3)]:
+    `wpack` bf16, W2 then W3 in the B-operand layout; `fpack` f32, the
+    bf16-rounded W1 (3, C1) row-major, then b1, b2, b3."""
+    (w1, b1), (w2, b2), (w3, b3) = params
     wpack = torch.cat([pack_b_operand(w2), pack_b_operand(w3)])
     fpack = torch.cat([_bf16(w1).reshape(-1), b1, b2, b3]).float()
     return wpack, fpack.contiguous()
@@ -178,7 +183,8 @@ def _sa1_wide(points, centroids, lo_tile, radius: float, num_neighbours: int,
 def sa1_fused_slab(points: torch.Tensor, centroids: torch.Tensor,
                    lo_tile: torch.Tensor, radius: float, num_neighbours: int,
                    w1: torch.Tensor, b1: torch.Tensor, w23: tuple,
-                   b23: tuple, stratified: bool = True) -> torch.Tensor:
+                   b23: tuple, stratified: bool = True,
+                   packed: tuple | None = None) -> torch.Tensor:
     """Fused SA stage 1 over per-tile key windows (K3).
 
     Same caller contract as the slab ball query: each scene's points and
@@ -188,7 +194,8 @@ def sa1_fused_slab(points: torch.Tensor, centroids: torch.Tensor,
 
     Args: points (B, 3, N) f32; centroids (B, 3, M) f32; lo_tile
         (B, ceil(M/512)) int32; w1 (3, C1), b1 (C1,), w23 ((C1, C2),
-        (C2, C3)), b23 ((C2,), (C3,)): the folded f32 affines.
+        (C2, C3)), b23 ((C2,), (C3,)): the folded f32 affines; packed
+        optional, their `pack_sa1_weights` (packed here otherwise).
     Returns: (B, M, C3) f32 max-pooled stage output.  Stages outside K3's
     range take `_sa1_wide` on CUDA tensors."""
     b, _, n = points.shape
@@ -215,9 +222,58 @@ def sa1_fused_slab(points: torch.Tensor, centroids: torch.Tensor,
                            (w3, "w3", (c2, c3)), (b3, "b3", (c3,))):
         _build.check(t, name, torch.float32, shape)
     _build.check(lo_tile, "lo_tile", torch.int32, (b, ntile))
-    wpack, fpack = pack_sa1_weights(w1, b1, w23, b23)
+    if packed is None:
+        packed = pack_sa1_weights([(w1, b1), (w2, b2), (w3, b3)])
+    wpack, fpack = packed
     out = torch.empty((b, m, c3), dtype=torch.float32, device=points.device)
     _build.launch("sa1_fused", points, centroids, lo_tile, wpack, fpack, b, n,
                   m, ntile, _f32(radius * radius), num_neighbours, c3,
                   int(stratified), out)
     return out
+
+
+def sa1_stage(points: torch.Tensor, centroids: torch.Tensor,
+              sorted_axis: torch.Tensor, radius: float, num_neighbours: int,
+              operands: tuple, dtype: torch.dtype) -> torch.Tensor:
+    """A whole xyz-only SA stage (port of `_sa1_fused_eval`): slab ball
+    query with rank-stratified neighbours (the cloud is sorted), grouping,
+    the 3-layer chain and the max over the K neighbours, as one kernel
+    (`sa1_fused_slab`).
+
+    The window overflow flag is read on the host once for the whole batch,
+    as JAX's `lax.cond` decides once: on overflow the stage takes a
+    full-scan ball query (K2f, handed `sorted_axis` so that it scans only
+    each ball's slab) and runs the chain with the same folded weights and
+    bf16 rounding (counted in `SA1_FALLBACKS`).
+
+    Args: points (B, 3, N) sorted along each scene's axis; centroids
+        (B, 3, M) sorted the same way; sorted_axis (B,) tensor, that axis;
+        operands the stage's (folded [(w, b)] per layer, their
+        `pack_sa1_weights`), as `SharedMLP.packed_operands` returns them.
+    Returns: (B, M, C3) pooled features in `dtype`."""
+    points, centroids = points.contiguous(), centroids.contiguous()
+    ((w1, b1), (w2, b2), (w3, b3)), packed = operands
+    lo_tile, overflow = sa1_slab_setup(_axis_keys(points, sorted_axis),
+                                       _axis_keys(centroids, sorted_axis),
+                                       radius, points.shape[2])
+    if bool(overflow):
+        SA1_FALLBACKS["overflow"] += 1
+        # The full scan, as JAX's fallback (slab_capacity = N keeps it off
+        # the slab route); the promise only narrows K2f's scan.
+        _, cnt, rel = ball_query_grouped(
+            points, centroids, radius, num_neighbours,
+            sorted_axis=sorted_axis, slab_capacity=points.shape[2],
+            stratified=True)
+        h = rel.to(torch.bfloat16)
+        for w, b in ((w1, b1), (w2, b2), (w3, b3)):
+            # bf16 x bf16 products are exact in f32: an f32 matmul of the
+            # rounded operands is the f32-accumulating bf16 matmul.
+            h = torch.relu(torch.matmul(h.float(), _bf16(w)) + b) \
+                .to(torch.bfloat16)
+        pooled = torch.amax(h.float(), dim=2)
+        out = torch.where(cnt[..., None] > 0, pooled, 0.0)
+    else:
+        out = sa1_fused_slab(points, centroids, lo_tile, radius,
+                             num_neighbours, w1, b1, (w2, w3), (b2, b3),
+                             packed=packed)
+    return out.to(dtype)

@@ -14,7 +14,6 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-from .. import _build
 from ..ops import neighbors as nb
 from ..utils.profiling import span
 
@@ -73,72 +72,60 @@ class VoxelizeResult(NamedTuple):
     num_voxels: torch.Tensor  # () int
 
 
-def voxel_downsample(points: torch.Tensor, valid: torch.Tensor,
-                     voxel_size: float, capacity: int,
-                     reciprocal: bool = True) -> VoxelizeResult:
-    """Per-voxel average downsample (Open3D voxel_down_sample semantics),
-    voxels ordered by ascending voxel hash (`reciprocal`: see `_voxel_ids`).
+def _voxel_groups(points: torch.Tensor, valid: torch.Tensor,
+                  voxel_size: float, capacity: int, reciprocal: bool = True
+                  ) -> tuple:
+    """The voxel grid's grouping, shared by `voxel_downsample` and the
+    label factory's `processing_and_trace`: voxels in ascending hash order
+    (`_voxel_ids`), each summed in sorted order from 0 (the order of the
+    JAX scatter-add, and deterministic on the GPU: no atomics), then
+    averaged.
 
-    The per-voxel sums are a segment sum over the hash-sorted points, each
-    voxel summed in order from 0 — the order of the JAX scatter-add, and
-    deterministic on the GPU (no atomics)."""
+    Returns (order, group, mean, num_voxels): the stable hash sort of the
+    points, each sorted point's voxel row (invalid points and voxels past
+    `capacity` land in the dropped row `capacity`), the (capacity, 3)
+    per-voxel means and the voxel count (not capped)."""
     origin = torch.amin(torch.where(valid[:, None], points, float("inf")),
                         dim=0)
     ids = torch.where(valid, _voxel_ids(points, voxel_size, origin,
                                         reciprocal), _INT32_MAX)
     order = torch.argsort(ids, stable=True)
     ids_sorted = ids[order]
-    pts_sorted = points[order]
     is_new = torch.ones_like(ids_sorted, dtype=torch.bool)
     is_new[1:] = ids_sorted[1:] != ids_sorted[:-1]
     is_new &= ids_sorted != _INT32_MAX
     group = torch.cumsum(is_new, dim=0) - 1
-    # Invalid points, and voxels past capacity, land in the dropped row.
     group = torch.where(ids_sorted == _INT32_MAX, capacity,
                         torch.clamp(group, max=capacity))
     counts = torch.bincount(group, minlength=capacity + 1)
-    sums = torch.segment_reduce(pts_sorted, "sum", lengths=counts, axis=0,
+    sums = torch.segment_reduce(points[order], "sum", lengths=counts, axis=0,
                                 unsafe=True)
     mean = sums[:capacity] / torch.clamp(counts[:capacity], min=1)[:, None]
-    num_voxels = is_new.sum()
+    return order, group, mean, is_new.sum()
+
+
+def voxel_downsample(points: torch.Tensor, valid: torch.Tensor,
+                     voxel_size: float, capacity: int,
+                     reciprocal: bool = True) -> VoxelizeResult:
+    """Per-voxel average downsample (Open3D voxel_down_sample semantics),
+    voxels ordered by ascending voxel hash (`reciprocal`: see `_voxel_ids`;
+    the grouping: `_voxel_groups`)."""
+    _, _, mean, num_voxels = _voxel_groups(points, valid, voxel_size,
+                                           capacity, reciprocal)
     out_valid = torch.arange(capacity, device=points.device) \
         < torch.clamp(num_voxels, max=capacity)
     return VoxelizeResult(mean, out_valid, num_voxels)
 
 
 def radius_outlier_mask(points: torch.Tensor, valid: torch.Tensor,
-                        radius: float, min_neighbors: int,
-                        chunk: int = 1024) -> torch.Tensor:
+                        radius: float, min_neighbors: int) -> torch.Tensor:
     """Keep points with >= min_neighbors valid points within radius (self
     included) — Open3D remove_radius_outlier semantics, on matmul-form f32
-    distances as in the JAX package.  CUDA tensors launch the count kernel
-    K9 (`ops.neighbors.radius_outlier_counts`; its twin
-    `_radius_outlier_counts_plain` states the rounding of q.k); CPU tensors
-    take `_radius_outlier_matmul`, whose memory `chunk` bounds (K9 has no
-    chunks)."""
-    if _build.on_cuda(points, valid):
-        return nb.radius_outlier_counts(points.contiguous(),
-                                        valid.contiguous(), radius,
-                                        min_neighbors)[0]
-    return _radius_outlier_matmul(points, valid, radius, min_neighbors, chunk)
-
-
-def _radius_outlier_matmul(points: torch.Tensor, valid: torch.Tensor,
-                           radius: float, min_neighbors: int,
-                           chunk: int = 1024) -> torch.Tensor:
-    """The test in the JAX package's shape: every row against every row in
-    chunks of matmul-form f32 distances (full f32: TF32 must be off); the
-    chunk only bounds memory, the result does not depend on it."""
-    r2 = torch.tensor(radius * radius, dtype=torch.float32).item()
-    sq = (points[:, 0] * points[:, 0] + points[:, 1] * points[:, 1]
-          + points[:, 2] * points[:, 2])
-    counts = []
-    for q0 in range(0, points.shape[0], chunk):
-        q = points[q0:q0 + chunk]
-        d = (sq[q0:q0 + chunk, None] + sq[None, :]) \
-            - 2.0 * torch.matmul(q, points.t())
-        counts.append(((d < r2) & valid[None, :]).sum(dim=1))
-    return valid & (torch.cat(counts) >= min_neighbors)
+    distances as in the JAX package: the keep mask of
+    `ops.neighbors.radius_outlier_counts` (K9 on CUDA tensors, its plain
+    twin, which states the rounding of q.k, on CPU tensors)."""
+    return nb.radius_outlier_counts(points.contiguous(), valid.contiguous(),
+                                    radius, min_neighbors)[0]
 
 
 def sample_draws(n: int, num_samples: int, generator: torch.Generator,

@@ -35,11 +35,12 @@ def _targets():
     """(owner, attribute, label) of every op the profile records."""
     from .. import ops
     from ..models import nn_layers, pn2_modules, pointnet2
+    from ..ops import sa_fused
     return [(pointnet2, "fps_lane_nested", "fps"),
             (ops, "farthest_point_sample", "fps"),
             (ops, "ball_query_grouped", "ball_query+group"),
             (ops, "ball_query", "ball_query"),
-            (nn_layers.SharedMLP, "sa1_fused_eval", "sa1_fused"),
+            (sa_fused, "sa1_stage", "sa1_fused"),
             (pn2_modules, "group_cl", "group"),
             (ops, "three_nn", "three_nn"),
             (pn2_modules, "interpolate_cl", "interpolate"),

@@ -484,11 +484,25 @@ def test_radius_outlier_route_launches_k9_once_a_scene(cuda, tmp_path):
     assert _build.LAUNCHES["radius_outlier"] == before + 4
 
 
+def _matmul_outlier_mask(points, valid, radius, min_neighbors, chunk=1024):
+    """The JAX package's shape of the test (its `radius_outlier_mask`):
+    every row against every row in chunks of matmul-form f32 distances,
+    here with cuBLAS's rounding of q.k (TF32 off)."""
+    r2 = nb._f32(radius * radius)
+    sq = (points * points).sum(dim=1)
+    counts = [(((sq[q0:q0 + chunk, None] + sq[None, :])
+                - 2.0 * torch.matmul(points[q0:q0 + chunk], points.t())
+                < r2) & valid[None, :]).sum(dim=1)
+              for q0 in range(0, points.shape[0], chunk)]
+    return valid & (torch.cat(counts) >= min_neighbors)
+
+
 def test_radius_outlier_kernel_flips_against_the_chunked_route(cuda):
-    """K9 against the chunked matmul route (cuBLAS's rounding of q.k) on a
-    benchmark frame (`grasp_bench/scenes.py`: a 640 x 480 table subset to
-    65,536 rows as `detect` does, rotated and voxelised as `prep_one`
-    does): every flip hangs on a pair at the radius."""
+    """K9 on a benchmark frame (`grasp_bench/scenes.py`: a 640 x 480 table
+    subset to 65,536 rows as `detect` does, rotated and voxelised as
+    `prep_one` does): bit for bit the plain twin's keep mask, and against
+    the JAX package's chunked matmul shape of the test (cuBLAS's rounding
+    of q.k) every flip hangs on a pair at the radius."""
     from grasp_bench import scenes
     from s4g_tpu_torch.pipeline.postprocessing import REAL2TRAIN
 
@@ -502,12 +516,15 @@ def test_radius_outlier_kernel_flips_against_the_chunked_route(cuda):
     vox = tpre.voxel_downsample(train, torch.ones(65536, dtype=torch.bool,
                                                   device=cuda), 0.005, 65536)
     got = tpre.radius_outlier_mask(vox.points, vox.valid, 0.02, 32)
-    want = tpre._radius_outlier_matmul(vox.points, vox.valid, 0.02, 32)
+    twin = nb._radius_outlier_counts_plain(vox.points, vox.valid,
+                                           nb._f32(0.02 * 0.02))
+    assert torch.equal(got, vox.valid & (twin >= 32))
+    want = _matmul_outlier_mask(vox.points, vox.valid, 0.02, 32)
     valid = vox.valid.cpu().numpy()
     flips = outlier_flips(vox.points.cpu().numpy(), valid,
                           got.cpu().numpy(), want.cpu().numpy())
-    print(f"K9 against the chunked route: {flips} flips in {valid.sum()} "
-          "voxels")
+    print(f"K9 against the JAX package's chunked matmul shape: {flips} "
+          f"flips in {valid.sum()} voxels")
     assert flips <= 1e-3 * valid.sum()
 
 
@@ -772,7 +789,7 @@ def test_mlp_chain_wrapper_refuses_and_counts(cuda, monkeypatch):
     assert _build.LAUNCHES["mlp_chain"] == before + 2
 
 
-def test_sa1_fallback_hands_k2f_the_sort_axis(cuda):
+def test_sa1_fallback_hands_k2f_the_sort_axis(cuda, monkeypatch):
     """detect_batch's SA1 fallback (K3's windows overflow) on the card:
     handed the sort axis it is one K2f launch that scans the slabs (no K2,
     no K3), with the bits of the full scan without the promise."""
@@ -789,14 +806,19 @@ def test_sa1_fallback_hands_k2f_the_sort_axis(cuda):
         torch.manual_seed(0)
         mlp = nnl.SharedMLP(3, (128, 128, 256), ndim=2,
                             dtype=torch.bfloat16).to(cuda).eval()
-    keys = (pts[:, 0].contiguous(), cent[:, 0].contiguous())
+    axis = torch.zeros(1, dtype=torch.long, device=cuda)
+    operands = mlp.packed_operands(sf.pack_sa1_weights)
     fallbacks = sf.SA1_FALLBACKS["overflow"]
+    grouped = sf.ball_query_grouped     # the full scan without the promise
+    monkeypatch.setattr(sf, "ball_query_grouped",
+                        lambda *a, sorted_axis=None, **kw: grouped(*a, **kw))
     with torch.no_grad():
-        want = mlp.sa1_fused_eval(pts, cent, *keys, radius, k)
+        want = sf.sa1_stage(pts, cent, axis, radius, k, operands,
+                            torch.bfloat16)
+        monkeypatch.undo()
         before = dict(_build.LAUNCHES)
-        got = mlp.sa1_fused_eval(pts, cent, *keys, radius, k,
-                                 sorted_axis=torch.zeros(1, dtype=torch.long,
-                                                         device=cuda))
+        got = sf.sa1_stage(pts, cent, axis, radius, k, operands,
+                           torch.bfloat16)
         torch.cuda.synchronize()
     launched = {key: _build.LAUNCHES[key] - before[key] for key in before}
     assert sf.SA1_FALLBACKS["overflow"] == fallbacks + 2
@@ -903,6 +925,34 @@ def test_fused_forward_packs_once_per_weights(cuda, monkeypatch):
     assert float((got.float().reshape(want.shape) - want).abs().max()) \
         <= 1e-2 * scale
     assert not torch.equal(got, first)
+
+
+def test_deployed_batch_forward_packs_sa1_once(cuda, tmp_path):
+    """The deployed curvature model at b = 2 runs SA1 on K3's operands
+    packed once per weights: a second `detect_batch` with unchanged
+    weights packs nothing (`nn_layers.PACK_CACHE`) and runs K3 (or, where
+    the windows overflow, its fallback) once."""
+    from grasp_bench import scenes
+
+    det = GraspDetector(model="curvature_model", device="cuda",
+                        output_dir=str(tmp_path))
+    frames = [scenes.tabletop_cloud(scenes.rng(4200002301, 1, i),
+                                    n_plane=268800, n_box=38400)
+              for i in range(2)]
+
+    def forward():
+        before = dict(nnl.PACK_CACHE)
+        k3 = _build.LAUNCHES["sa1_fused"] + sf.SA1_FALLBACKS["overflow"]
+        det.detect_batch(frames, score_threshold=0.0,
+                         verticalness_threshold=-1e9)
+        return ({k: nnl.PACK_CACHE[k] - before[k] for k in before},
+                _build.LAUNCHES["sa1_fused"] + sf.SA1_FALLBACKS["overflow"]
+                - k3)
+
+    first, _ = forward()
+    assert first["packs"] <= 1
+    counts, k3 = forward()
+    assert counts == {"hits": 1, "packs": 0} and k3 == 1
 
 
 NARROW_DEPLOYED = {

@@ -102,26 +102,35 @@ def test_mlp_chain_checks_its_operands():
 
 
 def _same_operands(got, want):
-    (gp, gk), (wp, wk) = got, want
-    assert len(gp) == len(wp) and len(gk) == len(wk)
-    for (gw, gb), (ww, wb) in zip(gp, wp):
-        assert torch.equal(gw, ww) and torch.equal(gb, wb)
-    for (gw, gb, gn), (ww, wb, wn) in zip(gk, wk):
-        assert torch.equal(gw, ww) and torch.equal(gb, wb) and gn == wn
+    """The same nesting of tuples and lists, equal tensors and values."""
+    if isinstance(got, torch.Tensor):
+        assert torch.equal(got, want)
+    elif isinstance(got, (tuple, list)):
+        assert type(got) is type(want) and len(got) == len(want)
+        for g, w in zip(got, want):
+            _same_operands(g, w)
+    else:
+        assert got == want
 
 
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-def test_packed_operands_are_kept_until_the_weights_change(dtype):
-    """`SharedMLP.packed_operands` folds and packs once per weights: an
-    unchanged module is a hit; a BatchNorm running_var changed in place,
-    a conv weight changed in place and a `load_state_dict` each re-fold,
-    and the result equals a fresh `folded_params()` and `_pack`; training
-    mode keeps nothing."""
+@pytest.mark.parametrize("kernel,dtype", [("K7", "bfloat16"),
+                                          ("K7", "float32"),
+                                          ("K3", "bfloat16")])
+def test_packed_operands_are_kept_until_the_weights_change(kernel, dtype):
+    """`SharedMLP.packed_operands` folds and packs once per weights and
+    kernel (K7's `_pack`, K3's `pack_sa1_weights`): an unchanged module is
+    a hit, also after the other kernel's lookup; a BatchNorm running_var
+    changed in place, a conv weight changed in place and a
+    `load_state_dict` each re-fold, and the result equals a fresh
+    `folded_params()` and pack; training mode keeps nothing."""
     cd = DTYPES[dtype][0]
+    c_in, widths = (20, (48, 40)) if kernel == "K7" else (3, (128, 128, 256))
+    pack, args = ((mc._pack, (c_in, cd)) if kernel == "K7"
+                  else (sf.pack_sa1_weights, ()))
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(3)
-        mlp = tnn.SharedMLP(20, (48, 40), ndim=2, dtype=cd).eval()
-        other = tnn.SharedMLP(20, (48, 40), ndim=2, dtype=cd)
+        mlp = tnn.SharedMLP(c_in, widths, ndim=2, dtype=cd).eval()
+        other = tnn.SharedMLP(c_in, widths, ndim=2, dtype=cd)
     with torch.no_grad():
         for layer in other:
             layer.bn.running_var.uniform_(0.5, 2.0)
@@ -129,16 +138,18 @@ def test_packed_operands_are_kept_until_the_weights_change(dtype):
 
     def fresh():
         params = mlp.folded_params()
-        return params, mc._pack(params, 20, cd)
+        return params, pack(params, *args)
 
     def lookup():
         before = dict(tnn.PACK_CACHE)
-        got = mlp.packed_operands(cd)
+        got = mlp.packed_operands(pack, *args)
         return got, {k: tnn.PACK_CACHE[k] - before[k] for k in before}
 
     first, counts = lookup()
     assert counts == {"hits": 0, "packs": 1}
     _same_operands(first, fresh())
+    if kernel == "K3":                 # K7's entry beside K3's
+        mlp.packed_operands(mc._pack, c_in, cd)
     again, counts = lookup()
     assert counts == {"hits": 1, "packs": 0}
     assert again[1] is first[1]

@@ -217,8 +217,9 @@ def test_sa1_fused_fallback_takes_the_override(monkeypatch):
     mlp = SharedMLP(3, (128, 128, 256), ndim=2).eval()
     full = _spy(monkeypatch, tnb, "ball_query_full_scan")
     before = sf.SA1_FALLBACKS["overflow"]
-    out = mlp.sa1_fused_eval(_t(pts), _t(cents), _t(pts[:, 0]),
-                             _t(cents[:, 0]), 0.02, 32)
+    out = sf.sa1_stage(_t(pts), _t(cents), torch.zeros(1, dtype=torch.long),
+                       0.02, 32, mlp.packed_operands(sf.pack_sa1_weights),
+                       torch.float32)
     assert sf.SA1_FALLBACKS["overflow"] == before + 1 and len(full) == 1
     assert out.shape == (1, m, 256)
 

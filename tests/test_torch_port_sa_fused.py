@@ -214,7 +214,7 @@ def test_folded_params_match_jax():
             np.abs(gb.detach().numpy() - np.asarray(wb)), 4 * ulps)
 
 
-def test_overflow_branch_matches_jax_full_scan():
+def test_overflow_branch_matches_jax_full_scan(monkeypatch):
     """A cloud whose dense middle overflows the key windows: both sides
     take the full-scan branch with the folded weights and bf16 rounding."""
     rng = np.random.RandomState(6)
@@ -229,18 +229,23 @@ def test_overflow_branch_matches_jax_full_scan():
         points=jnp.asarray(pts), centroids=jnp.asarray(cent),
         pkeys=jnp.asarray(pts[:, 0]), ckeys=jnp.asarray(cent[:, 0]),
         radius=radius, k=k, stratified=True, interpret=True))
+    axis = torch.zeros(1, dtype=torch.long)
+    operands = tmlp.packed_operands(sf.pack_sa1_weights)
     before = sf.SA1_FALLBACKS["overflow"]
+    grouped = sf.ball_query_grouped     # the full scan without the promise
+    monkeypatch.setattr(sf, "ball_query_grouped",
+                        lambda *a, sorted_axis=None, **kw: grouped(*a, **kw))
     with torch.no_grad():
-        got = tmlp.sa1_fused_eval(_t(pts), _t(cent), _t(pts[:, 0]),
-                                  _t(cent[:, 0]), radius, k)
+        got = sf.sa1_stage(_t(pts), _t(cent), axis, radius, k, operands,
+                           torch.bfloat16)
+    monkeypatch.undo()
     assert sf.SA1_FALLBACKS["overflow"] == before + 1
     # Handed the sort axis, the fallback's full scan gives the same bits
     # (it stays off the slab route).
     slab_before = nb.SLAB_FALLBACKS["overflow"]
     with torch.no_grad():
-        promised = tmlp.sa1_fused_eval(
-            _t(pts), _t(cent), _t(pts[:, 0]), _t(cent[:, 0]), radius, k,
-            sorted_axis=torch.zeros(1, dtype=torch.long))
+        promised = sf.sa1_stage(_t(pts), _t(cent), axis, radius, k,
+                                operands, torch.bfloat16)
     assert sf.SA1_FALLBACKS["overflow"] == before + 2
     assert nb.SLAB_FALLBACKS["overflow"] == slab_before
     assert torch.equal(promised, got)
@@ -348,7 +353,7 @@ def test_packed_weights_unpack_to_bf16(c3):
     """The wrapper's packed buffers hold exactly the bf16-rounded weights:
     W2 and W3 in the kernel's B-operand layout, W1 and the biases in f32."""
     w1, b1, w2, b2, w3, b3 = (_t(a) for a in _affines(8, c3=c3))
-    wpack, fpack = sf.pack_sa1_weights(w1, b1, (w2, w3), (b2, b3))
+    wpack, fpack = sf.pack_sa1_weights([(w1, b1), (w2, b2), (w3, b3)])
     assert wpack.dtype == torch.bfloat16 and wpack.numel() == 128 * (128 + c3)
     assert torch.equal(_unpack(wpack[:128 * 128], 128, 128),
                        sf._bf16(w2))
