@@ -56,6 +56,12 @@ run, but the run then exits non-zero without printing a result:
    beside its twin, its bound, the fused route as the model calls it (the
    packed-operand cache, casts and kernel launches) and the unfused route,
    with each chain's launches (FP1 and FP2 run one layer a launch); then
+   every distinct chain shape of the curvature (b = 1), contact (b = 4)
+   and EDGEPN2DU (b = 4) forwards, K7 as the model runs it held against
+   its twin at the same tolerance, then timed against the layer-by-layer
+   route in turns (`_route_shapes_phase`: the measurement behind the
+   default route's row floor), each forward's K7 launches counted against
+   its fixed count (`ROUTE_SHAPES`); then
    K8 (the gathers' fixed-order backward, `_k8_phase`) at each of its
    eleven calls in a deployed train step at b = 4, bit for bit against
    its twin, timed beside its bound, the library's atomic `index_add_`
@@ -73,8 +79,9 @@ run, but the run then exits non-zero without printing a result:
    `_parity_reference_phase`); then the first two again on the fused-chain
    route (K7 on the GPU, `_fused_reference_phase`); then the contact
    model's detect stages (`_contact_reference_phase`) and, on a bf16
-   backbone, the detect stages with `CAST_ACTIVATIONS` on
-   (`_cast_reference_phase`); then one narrow f32 train step on both
+   backbone, the detect stages with `CAST_ACTIVATIONS` on, on the
+   layer-by-layer route (`_cast_reference_phase`); then one narrow f32
+   train step on both
    devices from the same weights and batch: losses, metrics, every
    gradient and the BatchNorm statistics after it
    (`_train_reference_phase`), with the spread of the GPU's gradients
@@ -106,15 +113,17 @@ run, but the run then exits non-zero without printing a result:
    FPS_SHARDS 1: K6 feeding K3); then the fused-chain configuration
    (`_fused_phase`, the deployed detector with `nn_layers.MLP_IMPL`
    "fused"): detect x3, detect_batch at b = 2 x3, and one detect with the
-   route on "auto" over the pooled SA chains only, then the route off and
-   on in turns at b = 1 and 2 (uncounted, timed); then the contact model
+   route on "auto" over the pooled SA chains only, then the route off
+   ("unfused") and on (the default) in turns at b = 1 and 2 (uncounted,
+   timed); then the contact model
    (`GraspDetector(model="contact_model")`, `_contact_phase`): detect x3
    on a tabletop and once on clutter, detect_batch at b = 2, one eval
    (a fresh model's grasp origins are its points, exactly), one
    fused-chain detect, and a checkpoint round trip through
    `last_checkpoint`; then the two model settings (`_settings_phase`):
    `SA1_FUSE` "1" (detect x3: K3 at b = 1), "0" (detect_batch b = 2: K2
-   at b = 2) and `CAST_ACTIVATIONS` (one detect); then `detect_stream`
+   at b = 2) and `CAST_ACTIVATIONS` (one detect, layer by layer); then
+   `detect_stream`
    (`_stream_phase`): 8 tabletop frames at depth 1, 2 and 3, each equal
    bit for bit to sequential `detect` on a detector with the same seed,
    frames/s of both and the host synchronizations of one frame's submit;
@@ -153,7 +162,9 @@ run, but the run then exits non-zero without printing a result:
    its cause (`_tool_launches`: each forward its route's kernels,
    `_net_launches`; each graded object K2f 2; each collision check K5
    where it reaches the kernel's threshold; nothing else) and every kernel
-   it launches but K3 held against its plain twin, bit for bit, at each
+   it launches but K3 and K7 (whose twins round bf16 otherwise; the
+   kernels phase holds both at the deployed shapes) held against its
+   plain twin, bit for bit, at each
    shape the run gives it (`_held_kernels`: the first call at each
    signature, copied and compared after the run): train_at_scale
    at full width (`SCALE_ARGV`: the factory on 2 + 2 scenes of the
@@ -190,8 +201,9 @@ run, but the run then exits non-zero without printing a result:
    over the counted fused-chain runs the packed-operand
    cache must hit on every chain and pack none;
 5. profile: one detect, one detect_batch at b = 2, one parity detect and
-   one fused-chain detect under torch.profiler (and a train step, in
-   `_train_phase`) — device time by kernel and the device's idle share.
+   one layer-by-layer detect (`MLP_IMPL` "unfused") under torch.profiler
+   (and a train step, in `_train_phase`) — device time by kernel and the
+   device's idle share.
 
 Then one JSON line with every kernel's numbers and, last, the contract line
 `{"ok": true, "device": {...}}`.  Without a CUDA device, or without the
@@ -221,11 +233,12 @@ PEAK_BYTES = 3.35e12
 NUM_DETECT = 3
 NUM_BATCH = 3
 
-# K7 launches per fused-chain forward at full width: every SharedMLP chain
-# once, but FP1 and FP2 one layer a launch (their two layers' bf16 tiles do
-# not fit one block's shared memory together): 10 chains in 12 launches at
-# b = 1; 9 in 11 at b >= 2, where K3 takes SA1; the pooled scope fuses the
-# three SA chains only.
+# K7 launches per fused-chain forward at full width (the default route's
+# too, on the card: `_k7_per_forward`): every SharedMLP chain once, but FP1
+# and FP2 one layer a launch (their two layers' bf16 tiles do not fit one
+# block's shared memory together): 10 chains in 12 launches at b = 1; 9 in
+# 11 at b >= 2, where K3 takes SA1; the pooled scope fuses the three SA
+# chains only.
 FUSED_K7_LAUNCHES = {"detect": 12, "batch": 11, "pooled": 3}
 
 # The ball query's slab capacity (`ops.neighbors.ball_query`): a sorted SA
@@ -1107,9 +1120,12 @@ def _contact_reference_phase(torch, np, devices=("cpu", "cuda")):
 
 def _cast_reference_phase(torch, np, devices=("cpu", "cuda")):
     """`_reference_phase` at NARROW_BF16 with `CAST_ACTIVATIONS` on (every
-    PointConv hands on bf16): predictions within the bf16 tolerances of
-    the JAX package's own tests (max 5e-2, mean 5e-3)."""
-    with _layer_settings(CAST_ACTIVATIONS=True):
+    PointConv hands on bf16) on the layer-by-layer route on both devices
+    (`MLP_IMPL` "unfused": the card's default would run its bf16 chains
+    through K7, which the setting does not touch): predictions within the
+    bf16 tolerances of the JAX package's own tests (max 5e-2, mean
+    5e-3)."""
+    with _layer_settings(CAST_ACTIVATIONS=True, MLP_IMPL="unfused"):
         return _reference_phase(torch, np, devices, config=NARROW_BF16,
                                 tol=(5e-2, 5e-3))
 
@@ -1482,12 +1498,12 @@ def _fault_phase(binp, torch, np, extras):
         raise AssertionError(f"fault cases failed: {failed}")
 
 
-def _chain_inputs(det, torch, np):
-    """Each SharedMLP chain of a b = 1 fused-chain forward of `det` at full
-    width, as `SharedMLP.fused_eval` receives it, from a seeded tabletop:
-    [(module name, module, x, max_pool_k)], in call order."""
+def _chain_inputs(det, torch, np, b: int = 1):
+    """Each SharedMLP chain of a fused-chain forward of `det` at full width
+    and batch `b`, as `SharedMLP.fused_eval` receives it, from seeded
+    tabletops: [(module name, module, x, max_pool_k)], in call order."""
     from s4g_tpu_torch.models import nn_layers
-    from s4g_tpu_torch.pipeline.detector import prep_one
+    from s4g_tpu_torch.pipeline.detector import prep_batch
 
     captured = []
     orig = nn_layers.SharedMLP.fused_eval
@@ -1496,17 +1512,45 @@ def _chain_inputs(det, torch, np):
         captured.append((self, x.clone(), max_pool_k))
         return orig(self, x, max_pool_k)
 
-    cloud, valid = det._pad_cloud(tabletop_cloud(np.random.RandomState(7)))
+    padded, valid = zip(*(det._pad_cloud(tabletop_cloud(
+        np.random.RandomState(7 + i))) for i in range(b)))
     gen = torch.Generator(device=det.device).manual_seed(7)
     nn_layers.SharedMLP.fused_eval = capture
     try:
         with _layer_settings(MLP_IMPL="fused"), torch.no_grad():
-            points = prep_one(cloud, valid, det.num_input, generator=gen)
-            det.net({"scene_points": points.t()[None].contiguous()})
+            points = prep_batch(torch.stack(padded), torch.stack(valid),
+                                det.num_input, generator=gen)
+            det.net({"scene_points": points.transpose(1, 2).contiguous()})
     finally:
         nn_layers.SharedMLP.fused_eval = orig
     names = {id(m): n for n, m in det.net.named_modules()}
     return [(names[id(m)], m, x, k) for m, x, k in captured]
+
+
+def _k7_held(name, got, mlp, x, k, cd, torch):
+    """Hold K7's output `got` for chain `mlp` on input `x` (pool `k`,
+    compute dtype `cd`) against the twin on the card: f32 within 1e-5 of
+    the output's max (sums in another order), bf16 within 1e-2 (an f32 sum
+    in another order flips an odd bf16 rounding of a hidden activation, as
+    for K3); `got` in the compute dtype (the fused route's output) is
+    compared with the twin's rounded to it.  Returns (max |kernel - twin|,
+    max |twin|, the bit-equal share)."""
+    from s4g_tpu_torch.ops import mlp_chain as mc
+
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        want = mc._mlp_chain_plain(x.reshape(-1, x.shape[-1]),
+                                   mlp.folded_params(),
+                                   (True,) * len(mlp), k, cd)
+    want = want.to(got.dtype).float().reshape(got.shape)
+    got = got.float()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    tol = 1e-5 if cd == torch.float32 else 1e-2
+    if not (scale > 0 and err <= tol * scale):
+        raise AssertionError(f"mlp_chain {name} ({cd}): max |kernel - plain| "
+                             f"= {err} > {tol} x max |plain| = {scale}")
+    return err, scale, float((got == want).double().mean())
 
 
 def _k7_case(name, mlp, x, k, cd, torch):
@@ -1523,17 +1567,7 @@ def _k7_case(name, mlp, x, k, cd, torch):
         flat = x.reshape(-1, x.shape[-1])
         relu = (True,) * len(params)
         got = mc.mlp_chain(flat, params, relu, k, cd)
-        torch.cuda.synchronize()
-        want = mc._mlp_chain_plain(flat, params, relu, k, cd)
-    err = float((got - want).abs().max())
-    scale = float(want.abs().max())
-    # f32: sums in another order; bf16: an f32 sum in another order flips an
-    # odd bf16 rounding of a hidden activation (as for K3).
-    tol = 1e-5 if cd == torch.float32 else 1e-2
-    if not (scale > 0 and err <= tol * scale):
-        raise AssertionError(f"mlp_chain {name} ({cd}): max |kernel - plain| "
-                             f"= {err} > {tol} x max |plain| = {scale}")
-    equal = float((got == want).double().mean())
+    err, scale, equal = _k7_held(name, got, mlp, x, k, cd, torch)
     packed = mc._pack(params, flat.shape[1], cd)
     widths = [flat.shape[1]] + [w.shape[1] for w, _ in params]
     pieces = mc.chain_pieces(widths, k, cd)
@@ -1603,6 +1637,77 @@ def _k7_phase(chains, torch):
                     "f32_sa2_ms": f32["ms"], "per_chain": per_chain}
 
 
+# The configurations whose chain shapes set the default route's row floor:
+# (model, batch, K7 launches of the forward), as their benchmark cells run
+# them: curvature's ten chains with FP1 and FP2 one layer a launch, contact's
+# nine at b = 4 (K3 takes SA1), EDGEPN2DU's twelve one launch each.
+ROUTE_SHAPES = (("curvature_model", 1, FUSED_K7_LAUNCHES["detect"]),
+                ("contact_model", 4, FUSED_K7_LAUNCHES["batch"]),
+                ("edgepn2du_model", 4, 12))
+
+
+def _route_shapes_phase(torch, np):
+    """The ROUTE_SHAPES forwards at full width on seeded tabletops: each
+    must launch K7 its fixed number of times, as `_k7_per_forward` counts
+    for the net; then at every distinct chain shape (widths, rows, pool),
+    K7 as the model runs it (`SharedMLP.fused_eval`: the packed-operand
+    cache, casts, kernel) is held against its twin (`_k7_held`) and timed
+    against the layer-by-layer route (`MLP_IMPL` "unfused") by CUDA-graph
+    replays (`_graph_ms`) in turns, fused, unfused, unfused, fused; the
+    medians.  Returns one row a shape, in call order."""
+    from s4g_tpu_torch import _build
+    from s4g_tpu_torch.pipeline.detector import GraspDetector
+
+    rows = []
+    for model, b, launches in ROUTE_SHAPES:
+        det = GraspDetector(model=model, seed=0,
+                            output_dir=_output_dir(f"route_{model}"))
+        before = _build.LAUNCHES["mlp_chain"]
+        chains = _chain_inputs(det, torch, np, b)
+        ran = _build.LAUNCHES["mlp_chain"] - before
+        sa1 = any(m is det.net.sa_modules[0].mlp for _, m, _, _ in chains)
+        counted = _k7_per_forward(det.net, det.num_input, sa1=sa1)
+        if not ran == counted == launches:
+            raise AssertionError(f"{model} at b = {b}: K7 launched {ran} "
+                                 f"times, counted {counted}, expected "
+                                 f"{launches}")
+        seen = set()
+        for name, mlp, x, k in chains:
+            widths = [x.shape[-1]] + [layer.conv.out_channels
+                                      for layer in mlp]
+            n_rows = x.numel() // x.shape[-1]
+            if (tuple(widths), n_rows, k) in seen:
+                continue
+            seen.add((tuple(widths), n_rows, k))
+            with torch.no_grad():
+                err, scale, _ = _k7_held(f"{model} {name}",
+                                         mlp.fused_eval(x, k), mlp, x, k,
+                                         mlp[0].dtype, torch)
+            runs = {"fused": lambda: mlp.fused_eval(x, k),
+                    "unfused": lambda: mlp(x, max_pool_k=k)}
+            turns = {"fused": [], "unfused": []}
+            with torch.no_grad():
+                for impl in ("fused", "unfused", "unfused", "fused"):
+                    with _layer_settings(MLP_IMPL=impl):
+                        turns[impl].append(_graph_ms(runs[impl]))
+            fused = statistics.median(turns["fused"])
+            unfused = statistics.median(turns["unfused"])
+            rows.append({"model": model, "b": b, "chain": name,
+                         "widths": widths, "rows": n_rows, "pool": k,
+                         "err": err, "fused_ms": fused,
+                         "unfused_ms": unfused})
+            print(f"route shape {model} b={b} {name}: widths {widths}, rows "
+                  f"{n_rows}, pool {k}: max|K7-twin| {err:.3g} (max|twin| "
+                  f"{scale:.3g}); K7 {fused:.4f} ms, layer by layer "
+                  f"{unfused:.4f} ms ({unfused / fused:.2f}x)", flush=True)
+        del det
+        torch.cuda.empty_cache()
+    losers = [r["chain"] for r in rows if r["fused_ms"] >= r["unfused_ms"]]
+    print(f"route shapes: {len(rows)} distinct; K7 not faster at {losers}",
+          flush=True)
+    return rows
+
+
 def _fused_reference_phase(torch, np, devices=("cpu", "cuda")):
     """`_reference_phase` and `_batch_reference_phase` on the fused-chain
     route: on the GPU every chain is K7 (10 at b = 1; 9 at b = 2, where K3
@@ -1658,8 +1763,9 @@ def _fused_phase(det, torch, np):
     and MLP_FUSE_SCOPE "pooled" (the three SA chains).  Each run is warmed
     up, then counted on its own, every kernel exactly
     (`_deployed_launches`); the packed-operand cache must hit on every
-    chain of the counted detects and pack none.  Then the route off and on
-    in turns at b = 1 and 2, for the end-to-end comparison.  Returns each
+    chain of the counted detects and pack none.  Then the route off
+    ("unfused") and on (the default) in turns at b = 1 and 2, for the
+    end-to-end comparison.  Returns each
     run's launches, stage medians and the cache's counts."""
     from s4g_tpu_torch import _build
     from s4g_tpu_torch.models import nn_layers
@@ -1704,13 +1810,13 @@ def _fused_phase(det, torch, np):
         medians[label] = _stage_medians(label, timings)
         print(f"{label}: num_valid {det.last_num_valid}", flush=True)
 
-    # The route off ("auto", the deployed default) and on ("fused") in turns,
-    # off-on-on-off twice per batch size, so that the host clock's drift
-    # falls on both sides of the end-to-end comparison.
+    # The route off ("unfused") and on ("auto", the deployed default) in
+    # turns, off-on-on-off twice per batch size, so that the host clock's
+    # drift falls on both sides of the end-to-end comparison.
     for b, call in ((1, lambda: det.detect(scenes["tabletop0"], **kw)),
                     (2, lambda: det.detect_batch(pair, **kw))):
-        turns = {"auto": [], "fused": []}
-        for impl in ("auto", "fused", "fused", "auto") * 2:
+        turns = {"unfused": [], "auto": []}
+        for impl in ("unfused", "auto", "auto", "unfused") * 2:
             with _layer_settings(MLP_IMPL=impl):
                 call()
             turns[impl].append(dict(det.timings))
@@ -1841,9 +1947,10 @@ def _settings_phase(det, torch, np):
     """The two model settings at full width on the deployed detector:
     `SA1_FUSE` "1" (detect x3 on a tabletop: K3 at b = 1, no K2), "0"
     (detect_batch at b = 2 on tabletops: K2 at b = 2, no K3), then
-    `CAST_ACTIVATIONS` (one detect).  Each run warmed up, counted on its
-    own, every kernel exactly.  Returns each run's launches and stage
-    medians."""
+    `CAST_ACTIVATIONS` (one detect, on the layer-by-layer route, `MLP_IMPL`
+    "unfused", the only one it changes: no K7).  Each run warmed up,
+    counted on its own, every kernel exactly.  Returns each run's launches
+    and stage medians."""
     from s4g_tpu_torch import _build
 
     scenes = _scenes(np)
@@ -1854,7 +1961,8 @@ def _settings_phase(det, torch, np):
             ("sa1_fuse_0_batch", "SA1_FUSE=0 detect_batch b=2",
              {"SA1_FUSE": "0"}, pair, 1, False),
             ("cast_detect", "CAST_ACTIVATIONS detect",
-             {"CAST_ACTIVATIONS": True}, [scenes["tabletop0"]], 1, None)]
+             {"CAST_ACTIVATIONS": True, "MLP_IMPL": "unfused"},
+             [scenes["tabletop0"]], 1, None)]
     paths, medians = {}, {}
     for key, label, settings, clouds, reps, fused in runs:
         with _layer_settings(**settings):
@@ -1864,7 +1972,8 @@ def _settings_phase(det, torch, np):
             for _ in range(reps):
                 results, want = _counted(
                     det, lambda: det.detect_batch(clouds, **kw), len(clouds),
-                    fused=fused)
+                    mlp_chain=(0 if settings.get("MLP_IMPL") == "unfused"
+                               else None), fused=fused)
                 _check_grasps(label, results)
                 expected = _add(expected, want)
                 timings.append(dict(det.timings))
@@ -2432,8 +2541,9 @@ def _instrument(trainer, kind_launches, shim, records, torch):
     train and val step's launches are counted on their own and must be
     exactly `_deployed_launches` at the batch, given the SA1 overflow the
     step reported (train: K2, or K2f on overflow, and K8 once per gather
-    with a gradient, `_k8_per_step`; val, eval at b = 2: K3, or K2f on
-    overflow; no K5); a train step's scalars are kept, and CUDA
+    with a gradient, `_k8_per_step`, and no K7; val, eval at b = 2: K3, or
+    K2f on overflow, and K7 for every other chain; no K5); a train step's
+    scalars are kept, and CUDA
     events time the whole step and its forward (with the loss), backward
     and optimizer update."""
     from s4g_tpu_torch import _build
@@ -2454,7 +2564,9 @@ def _instrument(trainer, kind_launches, shim, records, torch):
             launches = {k: _build.LAUNCHES[k] - before[k] for k in before}
             overflow = (nb.SLAB_FALLBACKS["overflow"]
                         + sf.SA1_FALLBACKS["overflow"]) > over
-            want = {**_deployed_launches(shim, b, overflow, fused=fused),
+            k7 = (0 if kind == "train" else
+                  _k7_per_forward(trainer.net, shim.num_input, sa1=not fused))
+            want = {**_deployed_launches(shim, b, overflow, k7, fused),
                     "collision_counts": 0,
                     "gather_backward": (0 if kind == "val"
                                         else _k8_per_step(trainer.net))}
@@ -2721,8 +2833,8 @@ def _edge_launches(det, b: int) -> dict:
     """Launches per forward of an edge detector at batch `b` (its section
     unsorted, the PN2Config default): K6 for each SA stage with centroids
     > 0, K2f for each but the global stage, K4 for each 3-NN FP stage at or
-    above its pair threshold, K5 and K9 once per scene; never K1, K2, K3
-    or K7."""
+    above its pair threshold, K5 and K9 once per scene, K7 for every chain
+    of a bf16 model (`_k7_per_forward`); never K1, K2 or K3."""
     from s4g_tpu_torch import _build
     from s4g_tpu_torch.ops.neighbors import KERNEL_MIN_PAIRS
     sec = getattr(det.cfg.MODEL, det.cfg.MODEL.TYPE)
@@ -2736,7 +2848,8 @@ def _edge_launches(det, b: int) -> dict:
     return {**{k: 0 for k in _build.LAUNCHES},
             "fps_exact": sum(m > 0 for m in sec.NUM_CENTROIDS),
             "ball_query_full": sum(m != 0 for m in sec.NUM_CENTROIDS),
-            "three_nn": fp, "collision_counts": b, "radius_outlier": b}
+            "three_nn": fp, "collision_counts": b, "radius_outlier": b,
+            "mlp_chain": _k7_per_forward(det.net, det.num_input)}
 
 
 def _edge_kernel_phase(det, torch, np, extras):
@@ -3262,20 +3375,52 @@ def _fp_kernel_stages(det) -> int:
     return sum(a * b >= KERNEL_MIN_PAIRS for a, b in zip(sizes, sizes[1:]))
 
 
+def _k7_per_forward(net, n: int, sa1: bool = True) -> int:
+    """K7 launches of one forward of a PN2-family `net` on B x 3 x `n`
+    points on the card: each SharedMLP chain that the program's route rule
+    (`nn_layers.fused_route` under the module settings) takes through K7,
+    once a piece `mlp_chain.chain_pieces` plans for it; an SA chain pools
+    over its K (the global stage over its points), SA1's only with `sa1`
+    (False where K3 takes the stage).  The deployed nets' counts are fixed
+    in `ROUTE_SHAPES`."""
+    from s4g_tpu_torch.models.nn_layers import SharedMLP, fused_route
+    from s4g_tpu_torch.ops.mlp_chain import chain_pieces
+    pools, level = {}, n
+    for sa in net.sa_modules:
+        k = (sa.num_neighbours if sa.num_centroids else level)
+        pools[id(sa.mlp)] = k if sa.pool == "max" else None
+        level = level if sa.num_centroids == -1 else max(sa.num_centroids, 1)
+    left_out = None if sa1 else id(net.sa_modules[0].mlp)
+    total = 0
+    for m in net.modules():
+        if not isinstance(m, SharedMLP) or id(m) == left_out:
+            continue
+        pool, c_in = pools.get(id(m)), m[0].conv.in_channels
+        if fused_route((1, pool or 1, c_in), pool, m[0].dtype, m.training,
+                       True):
+            widths = [c_in] + [x.conv.out_channels for x in m]
+            total += len(chain_pieces(widths, pool, m[0].dtype))
+    return total
+
+
 def _parity_launches(det, **changes):
     """Launches per parity detect of `det`, with `changes`: K6 and K2f for
     each SA stage, K4 for each FP stage at or above its pair threshold, K5
-    once per scene post-processed, K9 once per scene preprocessed; never
-    K1, K2, K3 or K7."""
+    once per scene post-processed, K9 once per scene preprocessed, K7 for
+    every chain of a bf16 model (`_k7_per_forward`; SA1's not where
+    `changes` has K3 take it); never K1 or K2."""
     from s4g_tpu_torch import _build
     stages = len(det.cfg.MODEL.PN2.NUM_CENTROIDS)
+    k7 = _k7_per_forward(det.net, det.num_input,
+                         sa1=not changes.get("sa1_fused"))
     return {**{k: 0 for k in _build.LAUNCHES}, "fps_exact": stages,
             "ball_query_full": stages, "three_nn": _fp_kernel_stages(det),
-            "collision_counts": 1, "radius_outlier": 1, **changes}
+            "collision_counts": 1, "radius_outlier": 1, "mlp_chain": k7,
+            **changes}
 
 
 def _deployed_launches(det, b: int, overflow: bool = False,
-                       mlp_chain: int = 0, fused=None, scenes: int = 0):
+                       mlp_chain=None, fused=None, scenes: int = 0):
     """Launches per deployed forward of `det` (SORT_POINTS, FPS_SHARDS 128)
     at batch `b`: K1 once for all SA stages where they nest
     (`fps_nesting_applies`), else once per stage; SA1 through K3 where it
@@ -3283,14 +3428,20 @@ def _deployed_launches(det, b: int, overflow: bool = False,
     K2, or, when its key windows `overflow`, through the full-scan
     fallback (K2f); K2f for every other SA stage (inputs below the slab
     capacity); K4 for each FP stage at or above its pair threshold; K5
-    once per scene post-processed; `mlp_chain` K7 chains; K9 once for
-    each of the `scenes` preprocessed."""
+    once per scene post-processed; `mlp_chain` K7 launches, by default the
+    default route's for an eval forward of `det.net` (`_k7_per_forward`:
+    every chain of the deployed bf16 model, SA1's not where the stage is
+    K3's, overflowing or not: 12 at b = 1, 11 at b >= 2); K9 once for each
+    of the `scenes` preprocessed."""
     from s4g_tpu_torch import _build
     from s4g_tpu_torch.ops.sampling import fps_nesting_applies
     pn2 = det.cfg.MODEL.PN2
     sizes = (det.num_input, *pn2.NUM_CENTROIDS)
     nested = fps_nesting_applies(det.num_input, pn2.NUM_CENTROIDS,
                                  pn2.FPS_SHARDS)
+    k3 = b >= 2 if fused is None else fused
+    if mlp_chain is None:
+        mlp_chain = _k7_per_forward(det.net, det.num_input, sa1=not k3)
     out = {k: 0 for k in _build.LAUNCHES}
     out.update(fps_lane=1 if nested else len(sizes) - 1,
                three_nn=_fp_kernel_stages(det),
@@ -3300,8 +3451,7 @@ def _deployed_launches(det, b: int, overflow: bool = False,
     if overflow:
         out["ball_query_full"] += 1
     else:
-        out["sa1_fused" if (b >= 2 if fused is None else fused)
-            else "ball_query_slab"] = 1
+        out["sa1_fused" if k3 else "ball_query_slab"] = 1
     return out
 
 
@@ -3309,7 +3459,7 @@ def _add(total: dict, more: dict) -> dict:
     return {k: total.get(k, 0) + v for k, v in more.items()}
 
 
-def _counted(det, call, b: int, mlp_chain: int = 0, fused=None,
+def _counted(det, call, b: int, mlp_chain=None, fused=None,
              scenes=None):
     """Run `call()` once; return its result and the launches it should have
     made, `_deployed_launches` with the SA1 overflow that the run reported
@@ -4342,21 +4492,26 @@ def _overflows() -> int:
 
 def _deployed_shim():
     """What `_deployed_launches` reads of a detector, for the port's
-    curvature_model.yaml as the tools load it."""
+    curvature_model.yaml as the tools load it (its net seeded, in eval
+    mode, on the CPU: only its modules are read)."""
     from types import SimpleNamespace
     from s4g_tpu_torch.configs.config import load_cfg_from_file
+    from s4g_tpu_torch.models import build_model
     from s4g_tpu_torch.tools.common import DEFAULT_CFG
     cfg = load_cfg_from_file(DEFAULT_CFG)
-    return SimpleNamespace(cfg=cfg, num_input=cfg.MODEL.PN2.NUM_INPUT)
+    return SimpleNamespace(cfg=cfg, num_input=cfg.MODEL.PN2.NUM_INPUT,
+                           net=build_model(cfg))
 
 
 def _forward_launches(b: int, forwards: int, overflows: int,
                       collision: int = 0, fused=None,
-                      scenes: int = 0) -> dict:
+                      scenes: int = 0, training: bool = False) -> dict:
     """Launches of `forwards` deployed forwards at batch `b`, `overflows`
     of which overflowed SA1's key windows (their SA1 through K2f),
-    `collision` K5 launches and `scenes` preprocessed (K9 each)."""
-    base = _deployed_launches(_deployed_shim(), b, fused=fused)
+    `collision` K5 launches and `scenes` preprocessed (K9 each); a
+    `training` forward launches no K7."""
+    base = _deployed_launches(_deployed_shim(), b, fused=fused,
+                              mlp_chain=0 if training else None)
     out = {k: v * forwards for k, v in base.items()}
     sa1 = "ball_query_slab" if base["ball_query_slab"] else "sa1_fused"
     out[sa1] -= overflows
@@ -4563,7 +4718,8 @@ def _train_cli_phase(torch, np, device: str = "cuda"):
         result = real(self, batch)
         end.record()
         launches = {k: _build.LAUNCHES[k] - before[k] for k in before}
-        want = {**_forward_launches(2, 1, _overflows() - over, fused=False),
+        want = {**_forward_launches(2, 1, _overflows() - over, fused=False,
+                                    training=True),
                 "gather_backward": _k8_per_step(self.net)}
         if launches != want:
             raise AssertionError(f"train CLI step: launches {launches}, "
@@ -4622,8 +4778,9 @@ def _profile_stages_phase(torch, np, scene, device: str = "cuda"):
     recorded op timed alone.  Its launches depend on how many replays each
     op takes (the counters see a CUDA graph's capture, not its replays),
     so every kernel of the b = 1 forward must launch (K2 unless SA1's
-    windows overflowed) and no other, and the path stays out of
-    `launches_by_path`.  Returns the tool's report."""
+    windows overflowed; K7, the default route of its chains) and no other,
+    and the path stays out of `launches_by_path`.  Returns the tool's
+    report."""
     from s4g_tpu_torch import _build
     from s4g_tpu_torch.tools import profile_stages
 
@@ -4631,7 +4788,7 @@ def _profile_stages_phase(torch, np, scene, device: str = "cuda"):
     _build.reset_launches()
     got = profile_stages.main(["--scene", scene, "--device", device])
     launches = dict(_build.LAUNCHES)
-    need = {"fps_lane", "ball_query_full", "three_nn"}
+    need = {"fps_lane", "ball_query_full", "three_nn", "mlp_chain"}
     if _overflows() == over:
         need.add("ball_query_slab")
     if any(not launches[k] for k in need) or any(
@@ -4784,7 +4941,8 @@ def _net_launches(net, n: int, b: int, overflow: bool) -> dict:
     where it fuses (sorted, eval, `SA1_FUSE`'s batch rule), else K2 where
     the sorted input is above the slab capacity, else (and on a window
     overflow) K2f; K2f for every other stage; K4 for each FP stage at or
-    above its pair threshold.  No K5 (post-processing's) and no K7."""
+    above its pair threshold; K7 in eval mode (`_k7_per_forward`, SA1's
+    chain not where the stage is K3's).  No K5 (post-processing's)."""
     from s4g_tpu_torch import _build
     from s4g_tpu_torch.ops.neighbors import KERNEL_MIN_PAIRS
     from s4g_tpu_torch.ops.sampling import fps_nesting_applies
@@ -4801,9 +4959,11 @@ def _net_launches(net, n: int, b: int, overflow: bool) -> dict:
     else:
         out["fps_exact"] = len(cents)
     out["ball_query_full"] = len(cents) - 1
+    k3 = net.sort_points and net.sa_modules[0]._fuses(b, 0)
+    out["mlp_chain"] = _k7_per_forward(net, n, sa1=not k3)
     if not (net.sort_points and n > SLAB_CAPACITY) or overflow:
         out["ball_query_full"] += 1
-    elif net.sa_modules[0]._fuses(b, 0):
+    elif k3:
         out["sa1_fused"] = 1
     else:
         out["ball_query_slab"] = 1
@@ -4818,9 +4978,13 @@ TOOL_SHAPES_HELD = {}
 
 def _kernel_twins():
     """(launch name, module, wrapper name, plain twin taking the wrapper's
-    arguments) for every kernel a tool's run can launch but K3 and K7: no
-    tool run here reaches K7, and K3 only trace_forward at b = 2 on the
-    tabletop, the shape the kernels phase holds (`_k3_phase`)."""
+    arguments) for every kernel a tool's run can launch but K3 and K7: a
+    tool's eval forwards run their bf16 chains through K7 at the deployed
+    shapes, which the kernels phase holds within bf16 tolerance
+    (`_k7_phase`; `_route_shapes_phase` at every chain shape of the three
+    configurations' cells), and K3 only trace_forward at b = 2 on the
+    tabletop, the
+    shape the kernels phase holds (`_k3_phase`)."""
     from s4g_tpu_torch.models import pointnet2
     from s4g_tpu_torch.ops import gather as gt
     from s4g_tpu_torch.ops import neighbors as nb
@@ -4896,10 +5060,10 @@ def _held_kernels(label):
     the shapes the run gives them: the first call of each kernel wrapper
     (`_kernel_twins`) at each argument signature keeps copies of its
     arguments and outputs; after the block the twin runs on the copies and
-    must give the same bits, and every kernel the block launched (but K3)
-    must have had a call held.  Copies, compared after the block, so the
-    tool's own times and memory are not the check's.  Yields the record
-    {kernel: [held signatures]}."""
+    must give the same bits, and every kernel the block launched (but K3
+    and K7) must have had a call held.  Copies, compared after the block,
+    so the tool's own times and memory are not the check's.  Yields the
+    record {kernel: [held signatures]}."""
     import torch
     from s4g_tpu_torch import _build
     twins = _kernel_twins()
@@ -6023,7 +6187,8 @@ def main() -> int:
         rep.append(_k2f_phase(pinp, torch, inp, cinp, extras))
         _fault_phase(binp, torch, np, extras)
         k7, k7_extras = _k7_phase(_chain_inputs(det, torch, np), torch)
-        extras.setdefault("mlp_chain", {}).update(k7_extras)
+        extras.setdefault("mlp_chain", {}).update(
+            k7_extras, route_shapes=_route_shapes_phase(torch, np))
         rep.append(k7)
         rep.append(_k8_phase(torch, np, extras))
         rep.append(_k9_phase(det, torch, np, extras))
@@ -6102,10 +6267,10 @@ def main() -> int:
                                                   batch=BATCHES[2]))
     phase("profile parity", lambda: _profile_phase(pdet, torch, np))
 
-    def profile_fused():
-        with _layer_settings(MLP_IMPL="fused"):
-            _profile_phase(det, torch, np, name="fused-chain detect")
-    phase("profile fused-chain", profile_fused)
+    def profile_unfused():
+        with _layer_settings(MLP_IMPL="unfused"):
+            _profile_phase(det, torch, np, name="layer-by-layer detect")
+    phase("profile layer-by-layer", profile_unfused)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s, build included",
           flush=True)
     if failed:

@@ -40,13 +40,25 @@ JAX's rule for taking it (`nn_layers.py:201-224`), read from three module
 settings, the counterparts of JAX's S4G_MLP_* flags (the port reads no
 environment variable; set the attributes, as the tests do):
 
-* `MLP_IMPL`: "auto" (fuse on CUDA tensors only, where the two settings
-  below allow), "unfused" (never; JAX's "xla") or "fused" (every eligible
-  chain, on any device; JAX's "pallas" / "pallas_interpret");
+* `MLP_IMPL`: "auto" (fuse bf16 chains of CUDA tensors only, where the two
+  settings below allow), "unfused" (never; JAX's "xla") or "fused" (every
+  eligible chain, any compute dtype, on any device; JAX's "pallas" /
+  "pallas_interpret");
 * `MLP_FUSE_MIN_ROWS`: "auto" fuses a chain of at least this many rows;
 * `MLP_FUSE_SCOPE`: "all" or "pooled" (only the SA stages' pooled chains).
 
-Defaults keep the route off, as in the JAX package.
+`fused_route` is the whole decision `SharedMLP.forward` takes: the rule,
+eval mode, and under "auto" a bf16 compute dtype.  The defaults fuse every
+eligible bf16 eval-mode chain on the card (a row floor of 1), where the JAX
+package keeps the route off after a TPU measurement.  On the H100 K7 beat
+the layer-by-layer route at every chain shape of the curvature (b = 1),
+contact (b = 4) and EDGEPN2DU (b = 4) forwards, CUDA-graph replays in turns;
+its f32 path took 2.32 ms at SA2's chain against 1.29 for plain f32 matmuls
+of the same chain, so f32 chains stay layer by layer.  CPU tensors under
+"auto" never fuse, so every CPU comparison with the JAX package runs its
+unfused route.  Each eval-mode chain adds one to the span counter
+`mlp.fused` or `mlp.unfused` (`utils.profiling.count`: nothing unless a
+profiler records).
 
 Two more settings, the counterparts of S4G_CAST_ACTIVATIONS and
 S4G_SA1_FUSE (`nn_layers.py:35, 42`):
@@ -67,11 +79,12 @@ from torch import nn
 
 from ..ops.mlp_chain import _pack, mlp_chain
 from ..parallel.mesh import global_ranks, global_rows, sum_over_ranks
+from ..utils import profiling
 
 BN_EPS = 1e-5
 
 MLP_IMPL = "auto"
-MLP_FUSE_MIN_ROWS = 1 << 60
+MLP_FUSE_MIN_ROWS = 1
 MLP_FUSE_SCOPE = "all"
 _MLP_IMPLS = ("auto", "unfused", "fused")
 _MLP_SCOPES = ("all", "pooled")
@@ -115,6 +128,18 @@ def fuses_chain(impl: str, min_rows: int, scope: str, shape: Sequence[int],
     unpooled_ok = max_pool_k is None and (force or scope == "all")
     eligible = (pooled_ok or unpooled_ok) and (force or rows >= min_rows)
     return impl != "unfused" and eligible and (force or on_cuda)
+
+
+def fused_route(shape: Sequence[int], max_pool_k: Optional[int],
+                dtype: torch.dtype, training: bool, on_cuda: bool) -> bool:
+    """Whether `SharedMLP.forward` runs a chain of compute dtype `dtype` on
+    an input of `shape` through K7: eval mode only (K7 has no backward),
+    `fuses_chain` under the module settings, and under "auto" a bf16
+    chain (K7's f32 path is slower than plain f32 matmuls on the card)."""
+    return (not training
+            and fuses_chain(MLP_IMPL, MLP_FUSE_MIN_ROWS, MLP_FUSE_SCOPE,
+                            shape, max_pool_k, on_cuda)
+            and (MLP_IMPL == "fused" or dtype == torch.bfloat16))
 
 
 class PointConv(nn.Module):
@@ -230,13 +255,16 @@ class SharedMLP(nn.ModuleList):
         """`max_pool_k`: max-pool the output over the second-to-last
         (neighbour) axis, which must have that size (`torch.amax`, which
         splits a tie's gradient evenly, as `jnp.max`).  The fused-chain
-        route (`fuses_chain`) runs the chain as one kernel instead in eval
-        mode.  `generator`: the dropout masks' draws (training mode with
+        route (`fused_route`) runs the chain as one kernel instead in eval
+        mode; each eval-mode chain counts `mlp.fused` or `mlp.unfused`.
+        `generator`: the dropout masks' draws (training mode with
         `dropout_prob` > 0 only)."""
-        if not self.training and fuses_chain(
-                MLP_IMPL, MLP_FUSE_MIN_ROWS, MLP_FUSE_SCOPE, x.shape,
-                max_pool_k, x.is_cuda):
+        if fused_route(x.shape, max_pool_k, self[0].dtype, self.training,
+                       x.is_cuda):
+            profiling.count("mlp.fused")
             return self.fused_eval(x, max_pool_k)
+        if not self.training:
+            profiling.count("mlp.unfused")
         drop = self.training and self.dropout_prob > 0.0
         for layer in self:
             x = layer(x)

@@ -18,8 +18,12 @@ numbers differ from `detect`'s at bf16 level, as in the JAX package.
 A YAML path in place of the model name selects another configuration of
 the same model, e.g. the reference-parity one (`curvature_model.yaml` with
 SORT_POINTS false and FPS_SHARDS 1: exact FPS, K6, and full-scan ball
-queries, K2f).  `models.nn_layers.MLP_IMPL = "fused"` runs every SharedMLP
-chain through K7 (the fused-chain configuration).
+queries, K2f).  On the card the eval forward runs every bf16 SharedMLP
+chain through K7 (`models.nn_layers.fused_route`, the default since the
+H100 measured K7 faster than the layer-by-layer route at every chain shape
+of the three configurations); `models.nn_layers.MLP_IMPL = "unfused"` turns
+that off, and "fused" runs every eligible chain through K7 (its twin on
+the CPU), f32 ones too.
 
 Weights come, in the JAX package's order, from an explicit `state_dict`,
 else the config's TEST.WEIGHT (a reference `.pth` / `.pt`, or a

@@ -6,6 +6,10 @@ Times `ops.sampling.farthest_point_sample(points, M, num_shards=G)` on a
 tool's input), REPS times under `utils.profiling.trace`, and sums the
 device time of every kernel the trace records: K1 (`csrc/fps_lane.cu`) at
 G = 128, K6 (`csrc/fps_exact.cu`) at G = 1 and at other shard counts.
+A trace that holds fewer FPS kernel executions than the block launched
+gives no time: after an earlier torch.profiler session in the process a
+later one can record the card's kernels in part or not at all, hence one
+variant a process.
 
 Usage: python -m s4g_tpu_torch.tools.measure_fps_sharded N M G
            [--trace-dir DIR] [--device cpu]
@@ -38,6 +42,7 @@ def main(argv=None) -> dict:
     add_device_arg(p)
     args = p.parse_args(argv)
 
+    from .. import _build
     from ..ops.sampling import farthest_point_sample
     from ..runtime.device import resolve_device
     from ..utils.profiling import device_kernel_times, trace
@@ -55,23 +60,31 @@ def main(argv=None) -> dict:
 
     fn()                                    # warm-up (first launches)
     synchronize(dev)
+    before = sum(_build.LAUNCHES.values())
     with trace(trace_dir) as prof:
         for _ in range(REPS):
             fn()
         synchronize(dev)
+    launched = sum(_build.LAUNCHES.values()) - before
     rows = device_kernel_times(prof)
+    recorded = sum(count for _, count, name in rows if "fps_" in name)
     ms = sum(r[0] for r in rows) / REPS
     label = device_label(dev)
     print(f"measure_fps_sharded ({label}): Chrome trace {prof.trace_file}")
     for k_ms, count, name in rows:
         print(f"{k_ms / REPS:9.4f} ms  x{count // REPS:<3d} {name[:90]}")
-    if rows:
+    complete = bool(rows) and recorded >= launched
+    if complete:
         print(f"N={n} M={m} G={g}: {ms:.3f} ms/exec (device)", flush=True)
+    elif rows:
+        print(f"N={n} M={m} G={g}: the trace holds {recorded} of the "
+              f"{launched} FPS kernel launches, no time ({label})",
+              flush=True)
     else:
         print(f"N={n} M={m} G={g}: no device time recorded ({label})",
               flush=True)
     return {"n": n, "m": m, "g": g, "device": label,
-            "device_ms_per_exec": ms if rows else None, "kernels": rows}
+            "device_ms_per_exec": ms if complete else None, "kernels": rows}
 
 
 if __name__ == "__main__":

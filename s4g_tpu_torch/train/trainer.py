@@ -5,11 +5,12 @@ One step: the batch to the device, augmentation, the forward in training
 mode (batch statistics, dropout masks from the trainer's generator), the
 loss dict summed, backward, the optimizer's update at the schedule's
 learning rate; the metrics come from the same predictions.  Validation
-runs in eval mode under `torch.no_grad()`.  Gradients are autograd's over
-plain torch ops: the JAX package has no backward kernel either, and
-training never takes the fused SA1 (K3) or chain (K7) kernels.  The
-indices, counts and distances of the neighbour kernels (K1, K2, K2f, K4)
-take no gradient.
+runs in eval mode under `torch.no_grad()` (on the card its bf16 chains
+take K7 and, at b >= 2, SA1 K3, as serving does).  Gradients are
+autograd's over plain torch ops: the JAX package has no backward kernel
+either, and a training step never takes the fused SA1 (K3) or chain (K7)
+kernels.  The indices, counts and distances of the neighbour kernels (K1,
+K2, K2f, K4) take no gradient.
 
 The step's scalars stay on the device until the log period, then come to
 the host in one copy: a copy per step would make every step wait for the

@@ -29,6 +29,7 @@ from s4g_tpu_torch.ops import sampling as sp
 from s4g_tpu_torch.pipeline import collision as col
 from s4g_tpu_torch.pipeline import preprocessing as tpre
 from s4g_tpu_torch.pipeline.detector import GraspDetector, prep_one
+from s4g_tpu_torch.utils import profiling
 from s4g_tpu_torch.utils.checkpoint import Checkpointer
 
 from outlier_boundary import outlier_flips
@@ -929,9 +930,10 @@ def test_fused_forward_packs_once_per_weights(cuda, monkeypatch):
 
 def test_deployed_batch_forward_packs_sa1_once(cuda, tmp_path):
     """The deployed curvature model at b = 2 runs SA1 on K3's operands
-    packed once per weights: a second `detect_batch` with unchanged
-    weights packs nothing (`nn_layers.PACK_CACHE`) and runs K3 (or, where
-    the windows overflow, its fallback) once."""
+    and its nine other chains on K7's, each packed once per weights: a
+    second `detect_batch` with unchanged weights packs nothing
+    (`nn_layers.PACK_CACHE`: ten hits) and runs K3 (or, where the windows
+    overflow, its fallback) once."""
     from grasp_bench import scenes
 
     det = GraspDetector(model="curvature_model", device="cuda",
@@ -950,9 +952,9 @@ def test_deployed_batch_forward_packs_sa1_once(cuda, tmp_path):
                 - k3)
 
     first, _ = forward()
-    assert first["packs"] <= 1
+    assert first["packs"] <= 10
     counts, k3 = forward()
-    assert counts == {"hits": 1, "packs": 0} and k3 == 1
+    assert counts == {"hits": 10, "packs": 0} and k3 == 1
 
 
 NARROW_DEPLOYED = {
@@ -993,7 +995,9 @@ def _narrow_forward(cuda, dense_column, centroids=None):
 def test_deployed_forward_scans_in_full_through_k2f(cuda, monkeypatch,
                                                     dense_column, full):
     """SA2 and SA3 are full scans (K2f); an overflowing SA1 adds its
-    fallback.  No ball query reaches the plain full scan on the card."""
+    fallback.  No ball query reaches the plain full scan on the card.
+    Every chain of the bf16 eval forward is K7 (ten chains, one piece
+    each), whichever route SA1's query takes."""
     monkeypatch.setattr(nb, "_ball_query_full",
                         lambda *a, **kw: pytest.fail("plain scan on the card"))
     before = dict(_build.LAUNCHES)
@@ -1003,7 +1007,7 @@ def test_deployed_forward_scans_in_full_through_k2f(cuda, monkeypatch,
     assert launched["ball_query_full"] == full
     assert launched["ball_query_slab"] == 3 - full
     assert nb.SLAB_FALLBACKS["overflow"] - fallbacks == full - 2
-    assert launched["mlp_chain"] == 0
+    assert launched["mlp_chain"] == 10
     assert bool(torch.isfinite(out["score"]).all())
 
 
@@ -1052,12 +1056,135 @@ def test_fused_chain_route_launches_k7(cuda, monkeypatch, settings, chains):
     assert bool(torch.isfinite(out["score"]).all())
 
 
+# The deployed detectors under the default settings: (model, call, batch,
+# K7 launches of the call); the edge model's, one a planned piece.  The
+# benchmark cell whose seeded weights each detector takes.
+DEFAULT_ROUTE = [("curvature_model", "detect", 1, 12),
+                 ("contact_model", "detect_batch", 4, 11),
+                 ("edgepn2du_model", "detect_batch", 4, None),
+                 ("curvature_model", "train_step", 2, 0)]
+WEIGHTS_CELL = {"curvature_model": "curvature.detect.vga",
+                "contact_model": "contact.detect_batch.vga_b4",
+                "edgepn2du_model": "edgepn2du.detect_batch_edge.vga_b4"}
+
+
+def _mlp_counts():
+    """The recorded spans' `mlp.fused` / `mlp.unfused` counts, summed; each
+    must lie in `detect.model` or a span right inside it."""
+    counts = {}
+    for s in profiling.spans():
+        for name in ("mlp.fused", "mlp.unfused"):
+            if name in s.counts:
+                assert "detect.model" in (s.name, s.parent), s.name
+                counts[name] = counts.get(name, 0) + s.counts[name]
+    return counts
+
+
+def _default_train_step(tmp_path, b):
+    """One train step of the deployed curvature model at batch `b` on two
+    seeded scene pickles."""
+    import pickle
+    from chip_smoke import _train_config, train_scene
+    from s4g_tpu_torch.train.dataset import SceneGraspDataset
+    from s4g_tpu_torch.train.trainer import Trainer
+    data = tmp_path / "data"
+    data.mkdir()
+    for i in range(2):
+        with open(data / f"{i}_view_0.p", "wb") as f:
+            pickle.dump(train_scene(np.random.RandomState(250 + i)), f)
+    cfg = _train_config(BATCH_SIZE=b)
+    batch = next(iter(SceneGraspDataset(
+        str(data), num_points=cfg.MODEL.PN2.NUM_INPUT, batch_size=b,
+        num_frame_points=128, seed=0)))
+    tr = Trainer(cfg, output_dir=str(tmp_path / "out"), device="cuda")
+    tr.init_state()
+    return lambda: tr.train_step(batch)
+
+
+@pytest.mark.parametrize("model,call,b,k7", DEFAULT_ROUTE)
+def test_default_route_runs_every_eval_chain_through_k7(cuda, tmp_path,
+                                                        monkeypatch, model,
+                                                        call, b, k7):
+    """Under the default settings (none patched) the deployed detectors'
+    eval forwards run every SharedMLP chain through K7, one launch a piece
+    `mlp_chain.chain_pieces` plans (FP1 and FP2 two each: curvature's
+    detect 12, contact's detect_batch at b = 4 11, SA1 being K3; the edge
+    model one a chain), and the spans inside `detect.model` count
+    `mlp.fused` once a chain and no `mlp.unfused`.  With the benchmark's
+    seeded weights (He-scaled, so activations keep their size through the
+    layers), the net's predictions on the call's input hold to the same
+    weights' CPU run on the fused twin (`MLP_IMPL` "fused"), every 3-NN on
+    the exact route on both devices, within the bf16 tolerances of the JAX
+    package's tests (max 5e-2, mean 5e-3) at each head's scale where that
+    exceeds 1.  A train step of the deployed curvature model launches no
+    K7 and counts neither."""
+    from grasp_bench import harness, scenes, weights
+    from grasp_bench.reference import edge
+    planned = []
+    pieces = mc.chain_pieces
+
+    def spy(widths, pool_k, compute_dtype):
+        out = pieces(widths, pool_k, compute_dtype)
+        planned.append(len(out))
+        return out
+
+    got = {}
+    if call == "train_step":
+        run = _default_train_step(tmp_path, b)
+    else:
+        _, config, _ = harness.cell_files(WEIGHTS_CELL[model])
+        make = edge.make_weights if model.startswith("edge") else weights.make
+        det = GraspDetector(model=model, device="cuda",
+                            output_dir=str(tmp_path),
+                            state_dict=make(config["model"], 4200002501,
+                                            cuda))
+        frames = [scenes.tabletop_cloud(scenes.rng(4200002501, 1, i),
+                                        n_plane=268800, n_box=38400)
+                  for i in range(b)]
+        kw = {"score_threshold": 0.0, "verticalness_threshold": -1e9}
+        run = ((lambda: det.detect(frames[0], **kw)) if call == "detect"
+               else (lambda: det.detect_batch(frames, **kw)))
+        det.net.register_forward_hook(
+            lambda module, inputs, output: got.update(
+                points=inputs[0]["scene_points"]))
+    run()
+    monkeypatch.setattr(mc, "chain_pieces", spy)
+    before = _build.LAUNCHES["mlp_chain"]
+    with profiling.trace(str(tmp_path / "trace")):
+        run()
+        torch.cuda.synchronize()
+    monkeypatch.setattr(mc, "chain_pieces", pieces)
+    launched = _build.LAUNCHES["mlp_chain"] - before
+    chains = len(planned)
+    assert launched == sum(planned) == (chains if k7 is None else k7)
+    assert _mlp_counts() == ({"mlp.fused": chains} if chains else {})
+    if call == "train_step":
+        return
+    monkeypatch.setattr(nb, "KERNEL_MIN_PAIRS", 0)
+    points = got["points"]
+    with torch.no_grad():
+        gpu = det.net({"scene_points": points})
+    twin = build_model(det.cfg)
+    twin.load_state_dict(det.net.state_dict())
+    monkeypatch.setattr(nnl, "MLP_IMPL", "fused")
+    with torch.no_grad():
+        want = twin({"scene_points": points.cpu()})
+    for key, w in want.items():
+        d = (gpu[key].cpu() - w).abs()
+        top, mean = float(w.abs().max()), float(w.abs().mean())
+        print(f"{model} {key}: max {float(d.max()):.3g} (of {top:.3g}), "
+              f"mean {float(d.mean()):.3g} (of {mean:.3g})")
+        assert float(d.max()) <= 5e-2 * max(1.0, top), key
+        assert float(d.mean()) <= 5e-3 * max(1.0, mean), key
+
+
 @pytest.mark.parametrize("setting,b,k3,k2", [("1", 1, 1, 0), ("0", 2, 0, 1)])
 def test_sa1_fuse_setting_routes_sa1(cuda, monkeypatch, setting, b, k3, k2):
     """`nn_layers.SA1_FUSE`: "1" runs SA1 through K3 at b = 1, "0" through
-    K2 at b = 2; the card's predictions against the CPU's (plain twins) on
-    the same weights, within the bf16 tolerances of the JAX package's
-    tests."""
+    K2 at b = 2; the card's predictions (its other chains K7, the default
+    route) against the CPU's (plain twins, the chains K7's: `MLP_IMPL`
+    "fused") on the same weights, within the bf16 tolerances of the JAX
+    package's tests."""
     monkeypatch.setattr(nnl, "SA1_FUSE", setting)
     rng = np.random.RandomState(2)
     pts = torch.from_numpy((rng.rand(b, 3, 16384) * [[[0.6], [0.4], [0.3]]]
@@ -1069,7 +1196,9 @@ def test_sa1_fuse_setting_routes_sa1(cuda, monkeypatch, setting, b, k3, k2):
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         net = build_model(load_cfg_from_dict(spec))
+    monkeypatch.setattr(nnl, "MLP_IMPL", "fused")
     want = net({"scene_points": pts})
+    monkeypatch.setattr(nnl, "MLP_IMPL", "auto")
     net = net.to(cuda)
     before = dict(_build.LAUNCHES)
     got = net({"scene_points": pts.to(cuda)})
@@ -1420,13 +1549,32 @@ def test_guard_probes_find_the_card(cuda):
     assert guard.kernels_build(timeout_s=600)
 
 
+_FPS_TOOL = """
+import json, sys
+from s4g_tpu_torch.tools import measure_fps_sharded
+print("RESULT " + json.dumps(measure_fps_sharded.main(sys.argv[1:])))
+"""
+
+
 def test_measure_fps_sharded_names_k1_and_k6(cuda, tmp_path):
     """The tool's trace, read by `device_kernel_times`, names K1's kernel
-    at G = 128 and K6's at G = 1, and their time is the device time."""
-    from s4g_tpu_torch.tools import measure_fps_sharded
+    at G = 128 and K6's at G = 1, and their time is the device time.  Each
+    variant runs in a process of its own, as the tool's usage says: after
+    an earlier torch.profiler session in a process, a later one records
+    the card's kernels in part or not at all (PERF.md, open questions)."""
+    import json
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     for g, name in ((128, "fps_lane_kernel"), (1, "fps_cluster_kernel")):
-        got = measure_fps_sharded.main(["25600", "5120", str(g),
-                                        "--trace-dir", str(tmp_path)])
+        out = subprocess.run(
+            [sys.executable, "-c", _FPS_TOOL, "25600", "5120", str(g),
+             "--trace-dir", str(tmp_path)],
+            capture_output=True, text=True, timeout=600, cwd=root)
+        assert out.returncode == 0, out.stderr[-2000:]
+        (line,) = [ln for ln in out.stdout.splitlines()
+                   if ln.startswith("RESULT ")]
+        got = json.loads(line[len("RESULT "):])
         names = [row[2] for row in got["kernels"]]
         assert any(name in n for n in names), names
         assert got["device_ms_per_exec"] > 0
@@ -1658,9 +1806,9 @@ def test_edge_model_detect_batch_holds_to_the_plain_reference(cuda,
     benchmark's seeded weights: each scene's predictions, taken at the
     net, against `grasp_bench/reference/edge.py` on the same model input,
     within the cell's `model_error` limit (bf16 products summed in other
-    orders); the forward launches K6 for the three sampled stages and K2f
-    for the three queried ones, and each frame returns min(5, its valid
-    candidates) grasps."""
+    orders); the forward launches K6 for the three sampled stages, K2f
+    for the three queried ones and K7 once for each of its twelve chains,
+    and each frame returns min(5, its valid candidates) grasps."""
     from grasp_bench import check, harness, scenes
     from grasp_bench.reference import edge
 
@@ -1680,9 +1828,10 @@ def test_edge_model_detect_batch_holds_to_the_plain_reference(cuda,
                                verticalness_threshold=-1e9)
     torch.cuda.synchronize()
     ran = {k: _build.LAUNCHES[k] - before[k] for k in before}
-    assert (ran["fps_exact"], ran["ball_query_full"]) == (3, 3), ran
+    assert (ran["fps_exact"], ran["ball_query_full"],
+            ran["mlp_chain"]) == (3, 3, 12), ran
     assert not any(ran[k] for k in ("fps_lane", "ball_query_slab",
-                                    "sa1_fused", "mlp_chain")), ran
+                                    "sa1_fused")), ran
     assert [len(poses) for poses, _ in results] == [
         min(5, n) for n in det.last_num_valid]
     for b in range(2):

@@ -255,6 +255,57 @@ def test_fuses_chain_rejects_unknown_settings():
         tnn.fuses_chain("fused", 1, "sa", (4, 3), None, True)
 
 
+# The default route (`fused_route` under the module settings' defaults,
+# `MLP_IMPL` as given): (impl, shape, max_pool_k, dtype, training, on_cuda)
+# -> fused?
+DEFAULT_ROUTE_CASES = [
+    ("auto", (1, 5120, 64, 3), 64, torch.bfloat16, False, True, True),
+    ("auto", (4, 25600, 256), None, torch.bfloat16, False, True, True),
+    ("auto", (1, 8, 16, 3), 16, torch.bfloat16, False, True, True),  # 128 rows
+    ("auto", (1, 5120, 64, 3), 64, torch.bfloat16, False, False, False),
+    ("auto", (1, 5120, 64, 3), 64, torch.bfloat16, True, True, False),
+    ("auto", (1, 5120, 64, 3), 64, torch.float32, False, True, False),
+    ("auto", (1, 8, 24, 3), 24, torch.bfloat16, False, True,
+     False),                                        # 24 ∤ 2048
+    ("unfused", (1, 5120, 64, 3), 64, torch.bfloat16, False, True, False),
+    ("unfused", (4, 25600, 256), None, torch.float32, False, False, False),
+    ("fused", (1, 5120, 64, 3), 64, torch.float32, False, False, True),
+    ("fused", (4, 25600, 256), None, torch.bfloat16, False, False, True),
+    ("fused", (1, 5120, 64, 3), 64, torch.float32, True, True, False),
+]
+
+
+@pytest.mark.parametrize("impl,shape,pool,dtype,training,on_cuda,fused",
+                         DEFAULT_ROUTE_CASES)
+def test_default_route_fuses_bf16_eval_chains_on_cuda(
+        monkeypatch, impl, shape, pool, dtype, training, on_cuda, fused):
+    """With the default row floor and scope, "auto" fuses an eligible chain
+    only on a CUDA tensor, in eval mode, at bf16; "unfused" never fuses,
+    "fused" fuses every eligible eval-mode chain, f32 too and on any
+    device; training mode never fuses (K7 has no backward)."""
+    monkeypatch.setattr(tnn, "MLP_IMPL", impl)
+    assert tnn.fused_route(shape, pool, dtype, training, on_cuda) is fused
+
+
+@pytest.mark.parametrize("impl,training,counts", [
+    ("auto", False, {"mlp.unfused": 1}),     # a CPU tensor: layer by layer
+    ("fused", False, {"mlp.fused": 1}),
+    ("fused", True, {}),                      # training mode: neither
+])
+def test_eval_chains_count_their_route(monkeypatch, tmp_path, impl,
+                                       training, counts):
+    """Each eval-mode chain adds one to `mlp.fused` or `mlp.unfused` on the
+    innermost open span, while a profiler records."""
+    from s4g_tpu_torch.utils import profiling
+    monkeypatch.setattr(tnn, "MLP_IMPL", impl)
+    mlp = tnn.SharedMLP(3, (16, 16), ndim=2).train(training)
+    with profiling.trace(str(tmp_path)):
+        with profiling.span("detect.model"):
+            mlp(torch.rand(1, 4, 8, 3), max_pool_k=8)
+    (span,) = profiling.spans()
+    assert span.counts == counts
+
+
 def test_default_route_stays_unfused_on_the_cpu(monkeypatch):
     """"auto" never fuses a CPU tensor, whatever the threshold; nor does a
     module in training mode."""

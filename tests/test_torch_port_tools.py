@@ -239,3 +239,27 @@ def test_tools_need_a_gpu_by_default(tool, argv, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no GPU"):
         tool.main(argv)
     assert os.listdir(tmp_path) == []            # nothing made before
+
+
+@pytest.mark.parametrize("recorded,ms", [(8, 0.02), (2, None), (0, None)])
+def test_measure_fps_sharded_takes_no_time_from_an_incomplete_trace(
+        monkeypatch, tmp_path, recorded, ms):
+    """The tool gives a time only where its trace holds every FPS kernel
+    launch of the traced block (one a call here, REPS in all); a trace
+    that lost some, as a later torch.profiler session in a process can
+    on the card, gives none."""
+    from s4g_tpu_torch import _build
+    from s4g_tpu_torch.ops import sampling
+    from s4g_tpu_torch.utils import profiling
+    monkeypatch.setattr(_build, "LAUNCHES", dict(_build.LAUNCHES))
+
+    def fps(points, m, num_shards):
+        _build.LAUNCHES["fps_lane"] += 1
+
+    monkeypatch.setattr(sampling, "farthest_point_sample", fps)
+    monkeypatch.setattr(profiling, "device_kernel_times", lambda prof: [
+        (0.02 * recorded, recorded, "fps_lane_kernel(float const*)")])
+    got = measure_fps_sharded.main(["2048", "256", "128", "--trace-dir",
+                                    str(tmp_path), *CPU])
+    assert measure_fps_sharded.REPS == 8
+    assert got["device_ms_per_exec"] == pytest.approx(ms)
